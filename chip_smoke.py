@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (sitewhere_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Phases (any failure prints its error and exits non-zero, with no result):
+  1. card: the GPU's name and power limit, torch/CUDA versions, and the
+     build of every CUDA kernel of the path (nvcc, in parallel, at first use);
+  2. kernel vs plain: each kernel held bit for bit against its plain torch
+     version on the card at the main path's shapes (and on adversarial
+     geometry), with CUDA-event timings beside the computed bound;
+  3. main path at full size: a 100k-device registry (131072 rows), 256
+     zones x 16 vertices, 16 threshold + 64 geofence rules, batches of
+     131072 events in the 60/30/10 measurement/location/alert mix, driven
+     through `PipelineEngine.submit` + `materialize_alerts` and one
+     `presence_sweep`; every kernel launch counted. The same trace then
+     runs through a second engine that takes the plain geofence version:
+     alerts, canonical state and presence transitions must be identical;
+  4. where the time goes: CUDA-event split of one step's stages.
+The last lines are the kernels' JSON line, the card line, and
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+SEED = 20260101
+# BASELINE config 3 at the repo's headline batch shape
+BATCH = 131072
+MAX_DEVICES = 131072
+N_REGISTERED = 100_000
+N_ZONES, N_VERTS = 256, 16
+N_THRESHOLD, N_GEOFENCE = 16, 64
+MEASUREMENT_SLOTS, MAX_TENANTS, MAX_RULES = 32, 16, 64
+WARMUP, STEPS, TIMED_REPS = 3, 20, 20
+# traffic is dated within 1 s of an epoch base set 10 s before the run; a
+# 1 s presence interval makes the sweep's transitions (every device seen)
+# independent of when it runs
+PRESENCE_MS = 1000
+EPOCH_LAG_MS = 10_000
+LAT_LON_BOX = (-5.0, 15.0)
+H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
+H100_HBM_BYTES_S = 3.35e12    # NVIDIA H100 SXM data sheet, HBM3
+
+
+# -- seeded geometry and traffic ------------------------------------------------
+
+def random_world(seed, B, Z, V, box=(-70.0, 70.0), radius=(2.0, 12.0)):
+    """Points [B] and convex-ish polygons [Z, V, 2] (lat, lon), each with
+    3..V vertices padded by repeating the last one."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(box[0], box[1], (Z, 2))
+    verts = np.zeros((Z, V, 2), np.float32)
+    for z in range(Z):
+        nv = int(rng.integers(3, V + 1))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, nv))
+        r = rng.uniform(radius[0], radius[1], nv)
+        pts = centers[z] + np.stack([r * np.sin(ang), r * np.cos(ang)], 1)
+        verts[z, :nv] = pts
+        verts[z, nv:] = pts[-1]
+    lat = rng.uniform(box[0], box[1], B).astype(np.float32)
+    lon = rng.uniform(box[0], box[1], B).astype(np.float32)
+    return lat, lon, verts
+
+
+def adversarial_world():
+    """Points exactly on vertices, on horizontal edges, one ulp either side
+    of edges and vertices, denormal and NaN/inf coordinates, against an
+    axis-aligned square, a slanted quadrilateral, a padded triangle, a zone
+    collapsed to one point, an all-zero zone and a zone whose coordinate
+    products are denormal."""
+    V = 6
+    square = [(0, 0), (0, 10), (10, 10), (10, 0)]
+    slanted = [(1.25, -3.5), (7.75, 2.125), (3.3, 9.1), (-2.2, 4.4)]
+    tri = [(-4, -4), (-1, -2), (-3, 1)]
+    tiny = [(1e-20, 1e-20), (3e-20, 2e-20), (2e-20, 4e-20)]
+    zones = []
+    for poly in (square, slanted, tri, [(5.5, 5.5)], [], tiny):
+        arr = np.zeros((V, 2), np.float32)
+        if poly:
+            p = np.asarray(poly, np.float32)
+            arr[:len(p)] = p
+            arr[len(p):] = p[-1]
+        zones.append(arr)
+    verts = np.stack(zones)
+    pts = []
+    for z in verts[:3]:
+        for v in range(V):
+            (y1, x1), (y2, x2) = z[v], z[(v + 1) % V]
+            pts.append((y1, x1))                       # on a vertex
+            for ty in (0.25, 0.5, 0.75):               # on / beside edges
+                y = np.float32(y1 + (y2 - y1) * ty)
+                if y2 != y1:
+                    x = np.float32(x1 + (x2 - x1) * (y - y1) / (y2 - y1))
+                else:
+                    x = np.float32(x1 + (x2 - x1) * ty)
+                for dx in (-np.inf, 0, np.inf):
+                    xx = x if dx == 0 else np.nextafter(x, np.float32(dx))
+                    pts.append((y, xx))
+                for dy in (-np.inf, np.inf):
+                    pts.append((np.nextafter(y, np.float32(dy)), x))
+            for d in (-np.inf, np.inf):
+                pts.append((np.nextafter(y1, np.float32(d)), x1))
+                pts.append((y1, np.nextafter(x1, np.float32(d))))
+    rng = np.random.default_rng(5)
+    pts += [(y, x) for y, x in rng.uniform(0.5e-20, 4.5e-20, (40, 2))]
+    pts += [(np.nan, 1.0), (1.0, np.nan), (np.inf, 5.0), (5.0, -np.inf),
+            (5.5, 5.5), (0.0, 0.0), (-0.0, -0.0)]
+    p = np.asarray(pts, np.float32)
+    return p[:, 0].copy(), p[:, 1].copy(), verts
+
+
+def synthetic_batch(packer, n_registered, batch, seed,
+                    p_types=(0.6, 0.3, 0.1)):
+    """One batch of the headline traffic: registered devices, the 60/30/10
+    measurement/location/alert mix, values U(0,100), lat/lon in the box, ts
+    within 1 s of the packer's epoch base."""
+    rng = np.random.default_rng(seed)
+    now = packer.epoch_base_ms
+    return packer.pack_columns(
+        rng.integers(1, n_registered + 1, batch).astype(np.int32),
+        rng.choice([0, 1, 2], size=batch, p=list(p_types)).astype(np.int32),
+        (now + rng.integers(0, 1000, batch)).astype(np.int64),
+        mm_idx=np.full(batch, 1, np.int32),
+        value=rng.uniform(0, 100, batch).astype(np.float32),
+        lat=rng.uniform(*LAT_LON_BOX, batch).astype(np.float32),
+        lon=rng.uniform(*LAT_LON_BOX, batch).astype(np.float32))
+
+
+# -- measurement helpers --------------------------------------------------------
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_cuda(fn, reps=TIMED_REPS, warmup=3):
+    """Median ms of `fn()` over `reps` runs, each between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def geofence_bound_ms(B, Z, V):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
+    operations over the f32 peak. Bytes: lat/lon read (8B), vertex tables
+    (16VZ), bool output written (BZ). Operations: 8 f32 ops per edge test,
+    the JAX package's own cost estimate (ops/pallas_geofence.py)."""
+    bytes_ms = (8 * B + 16 * V * Z + B * Z) / H100_HBM_BYTES_S * 1e3
+    ops_ms = 8.0 * B * Z * V / H100_F32_FLOPS * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+# -- phases ---------------------------------------------------------------------
+
+def phase_card():
+    from sitewhere_tpu_torch.ops import cuda_build
+
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
+        f" | device {name} x{torch.cuda.device_count()}")
+    sources = ["geofence"]
+    fresh = [s for s in sources if not cuda_build.library_path(s).exists()]
+    t0 = time.perf_counter()
+    cuda_build.build(sources)
+    log(f"[card] kernels {fresh} built in parallel in "
+        f"{time.perf_counter() - t0:.2f} s; {len(sources) - len(fresh)} "
+        f"found built")
+    for src in sources:
+        for line in cuda_build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[card] ptxas {src}: {line.strip()}")
+    return card, name
+
+
+def phase_kernel_vs_plain(dev, card):
+    from sitewhere_tpu_torch.ops.geofence import points_in_zones
+    from sitewhere_tpu_torch.ops.geofence_kernel import (
+        points_in_zones_kernel)
+
+    results = []
+
+    def compare(lat, lon, verts):
+        args = [torch.from_numpy(a).to(dev) for a in (lat, lon, verts)]
+        got = points_in_zones_kernel(*args)
+        ref = points_in_zones(*args)
+        torch.cuda.synchronize()
+        diff = got.to(torch.int8) - ref.to(torch.int8)
+        return args, int((diff != 0).sum()), int(diff.abs().max()) \
+            if diff.numel() else 0
+
+    _, mism, err = compare(*adversarial_world())
+    log(f"[kernel] adversarial fixture: mismatches={mism}")
+    if mism:
+        raise AssertionError(f"geofence kernel differs from plain on the "
+                             f"adversarial fixture ({mism} cells)")
+    for Z in (64, N_ZONES):
+        lat, lon, verts = random_world(SEED + Z, BATCH, Z, N_VERTS,
+                                       box=LAT_LON_BOX, radius=(0.5, 3.0))
+        args, mism, err = compare(lat, lon, verts)
+        kernel_ms = time_cuda(lambda: points_in_zones_kernel(*args))
+        plain_ms = time_cuda(lambda: points_in_zones(*args))
+        bound_ms, bound_by = geofence_bound_ms(BATCH, Z, N_VERTS)
+        row = {"B": BATCH, "Z": Z, "V": N_VERTS, "mismatches": mism,
+               "max_abs_err": float(err), "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        log(f"[kernel] points_in_zones {json.dumps(row)} on {card}")
+        if mism:
+            raise AssertionError(f"geofence kernel differs from plain at "
+                                 f"Z={Z} ({mism} cells)")
+        results.append(row)
+    return results
+
+
+def build_world(dev, geofence_impl, epoch_base_ms=None):
+    from sitewhere_tpu_torch.model import AlertLevel
+    from sitewhere_tpu_torch.pipeline import (
+        GeofenceRule, PipelineEngine, ThresholdRule)
+    from sitewhere_tpu_torch.registry import RegistryTensors
+
+    rng = np.random.default_rng(SEED)
+    reg = RegistryTensors(max_devices=MAX_DEVICES, max_zones=N_ZONES,
+                          max_zone_vertices=N_VERTS)
+    reg.mirror_devices([f"dev-{i}" for i in range(1, N_REGISTERED + 1)],
+                       tenant="tenant-1", device_type="sensor",
+                       area="area-1")
+    _, _, verts = random_world(SEED, 1, N_ZONES, N_VERTS, box=LAT_LON_BOX,
+                               radius=(0.5, 3.0))
+    for z in range(N_ZONES):
+        reg.mirror_zone(f"zone-{z}", "tenant-1",
+                        [tuple(v) for v in verts[z]], area="area-1")
+    engine = PipelineEngine(
+        reg, batch_size=BATCH, measurement_slots=MEASUREMENT_SLOTS,
+        max_tenants=MAX_TENANTS, max_threshold_rules=MAX_RULES,
+        max_geofence_rules=MAX_RULES,
+        presence_missing_interval_ms=PRESENCE_MS,
+        geofence_impl=geofence_impl,
+        device=dev)
+    engine.packer.epoch_base_ms = (
+        epoch_base_ms if epoch_base_ms is not None
+        else int(time.time() * 1000) - EPOCH_LAG_MS)
+    engine.packer.measurements.intern("m1")
+    for i in range(N_THRESHOLD):
+        engine.add_threshold_rule(ThresholdRule(
+            token=f"thr-{i}", measurement_name="m1", operator=">",
+            threshold=95.0 + i, alert_level=AlertLevel.WARNING))
+    zones = rng.permutation(N_ZONES)[:N_GEOFENCE]
+    for g, z in enumerate(zones):
+        engine.add_geofence_rule(GeofenceRule(
+            token=f"fence-{g}", zone_token=f"zone-{z}",
+            condition="inside" if g % 2 == 0 else "outside",
+            alert_level=AlertLevel(g % 4)))
+    engine.start()
+    return engine
+
+
+def _alert_keys(alerts):
+    return [(a.device_id, int(a.source), int(a.level), a.type, a.message,
+             a.event_date) for a in alerts]
+
+
+def run_trace(engine, batches):
+    """submit + materialize_alerts over `batches`; per-step wall seconds
+    (each ends in the lanes' host copy, which waits for the card) and the
+    materialized alert keys."""
+    walls, alerts = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        out = engine.submit(batch)
+        got = engine.materialize_alerts(batch, out)
+        walls.append(time.perf_counter() - t0)
+        alerts.append(_alert_keys(got))
+    return walls, alerts
+
+
+def phase_main_path(dev, card):
+    from sitewhere_tpu_torch.ops.geofence_kernel import (
+        points_in_zones_kernel)
+    t0 = time.perf_counter()
+    engine = build_world(dev, "auto")
+    batches = [synthetic_batch(engine.packer, N_REGISTERED, BATCH, SEED + s)
+               for s in range(WARMUP + STEPS)]
+    log(f"[main] world + {len(batches)} batches built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    points_in_zones_kernel.launches = 0
+    walls, alerts = run_trace(engine, batches)
+    state_before_sweep = engine.canonical_state()
+    t_sweep = time.perf_counter()
+    missing = engine.presence_sweep()
+    sweep_s = time.perf_counter() - t_sweep
+    launches = {"points_in_zones": points_in_zones_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if launches["points_in_zones"] != len(batches):
+        raise AssertionError(f"geofence kernel launched "
+                             f"{launches['points_in_zones']} times over "
+                             f"{len(batches)} steps; expected one per step")
+
+    timed = walls[WARMUP:]
+    events = BATCH * STEPS
+    stats = engine.stats()
+    summary = {
+        "events_per_s": events / sum(timed),
+        "step_ms_p50": float(np.percentile(timed, 50) * 1e3),
+        "step_ms_p99": float(np.percentile(timed, 99) * 1e3),
+        "steps": STEPS, "batch": BATCH,
+        "alerts_materialized": sum(len(a) for a in alerts[WARMUP:]),
+        "alerts_dropped": engine.alerts_dropped,
+        "tenant_events": stats["tenant_event_count"][1],
+        "presence_missing": len(missing), "presence_sweep_ms": sweep_s * 1e3,
+        "max_memory_allocated_bytes": peak,
+        "kernel_launches": launches["points_in_zones"],
+    }
+    log(f"[main] {json.dumps(summary)} on {card}")
+    if stats["tenant_event_count"][1] != BATCH * len(batches):
+        raise AssertionError(f"tenant event count {stats} != "
+                             f"{BATCH * len(batches)}")
+    if not missing or summary["alerts_materialized"] == 0:
+        raise AssertionError("main path fired no alerts or no presence "
+                             "transition")
+
+    plain = build_world(dev, "plain", engine.packer.epoch_base_ms)
+    _, plain_alerts = run_trace(plain, batches)
+    plain_state = plain.canonical_state()
+    plain_missing = plain.presence_sweep()
+    if plain_alerts != alerts:
+        bad = next(i for i, (a, b) in enumerate(zip(alerts, plain_alerts))
+                   if a != b)
+        raise AssertionError(f"kernel and plain engines materialized "
+                             f"different alerts at step {bad}")
+    # the sweep stamps each engine's own wall clock into
+    # presence_missing_since, so the state is compared before the sweeps
+    # and the sweeps by their transitions and presence bits
+    for name in plain_state.__dataclass_fields__:
+        a, b = getattr(state_before_sweep, name), getattr(plain_state, name)
+        if a.dtype == torch.float32:   # bit patterns: -0.0 and NaN count
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"canonical state differs in {name}")
+    if plain_missing != missing or not torch.equal(
+            engine.state.present, plain.state.present):
+        raise AssertionError("presence transitions differ")
+    log(f"[main] plain-geofence engine: identical alerts "
+        f"({summary['alerts_materialized']} timed), canonical state and "
+        f"presence transitions ({len(missing)})")
+    return engine, batches, summary, launches
+
+
+def phase_breakdown(engine, batches, card, reps=10):
+    """Where one step's time goes, three ways:
+      - host split of engine steps (host clock): submit() until it returns
+        (pack, H2D, enqueue of every op), the wait for the card after it,
+        and materialize_alerts after the card is done;
+      - device spans of the step's stages (CUDA events between the stage
+        functions of pipeline/step.py, run one after the other; a span
+        includes any wait of the card for the host's launches);
+      - the profiler over engine steps: device busy time (kernels and
+        copies) against the wall, and the ops that take the device time."""
+    from sitewhere_tpu_torch.ops.compact import compact_alert_lanes
+    from sitewhere_tpu_torch.ops.geofence import eval_geofence_rules
+    from sitewhere_tpu_torch.ops.pack import batch_to_blob, blob_to_batch
+    from sitewhere_tpu_torch.ops.segments import count_by_key
+    from sitewhere_tpu_torch.ops.threshold import eval_threshold_rules
+    from sitewhere_tpu_torch.pipeline.step import (
+        _placeholders, fold_device_state, validate_batch)
+
+    host = {"submit": [], "wait_for_card": [], "materialize": []}
+    for i in range(reps):
+        batch = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        out = engine.submit(batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        engine.materialize_alerts(batch, out)
+        t3 = time.perf_counter()
+        for key, dt in (("submit", t1 - t0), ("wait_for_card", t2 - t1),
+                        ("materialize", t3 - t2)):
+            host[key].append(dt * 1e3)
+    host_ms = {k: statistics.median(v) for k, v in host.items()}
+    log(f"[breakdown] engine step host split, ms (median of {reps}): "
+        f"{json.dumps(host_ms)} on {card}")
+
+    params, state = engine._ensure_params(), engine.state
+    names = ("h2d", "unpack", "rules", "geofence", "fold", "compact",
+             "fetch")
+    samples = {n: [] for n in names}
+    pack_ms = []
+    batch = batches[-1]
+    for _ in range(reps + 2):
+        t0 = time.perf_counter()
+        blob_np = batch_to_blob(batch)
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev[0].record()
+        blob = torch.from_numpy(blob_np).to(engine.device)
+        ev[1].record()
+        b = blob_to_batch(blob)
+        ev[2].record()
+        b, dtype, _ = validate_batch(params, b, state.num_devices)
+        thr = eval_threshold_rules(b, params.threshold, dtype)
+        ev[3].record()
+        geo = eval_geofence_rules(b, params.zones, params.geofence)
+        ev[4].record()
+        fold_device_state(state, b)
+        ev[5].record()
+        prog, model = _placeholders(b.valid.shape[0], b.valid.device)
+        count_by_key(b.tenant_idx, b.valid, MAX_TENANTS)
+        lanes = compact_alert_lanes(thr, geo, engine.alert_lane_capacity,
+                                    prog, model)
+        ev[6].record()
+        lanes.cpu()
+        ev[7].record()
+        ev[7].synchronize()
+        for i, n in enumerate(names):
+            samples[n].append(ev[i].elapsed_time(ev[i + 1]))
+    spans = {n: statistics.median(v[2:]) for n, v in samples.items()}
+    spans["host_pack"] = statistics.median(pack_ms[2:])
+    log(f"[breakdown] stage spans, ms (median of {reps}): "
+        f"{json.dumps(spans)} on {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[:n_prof]:
+            engine.materialize_alerts(batch, engine.submit(batch))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    prof_out = {
+        "steps": n_prof, "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": (device_us / 1e3 / n_prof
+                                    if device_us else "not measured"),
+        "device_idle_share": (1 - device_us / 1e3 / n_prof / wall_ms
+                              if device_us else "not measured"),
+        "top_device_ops_ms_per_step": {
+            e.key[:60]: e.self_device_time_total / 1e3 / n_prof
+            for e in top if e.self_device_time_total},
+    }
+    log(f"[breakdown] profiler: {json.dumps(prof_out)} on {card}")
+    return host_ms, spans, prof_out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available; this script measures "
+              "the card and does not run on the CPU", file=sys.stderr)
+        return 2
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        card, name = phase_card()
+        shapes = phase_kernel_vs_plain(dev, card)
+        engine, batches, summary, launches = phase_main_path(dev, card)
+        phase_breakdown(engine, batches, card)
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    main_shape = next(r for r in shapes if r["Z"] == N_ZONES)
+    kernels = [{
+        "name": "points_in_zones",
+        "route": "cuda",
+        "source": "sitewhere_tpu_torch/csrc/geofence.cu",
+        "replaces": "sitewhere_tpu/ops/pallas_geofence.py:63",
+        "launches": launches["points_in_zones"],
+        "mismatches": sum(r["mismatches"] for r in shapes),
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "ms": main_shape["kernel_ms"],
+        "kernel_ms": main_shape["kernel_ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+        "shapes": shapes,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
