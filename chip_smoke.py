@@ -8,7 +8,11 @@ Phases (any failure prints its error and exits non-zero, with no result):
      build of every CUDA kernel of the path (nvcc, in parallel, at first use);
   2. kernel vs plain: each kernel held bit for bit against its plain torch
      version on the card at the main path's shapes (and on adversarial
-     geometry), with CUDA-event timings beside the computed bound;
+     geometry), with CUDA-event timings beside the bound computed from the
+     inputs, on KERNEL_WORLDS: the main path's zones (Z=256), a quarter of
+     them (Z=64), zones wide enough that y-rejection almost never fires,
+     and the main path's zones with 32 vertices (the registry's default
+     max_zone_vertices);
   3. main path at full size: a 100k-device registry (131072 rows), 256
      zones x 16 vertices, 16 threshold + 64 geofence rules, batches of
      131072 events in the 60/30/10 measurement/location/alert mix, driven
@@ -42,14 +46,25 @@ N_ZONES, N_VERTS = 256, 16
 N_THRESHOLD, N_GEOFENCE = 16, 64
 MEASUREMENT_SLOTS, MAX_TENANTS, MAX_RULES = 32, 16, 64
 WARMUP, STEPS, TIMED_REPS = 3, 20, 20
+QUEUED_LAUNCHES = 10
+SPIN_CYCLES_PER_LAUNCH = 200_000   # ~0.1 ms of card clock per queued call
 # traffic is dated within 1 s of an epoch base set 10 s before the run; a
 # 1 s presence interval makes the sweep's transitions (every device seen)
 # independent of when it runs
 PRESENCE_MS = 1000
 EPOCH_LAG_MS = 10_000
 LAT_LON_BOX = (-5.0, 15.0)
+ZONE_RADIUS = (0.5, 3.0)      # the main path's zones
+WIDE_RADIUS = (20.0, 30.0)    # zones as wide as the box: little rejection
 H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
 H100_HBM_BYTES_S = 3.35e12    # NVIDIA H100 SXM data sheet, HBM3
+# phase 2's worlds of B=BATCH points: (name, seed, Z, V, zone radius)
+KERNEL_WORLDS = [
+    ("main_z64", SEED + 64, 64, N_VERTS, ZONE_RADIUS),
+    ("main_z256", SEED + N_ZONES, N_ZONES, N_VERTS, ZONE_RADIUS),
+    ("wide_z256", SEED + N_ZONES + 1, N_ZONES, N_VERTS, WIDE_RADIUS),
+    ("main_z256_v32", SEED + N_ZONES + 2, N_ZONES, 32, ZONE_RADIUS),
+]
 
 
 # -- seeded geometry and traffic ------------------------------------------------
@@ -77,14 +92,24 @@ def adversarial_world():
     of edges and vertices, denormal and NaN/inf coordinates, against an
     axis-aligned square, a slanted quadrilateral, a padded triangle, a zone
     collapsed to one point, an all-zero zone and a zone whose coordinate
-    products are denormal."""
+    products are denormal; zones with a NaN y vertex, a NaN x vertex, +inf
+    and -inf vertices, a flat zone (all y equal) and a zone whose ymin is
+    -0.0, with points exactly at every zone's ymin and ymax, one ulp either
+    side of each, and at +0.0 beside the -0.0 zone."""
     V = 6
     square = [(0, 0), (0, 10), (10, 10), (10, 0)]
     slanted = [(1.25, -3.5), (7.75, 2.125), (3.3, 9.1), (-2.2, 4.4)]
     tri = [(-4, -4), (-1, -2), (-3, 1)]
     tiny = [(1e-20, 1e-20), (3e-20, 2e-20), (2e-20, 4e-20)]
+    nan_y = [(0, 0), (np.nan, 5), (10, 10), (10, 0)]
+    nan_x = [(0, 0), (5, np.nan), (10, 10), (10, 0)]
+    pos_inf = [(0, 0), (np.inf, 5), (10, 10), (5, np.inf)]
+    neg_inf = [(-np.inf, 0), (4, -np.inf), (8, 8), (2, 6)]
+    flat = [(3, 0), (3, 10), (3, 5)]
+    neg_zero = [(-0.0, 0), (-0.0, 10), (6, 5)]
     zones = []
-    for poly in (square, slanted, tri, [(5.5, 5.5)], [], tiny):
+    for poly in (square, slanted, tri, [(5.5, 5.5)], [], tiny, nan_y, nan_x,
+                 pos_inf, neg_inf, flat, neg_zero):
         arr = np.zeros((V, 2), np.float32)
         if poly:
             p = np.asarray(poly, np.float32)
@@ -111,9 +136,18 @@ def adversarial_world():
             for d in (-np.inf, np.inf):
                 pts.append((np.nextafter(y1, np.float32(d)), x1))
                 pts.append((y1, np.nextafter(x1, np.float32(d))))
+    for z in verts:   # at each zone's y bounds (NaN ignored), ulps beside
+        ys, xs = z[:, 0], z[:, 1][np.isfinite(z[:, 1])]
+        xmid = np.float32((xs.min() + xs.max()) / 2) if xs.size else 0.0
+        for y0 in (np.nanmin(ys), np.nanmax(ys)):
+            for y in (np.nextafter(y0, np.float32(-np.inf)), y0,
+                      np.nextafter(y0, np.float32(np.inf))):
+                pts += [(y, xmid), (y, xmid - 20), (y, xmid + 20)]
+    pts += [(0.0, 5.0), (0.0, -1.0), (0.0, 11.0), (1.0, 5.0)]  # by -0.0
     rng = np.random.default_rng(5)
     pts += [(y, x) for y, x in rng.uniform(0.5e-20, 4.5e-20, (40, 2))]
     pts += [(np.nan, 1.0), (1.0, np.nan), (np.inf, 5.0), (5.0, -np.inf),
+            (-np.inf, 5.0), (5.0, np.inf), (np.nan, np.nan),
             (5.5, 5.5), (0.0, 0.0), (-0.0, -0.0)]
     p = np.asarray(pts, np.float32)
     return p[:, 0].copy(), p[:, 1].copy(), verts
@@ -151,7 +185,9 @@ def card_line():
 
 
 def time_cuda(fn, reps=TIMED_REPS, warmup=3):
-    """Median ms of `fn()` over `reps` runs, each between two CUDA events."""
+    """Median ms of `fn()` over `reps` runs, each between two CUDA events:
+    the call as a caller sees it, the host's launch latency included (the
+    kernels' `ms`, comparable across versions of this script)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -166,20 +202,50 @@ def time_cuda(fn, reps=TIMED_REPS, warmup=3):
     return statistics.median(times)
 
 
-def geofence_bound_ms(B, Z, V):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
+def time_cuda_queued(fn, reps=TIMED_REPS, warmup=3,
+                     launches=QUEUED_LAUNCHES):
+    """Median device ms of one `fn()` over `reps` samples. A sample is the
+    CUDA-event interval around `launches` back-to-back calls, divided by
+    their number; the card first spins (torch.cuda._sleep) while the host
+    enqueues them, so the host's launch latency stays out of the interval
+    (the kernels' `queued_ms`)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES_PER_LAUNCH * launches)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def geofence_bound_ms(B, Z, V, p_in):
+    """(bound_ms, bound_by, bound_dense_ms): the least time of the work
+    these inputs need, the larger of bytes over the HBM rate and f32
     operations over the f32 peak. Bytes: lat/lon read (8B), vertex tables
-    (16VZ), bool output written (BZ). Operations: 8 f32 ops per edge test,
-    the JAX package's own cost estimate (ops/pallas_geofence.py)."""
+    (16VZ), bool output written (BZ). Operations: 2 compares for each of
+    the B*Z pairs, and 8 f32 ops per edge (the JAX package's own cost
+    estimate, ops/pallas_geofence.py) for the p_in pairs whose point lies
+    in the zone's y-range. The dense bound counts 8 ops for every one of
+    the B*Z*V edge tests."""
     bytes_ms = (8 * B + 16 * V * Z + B * Z) / H100_HBM_BYTES_S * 1e3
-    ops_ms = 8.0 * B * Z * V / H100_F32_FLOPS * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms \
-        else (bytes_ms, "bytes")
+    ops_ms = (2.0 * B * Z + 8.0 * V * p_in) / H100_F32_FLOPS * 1e3
+    dense_ms = max(bytes_ms, 8.0 * B * Z * V / H100_F32_FLOPS * 1e3)
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", dense_ms
+    return bytes_ms, "bytes", dense_ms
 
 
 # -- phases ---------------------------------------------------------------------
 
 def phase_card():
+    """The card line and name; builds every kernel; returns (card, name)."""
     from sitewhere_tpu_torch.ops import cuda_build
 
     name = torch.cuda.get_device_name(0)
@@ -201,41 +267,55 @@ def phase_card():
 
 
 def phase_kernel_vs_plain(dev, card):
-    from sitewhere_tpu_torch.ops.geofence import points_in_zones
+    """The geofence kernel bit for bit against the plain version on the
+    adversarial fixture and on KERNEL_WORLDS; per world the share of
+    (point, zone) pairs y-rejection drops, the kernel's CUDA-event medians
+    per call (`kernel_ms`) and queued (`kernel_queued_ms`), the plain
+    version's, and the bounds of geofence_bound_ms."""
+    from sitewhere_tpu_torch.ops.geofence import (
+        points_in_zones, zone_reject_mask)
     from sitewhere_tpu_torch.ops.geofence_kernel import (
-        points_in_zones_kernel)
+        launch_plan, points_in_zones_kernel)
 
     results = []
+
+    def mismatches(got, ref):
+        diff = got.to(torch.int8) - ref.to(torch.int8)
+        return int((diff != 0).sum()), \
+            int(diff.abs().max()) if diff.numel() else 0
 
     def compare(lat, lon, verts):
         args = [torch.from_numpy(a).to(dev) for a in (lat, lon, verts)]
         got = points_in_zones_kernel(*args)
         ref = points_in_zones(*args)
         torch.cuda.synchronize()
-        diff = got.to(torch.int8) - ref.to(torch.int8)
-        return args, int((diff != 0).sum()), int(diff.abs().max()) \
-            if diff.numel() else 0
+        return (args, ref, *mismatches(got, ref))
 
-    _, mism, err = compare(*adversarial_world())
+    _, _, mism, err = compare(*adversarial_world())
     log(f"[kernel] adversarial fixture: mismatches={mism}")
     if mism:
         raise AssertionError(f"geofence kernel differs from plain on the "
                              f"adversarial fixture ({mism} cells)")
-    for Z in (64, N_ZONES):
-        lat, lon, verts = random_world(SEED + Z, BATCH, Z, N_VERTS,
-                                       box=LAT_LON_BOX, radius=(0.5, 3.0))
-        args, mism, err = compare(lat, lon, verts)
-        kernel_ms = time_cuda(lambda: points_in_zones_kernel(*args))
-        plain_ms = time_cuda(lambda: points_in_zones(*args))
-        bound_ms, bound_by = geofence_bound_ms(BATCH, Z, N_VERTS)
-        row = {"B": BATCH, "Z": Z, "V": N_VERTS, "mismatches": mism,
-               "max_abs_err": float(err), "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+    for world, seed, Z, V, radius in KERNEL_WORLDS:
+        lat, lon, verts = random_world(seed, BATCH, Z, V, box=LAT_LON_BOX,
+                                       radius=radius)
+        args, ref, mism, err = compare(lat, lon, verts)
+        p_in = int((~zone_reject_mask(*args)).sum())
+        row = {"world": world, "B": BATCH, "Z": Z, "V": V,
+               "mismatches": mism, "max_abs_err": float(err), "P_in": p_in,
+               "rejected_share": 1.0 - p_in / (BATCH * Z),
+               "plan": launch_plan(BATCH, Z, V, dev.index)}
+        row["kernel_ms"] = time_cuda(lambda: points_in_zones_kernel(*args))
+        row["kernel_queued_ms"] = time_cuda_queued(
+            lambda: points_in_zones_kernel(*args))
+        row["plain_ms"] = time_cuda(lambda: points_in_zones(*args), reps=5)
+        row["bound_ms"], row["bound_by"], row["bound_dense_ms"] = \
+            geofence_bound_ms(BATCH, Z, V, p_in)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         log(f"[kernel] points_in_zones {json.dumps(row)} on {card}")
         if mism:
-            raise AssertionError(f"geofence kernel differs from plain at "
-                                 f"Z={Z} ({mism} cells)")
+            raise AssertionError(f"geofence kernel differs from plain on "
+                                 f"{world} ({mism} cells)")
         results.append(row)
     return results
 
@@ -253,7 +333,7 @@ def build_world(dev, geofence_impl, epoch_base_ms=None):
                        tenant="tenant-1", device_type="sensor",
                        area="area-1")
     _, _, verts = random_world(SEED, 1, N_ZONES, N_VERTS, box=LAT_LON_BOX,
-                               radius=(0.5, 3.0))
+                               radius=ZONE_RADIUS)
     for z in range(N_ZONES):
         reg.mirror_zone(f"zone-{z}", "tenant-1",
                         [tuple(v) for v in verts[z]], area="area-1")
@@ -493,7 +573,7 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    main_shape = next(r for r in shapes if r["Z"] == N_ZONES)
+    main_shape = next(r for r in shapes if r["world"] == "main_z256")
     kernels = [{
         "name": "points_in_zones",
         "route": "cuda",
@@ -504,9 +584,12 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],
         "kernel_ms": main_shape["kernel_ms"],
+        "queued_ms": main_shape["kernel_queued_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
+        "bound_dense_ms": main_shape["bound_dense_ms"],
+        "P_in": main_shape["P_in"],
         "library_ms": None,
         "shapes": shapes,
     }]

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -44,6 +44,12 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_command(source: Path, output: Path) -> List[str]:
+    """The nvcc command line that builds `source` into the library
+    `output`."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(output), str(source)]
+
+
 def library_path(name: str) -> Path:
     """Where the library built from csrc/<name>.cu lives (hash-keyed)."""
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
@@ -59,16 +65,13 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         log = open(path.with_suffix(".so.log"), "w")
         procs[name] = (
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC_DIR / f"{name}.cu")],
-                stdout=log, stderr=subprocess.STDOUT),
+            subprocess.Popen(nvcc_command(CSRC_DIR / f"{name}.cu", tmp),
+                             stdout=log, stderr=subprocess.STDOUT),
             tmp, log)
     failed = []
     for name, (proc, tmp, log) in procs.items():

@@ -11,6 +11,8 @@ Two implementations of the containment matrix:
     [B, Z] tensors. The CPU path and the semantics the kernel is held to.
   - `ops/geofence_kernel.py`: the hand-written CUDA kernel, launched for
     every CUDA tensor (no zone-count cut-over).
+`zone_reject_mask` is the kernel's exact y-rejection predicate in plain
+torch, for the tests and for chip_smoke.py's work count.
 """
 
 from __future__ import annotations
@@ -92,6 +94,32 @@ def points_in_zones(lat: torch.Tensor, lon: torch.Tensor,
         x_at_y = ftz(x1 + ftz(ftz(ftz(x2 - x1) * ftz(py - y1)) / safe_dy))
         parity ^= straddles & (px < x_at_y)
     return parity
+
+
+def zone_reject_mask(lat: torch.Tensor, lon: torch.Tensor,
+                     vertices: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's exact y-rejection, plain torch: bool [B, Z], true
+    where the point's py lies below the zone's least flushed vertex y or at
+    or above its greatest, so that no edge can straddle the point's ray and
+    the pair is outside (the proof is in csrc/geofence.cu). A zone with any
+    NaN coordinate is never rejected; a NaN point never is either. The
+    kernel makes no x-rejection, so `lon` does not enter. Used by the tests
+    and by chip_smoke.py's count of the pairs the kernel must walk."""
+    del lon
+    ftz = flush_denormals
+    vertices = ftz(vertices)
+    Z, V = vertices.shape[0], vertices.shape[1]
+    y = vertices[:, :, 0]
+    if V:
+        ymin, ymax = y.amin(dim=1), y.amax(dim=1)
+    else:   # no vertex: the empty min and max, as in the kernel
+        ymin = torch.full((Z,), float("inf"), device=y.device)
+        ymax = torch.full((Z,), float("-inf"), device=y.device)
+    has_nan = torch.isnan(vertices).flatten(1).any(dim=1)
+    ymin = torch.where(has_nan, float("nan"), ymin)
+    ymax = torch.where(has_nan, float("nan"), ymax)
+    py = ftz(lat)[:, None]
+    return (py < ymin[None, :]) | (py >= ymax[None, :])
 
 
 def _containment(lat: torch.Tensor, lon: torch.Tensor,

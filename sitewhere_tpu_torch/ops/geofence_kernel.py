@@ -5,8 +5,11 @@
 `points_in_zones_kernel(lat, lon, vertices)` computes the same bool [B, Z]
 as the plain `ops.geofence.points_in_zones`, bit for bit. On CPU tensors it
 IS the plain version; on CUDA tensors it launches the kernel (built at first
-use, see ops/cuda_build.py) on the current stream without synchronising, or
-raises — it never takes the plain path for a CUDA tensor.
+use, see ops/cuda_build.py) once, on the current stream, without
+synchronising, or raises — it never takes the plain path for a CUDA tensor.
+The kernel sizes its own grid and shared memory (one persistent block per
+SM, zones walked in chunks when the table is large); `launch_plan` reports
+the choice.
 `points_in_zones_kernel.launches` counts kernel launches.
 """
 
@@ -31,6 +34,9 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.swt_error_string.argtypes = [ctypes.c_int]
         lib.swt_error_string.restype = ctypes.c_char_p
+        lib.swt_points_in_zones_plan.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.swt_points_in_zones_plan.restype = ctypes.c_int
     return lib
 
 
@@ -80,3 +86,22 @@ def points_in_zones_kernel(lat: torch.Tensor, lon: torch.Tensor,
 
 
 points_in_zones_kernel.launches = 0
+
+
+def launch_plan(B: int, Z: int, V: int, device: int = 0) -> dict:
+    """How the kernel launches for these sizes on CUDA card `device`: zones
+    per chunk, points per tile, dynamic shared bytes, blocks per SM, grid,
+    and where the zone table is read from ("registers": staged, V <= 32
+    vertex y's in registers; "shared": staged; "global": zones too large to
+    stage).
+    For reports; launches nothing."""
+    lib = _library()
+    plan = (ctypes.c_int * 6)()
+    rc = lib.swt_points_in_zones_plan(B, Z, V, device, plan)
+    if rc != 0:
+        raise RuntimeError(f"geofence kernel plan failed: "
+                           f"{lib.swt_error_string(rc).decode()}")
+    out = dict(zip(("zones_per_chunk", "points_per_tile", "shared_bytes",
+                    "blocks_per_sm", "grid"), plan))
+    out["zone_table"] = ("registers", "registers", "shared", "global")[plan[5]]
+    return out
