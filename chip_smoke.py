@@ -20,7 +20,18 @@ Phases (any failure prints its error and exits non-zero, with no result):
      `presence_sweep`; every kernel launch counted. The same trace then
      runs through a second engine that takes the plain geofence version:
      alerts, canonical state and presence transitions must be identical;
-  4. where the time goes: CUDA-event split of one step's stages.
+  4. where the time goes: CUDA-event split of one step's stages;
+  5. stateful path at full size: the world of phase 3 with the engine's
+     stateful buckets at the JAX engine's defaults (32 rule programs x 16
+     nodes x 8 state slots, 8 anomaly models x 4 features x 2 layers x
+     width 8, 8 actuation policies, a 64-slot command lane), rule programs
+     that run every ProgramOp, MLP and autoencoder models and two
+     actuation policies, under traffic whose measurements spread over m1
+     and m2; B1 launches counted, CUDA-event spans of the stateful stages
+     and a profile. The first STATEFUL_CPU_STEPS batches then run through
+     the same engine built on the CPU: alerts, command fires, every state
+     group (f32 as bit patterns) and every counter must be identical, the
+     per-row anomaly scores within rtol=1e-4, atol=1e-5.
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -56,6 +67,11 @@ EPOCH_LAG_MS = 10_000
 LAT_LON_BOX = (-5.0, 15.0)
 ZONE_RADIUS = (0.5, 3.0)      # the main path's zones
 WIDE_RADIUS = (20.0, 30.0)    # zones as wide as the box: little rejection
+# phase 5: the card engine's first STATEFUL_CPU_STEPS steps are held
+# against the same engine on the CPU; anomaly scores carry the JAX
+# package's own tolerance (tanh/exp differ in the last bits)
+STATEFUL_CPU_STEPS = 4
+SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-5
 H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
 H100_HBM_BYTES_S = 3.35e12    # NVIDIA H100 SXM data sheet, HBM3
 # phase 2's worlds of B=BATCH points: (name, seed, Z, V, zone radius)
@@ -154,20 +170,23 @@ def adversarial_world():
 
 
 def synthetic_batch(packer, n_registered, batch, seed,
-                    p_types=(0.6, 0.3, 0.1)):
+                    p_types=(0.6, 0.3, 0.1), mm_slots=(1,), t_off_ms=0):
     """One batch of the headline traffic: registered devices, the 60/30/10
     measurement/location/alert mix, values U(0,100), lat/lon in the box, ts
-    within 1 s of the packer's epoch base."""
+    within 1 s of the packer's epoch base plus `t_off_ms`. Measurements go
+    to slot 1 (m1), or uniformly over `mm_slots`."""
     rng = np.random.default_rng(seed)
-    now = packer.epoch_base_ms
-    return packer.pack_columns(
-        rng.integers(1, n_registered + 1, batch).astype(np.int32),
-        rng.choice([0, 1, 2], size=batch, p=list(p_types)).astype(np.int32),
-        (now + rng.integers(0, 1000, batch)).astype(np.int64),
-        mm_idx=np.full(batch, 1, np.int32),
-        value=rng.uniform(0, 100, batch).astype(np.float32),
-        lat=rng.uniform(*LAT_LON_BOX, batch).astype(np.float32),
-        lon=rng.uniform(*LAT_LON_BOX, batch).astype(np.float32))
+    now = packer.epoch_base_ms + t_off_ms
+    cols = (rng.integers(1, n_registered + 1, batch).astype(np.int32),
+            rng.choice([0, 1, 2], size=batch, p=list(p_types))
+            .astype(np.int32),
+            (now + rng.integers(0, 1000, batch)).astype(np.int64))
+    kw = dict(value=rng.uniform(0, 100, batch).astype(np.float32),
+              lat=rng.uniform(*LAT_LON_BOX, batch).astype(np.float32),
+              lon=rng.uniform(*LAT_LON_BOX, batch).astype(np.float32))
+    mm = (np.full(batch, mm_slots[0], np.int32) if len(mm_slots) == 1
+          else rng.choice(mm_slots, batch).astype(np.int32))
+    return packer.pack_columns(*cols, mm_idx=mm, **kw)
 
 
 # -- measurement helpers --------------------------------------------------------
@@ -529,9 +548,23 @@ def phase_breakdown(engine, batches, card, reps=10):
     log(f"[breakdown] stage spans, ms (median of {reps}): "
         f"{json.dumps(spans)} on {card}")
 
+    prof_out = profile_engine(engine, batches)
+    log(f"[breakdown] profiler: {json.dumps(prof_out)} on {card}")
+    return host_ms, spans, prof_out
+
+
+def profile_engine(engine, batches, n_prof=5):
+    """The profiler over `n_prof` engine steps (submit + materialize): the
+    device's busy time against the wall, its idle share, the device events
+    (kernels, copies, memsets) launched, and the ops that take the device
+    time, per step. Busy time sums the device events once each. The
+    profiler also books each kernel's time under the op that launched it,
+    so a sum over all events counts it twice; earlier versions of this
+    script reported that sum as busy time, and it is printed beside as
+    `all_events_sum_ms_per_step` for comparison with their records."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n_prof = 5
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -540,21 +573,318 @@ def phase_breakdown(engine, batches, card, reps=10):
             engine.materialize_alerts(batch, engine.submit(batch))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    engine.take_command_fires()
     events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    prof_out = {
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in on_device)
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
+    return {
         "steps": n_prof, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": (device_us / 1e3 / n_prof
                                     if device_us else "not measured"),
         "device_idle_share": (1 - device_us / 1e3 / n_prof / wall_ms
                               if device_us else "not measured"),
+        "device_events_per_step": sum(e.count for e in on_device) / n_prof,
+        "all_events_sum_ms_per_step": sum(
+            e.self_device_time_total for e in events) / 1e3 / n_prof,
         "top_device_ops_ms_per_step": {
             e.key[:60]: e.self_device_time_total / 1e3 / n_prof
             for e in top if e.self_device_time_total},
     }
-    log(f"[breakdown] profiler: {json.dumps(prof_out)} on {card}")
-    return host_ms, spans, prof_out
+
+
+# -- phase 5: the stateful stages ------------------------------------------------
+
+# the bench tier's programs (bench.py), then programs that between them run
+# every other ProgramOp; each fires only now and then on this traffic
+STATEFUL_PROGRAMS = [
+    {"token": "bench-composite", "alert_level": "WARNING",
+     "when": {"all": [
+         {"pred": "value", "measurement": "m1", "op": ">", "value": 98.0},
+         {"debounce": {"pred": "value", "measurement": "m1", "op": ">",
+                       "value": 60.0}, "count": 3}]}},
+    {"token": "bench-hyst", "alert_level": "ERROR",
+     "when": {"hysteresis": {
+         "arm": {"pred": "value", "measurement": "m1", "op": ">",
+                 "value": 99.5},
+         "disarm": {"pred": "value", "measurement": "m1", "op": "<",
+                    "value": 5.0}}}},
+    {"token": "ewma-hot", "alert_level": "WARNING",
+     "when": {"pred": "ewma", "measurement": "m1", "op": ">", "value": 85.0,
+              "alpha": 0.2}},
+    {"token": "rate-spike", "alert_level": "ERROR",
+     "when": {"pred": "rate", "measurement": "m2", "op": ">",
+              "value": 300.0}},
+    {"token": "hot-and-dry", "alert_level": "CRITICAL",
+     "when": {"for_duration": {"all": [
+         {"pred": "value", "measurement": "m1", "op": ">", "value": 90.0},
+         {"pred": "value", "measurement": "m2", "op": "<", "value": 10.0}]},
+         "ms": 500}},
+    {"token": "edge-band", "alert_level": "INFO",
+     "when": {"all": [
+         {"not": {"pred": "value", "measurement": "m1", "op": ">=",
+                  "value": 2.0}},
+         {"any": [
+             {"pred": "value", "measurement": "m2", "op": ">",
+              "value": 99.0},
+             {"pred": "value", "measurement": "m2", "op": "<",
+              "value": 1.0}]}]}},
+]
+# bench.py's two models, and an autoencoder over a value and a rate feature
+STATEFUL_MODELS = [
+    {"token": "bench-hot", "kind": "mlp", "threshold": 0.5,
+     "alert_level": "WARNING", "alert_type": "anomaly.bench.hot",
+     "features": [{"feature": "value", "measurement": "m1",
+                   "mean": 50.0, "std": 25.0}],
+     "layers": [{"weights": [[1.0]], "bias": [0.0]}],
+     "output": {"weights": [40.0], "bias": -38.3}},
+    {"token": "bench-drift", "kind": "mlp", "threshold": 0.5,
+     "alert_level": "ERROR", "alert_type": "anomaly.bench.drift",
+     "features": [{"feature": "ewma", "measurement": "m1",
+                   "alpha": 0.1, "mean": 50.0, "std": 25.0}],
+     "layers": [{"weights": [[1.0]], "bias": [0.0]}],
+     "output": {"weights": [40.0], "bias": -38.3}},
+    {"token": "ae-m2", "kind": "autoencoder", "threshold": 2.5,
+     "alert_level": "CRITICAL", "alert_type": "anomaly.ae",
+     "features": [{"feature": "value", "measurement": "m2",
+                   "mean": 50.0, "std": 30.0},
+                  {"feature": "rate", "measurement": "m1",
+                   "mean": 0.0, "std": 100.0}],
+     "layers": [{"weights": [[0.7, 0.2], [-0.3, 0.9], [0.5, 0.5]],
+                 "bias": [0.0, 0.1, -0.1]},
+                {"weights": [[0.9, -0.2, 0.3], [0.1, 0.8, -0.4]],
+                 "bias": [0.05, -0.05]}]},
+]
+# bench.py's policy (threshold fires, no debounce), and one on program
+# fires with a debounce window
+STATEFUL_POLICIES = [
+    {"token": "bench-act", "source": "threshold", "min_level": "WARNING",
+     "debounce_ms": 0, "command": "bench-cmd", "params": []},
+    {"token": "on-program", "source": "program", "min_level": "INFO",
+     "debounce_ms": 20000, "command": "inspect", "params": [1, 2]},
+]
+
+
+def build_stateful_world(dev, epoch_base_ms=None):
+    """Phase 3's world with the stateful families installed; the engine's
+    stateful buckets are its defaults, the JAX engine's."""
+    engine = build_world(dev, "auto", epoch_base_ms)
+    engine.packer.measurements.intern("m2")
+    for spec in STATEFUL_PROGRAMS:
+        engine.upsert_rule_program(dict(spec))
+    for spec in STATEFUL_MODELS:
+        engine.upsert_anomaly_model(dict(spec))
+    for spec in STATEFUL_POLICIES:
+        engine.upsert_actuation_policy(dict(spec))
+    engine.start()
+    return engine
+
+
+def stateful_snapshot(engine):
+    """Every state group (CPU copies) and every per-family counter."""
+    return {"state": engine.canonical_state(),
+            "rule": engine.canonical_rule_state(),
+            "model": engine.canonical_model_state(),
+            "actuation": engine.canonical_actuation_state(),
+            "counters": (engine.rule_program_counters(),
+                         engine.anomaly_model_counters(),
+                         engine.actuation_policy_counters())}
+
+
+def run_stateful_trace(engine, batches, n_check):
+    """submit + materialize_alerts + take_command_fires over `batches`.
+    Returns per-step walls and materialized-alert counts, then for the
+    first `n_check` steps the alert keys, command fires and per-row anomaly
+    scores, the snapshot after step `n_check`, and the per-family
+    fired-row counts of all steps (on the device, summed after each step's
+    wall)."""
+    walls, counts, alerts, fires, scores, snap = [], [], [], [], [], None
+    families = torch.zeros(4, dtype=torch.int64, device=engine.device)
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        out = engine.submit(batch)
+        got = engine.materialize_alerts(batch, out)
+        fired = engine.take_command_fires()
+        walls.append(time.perf_counter() - t0)
+        counts.append(len(got))
+        families += torch.stack([out.threshold_fired.sum(),
+                                 out.geofence_fired.sum(),
+                                 out.program_fired.sum(),
+                                 out.model_fired.sum()])
+        if i < n_check:
+            alerts.append(_alert_keys(got))
+            fires.append(fired)
+            scores.append(out.model_score.cpu())
+        if i + 1 == n_check:
+            snap = stateful_snapshot(engine)
+    return (walls, counts, alerts, fires, scores, snap,
+            families.cpu().tolist())
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def compare_snapshots(card, cpu):
+    """Raise unless two stateful snapshots are identical (f32 as bit
+    patterns)."""
+    for group in ("state", "rule", "model", "actuation"):
+        a, b = card[group], cpu[group]
+        for name in a.__dataclass_fields__:
+            if not torch.equal(_bits(getattr(a, name)),
+                               _bits(getattr(b, name))):
+                raise AssertionError(f"card and CPU engines differ in "
+                                     f"{group} state field {name}")
+    if card["counters"] != cpu["counters"]:
+        raise AssertionError(f"card and CPU counters differ: "
+                             f"{card['counters']} != {cpu['counters']}")
+
+
+def stateful_spans(engine, batch, card, reps=10):
+    """CUDA-event spans of one step's stages on the stateful path: stages
+    1-3 (unpack, validate, rules, geofence, fold), the shared sorted row
+    view, 3b rule programs, 3c anomaly models, 3d actuation, 4 lanes. The
+    stages run one after the other on copies of the engine's state groups
+    (they update slabs in place), so a span includes any wait of the card
+    for the host's launches."""
+    from sitewhere_tpu_torch.ops.actuate import eval_actuation_policies
+    from sitewhere_tpu_torch.ops.anomaly import eval_anomaly_models
+    from sitewhere_tpu_torch.ops.compact import compact_alert_lanes
+    from sitewhere_tpu_torch.ops.geofence import eval_geofence_rules
+    from sitewhere_tpu_torch.ops.pack import batch_to_blob, blob_to_batch
+    from sitewhere_tpu_torch.ops.stateful import eval_rule_programs
+    from sitewhere_tpu_torch.ops.threshold import eval_threshold_rules
+    from sitewhere_tpu_torch.pipeline.step import (
+        fold_device_state, stateful_rows, validate_batch)
+    from sitewhere_tpu_torch.tree import tree_map
+
+    params, state = engine._ensure_params(), engine.state
+    node_limit = engine._step_flags["program_node_limit"]
+    rs, ms, acts = (tree_map(torch.clone, g) for g in (
+        engine._rule_state, engine._model_state, engine._actuation_state))
+    blob = torch.from_numpy(batch_to_blob(batch)).to(engine.device)
+    names = ("stages_1_3", "sorted_rows", "3b_programs", "3c_models",
+             "3d_actuation", "4_lanes")
+    samples = {n: [] for n in names}
+    for _ in range(reps + 2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        b, dtype, _ = validate_batch(params, blob_to_batch(blob),
+                                     state.num_devices)
+        thr = eval_threshold_rules(b, params.threshold, dtype)
+        geo = eval_geofence_rules(b, params.zones, params.geofence)
+        folded = fold_device_state(state, b)
+        ev[1].record()
+        rows, now_row, inv = stateful_rows(params, folded, b)
+        ev[2].record()
+        rs, prog = eval_rule_programs(params.programs, rs, now_row=now_row,
+                                      node_limit=node_limit, **rows)
+        prog = {k: v[inv] for k, v in prog.items()}
+        ev[3].record()
+        ms, model = eval_anomaly_models(params.models, ms, **rows)
+        model = {k: v[inv] for k, v in model.items()}
+        ev[4].record()
+        acts, _ = eval_actuation_policies(
+            params.policies, acts, dev=b.device_idx, ts=b.ts,
+            tenant_row=b.tenant_idx, thr=thr, geo=geo, prog=prog,
+            model=model, capacity=engine.command_lane_capacity)
+        ev[5].record()
+        compact_alert_lanes(thr, geo, engine.alert_lane_capacity, prog,
+                            model)
+        ev[6].record()
+        ev[6].synchronize()
+        for i, n in enumerate(names):
+            samples[n].append(ev[i].elapsed_time(ev[i + 1]))
+    spans = {n: statistics.median(v[2:]) for n, v in samples.items()}
+    log(f"[stateful] stage spans, ms (median of {reps}): "
+        f"{json.dumps(spans)} on {card}")
+    return spans
+
+
+def phase_stateful(dev, card, main_summary):
+    from sitewhere_tpu_torch.ops.geofence_kernel import (
+        points_in_zones_kernel)
+
+    t_phase = time.perf_counter()
+    engine = build_stateful_world(dev)
+    batches = [synthetic_batch(engine.packer, N_REGISTERED, BATCH,
+                               SEED + 500 + s, mm_slots=(1, 2),
+                               t_off_ms=1000 * s)
+               for s in range(WARMUP + STEPS)]
+    log(f"[stateful] world + {len(batches)} batches built in "
+        f"{time.perf_counter() - t_phase:.2f} s; programs "
+        f"{len(STATEFUL_PROGRAMS)}, models {len(STATEFUL_MODELS)}, "
+        f"policies {len(STATEFUL_POLICIES)}; program node slots in use "
+        f"{engine._program_nodes_in_use}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    points_in_zones_kernel.launches = 0
+    walls, counts, alerts, fires, scores, snap, families = \
+        run_stateful_trace(engine, batches, STATEFUL_CPU_STEPS)
+    launches = points_in_zones_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != len(batches):
+        raise AssertionError(f"geofence kernel launched {launches} times "
+                             f"over {len(batches)} stateful steps; "
+                             f"expected one per step")
+    timed = walls[WARMUP:]
+    counters = {"programs": engine.rule_program_counters(),
+                "models": engine.anomaly_model_counters(),
+                "policies": engine.actuation_policy_counters()}
+    summary = {
+        "events_per_s": BATCH * STEPS / sum(timed),
+        "step_ms_p50": float(np.percentile(timed, 50) * 1e3),
+        "step_ms_p99": float(np.percentile(timed, 99) * 1e3),
+        "marginal_step_ms_p50_vs_main": float(
+            np.percentile(timed, 50) * 1e3 - main_summary["step_ms_p50"]),
+        "steps": STEPS, "batch": BATCH,
+        "max_memory_allocated_bytes": peak,
+        "fired_rows_by_family": dict(zip(
+            ("threshold", "geofence", "program", "model"), families)),
+        "alerts_materialized": sum(counts[WARMUP:]),
+        "alerts_dropped": engine.alerts_dropped,
+        "commands_fired": engine.commands_fired,
+        "commands_debounced": engine.commands_debounced,
+        "commands_dropped": engine.commands_dropped,
+        "kernel_launches": launches,
+    }
+    log(f"[stateful] {json.dumps(summary)} on {card}")
+    log(f"[stateful] counters {json.dumps(counters)}")
+    if not (families[2] and families[3] and engine.commands_fired):
+        raise AssertionError("stateful path fired no program or model "
+                             "alert, or no command")
+
+    t_cpu = time.perf_counter()
+    cpu = build_stateful_world(torch.device("cpu"),
+                               engine.packer.epoch_base_ms)
+    _, _, c_alerts, c_fires, c_scores, c_snap, _ = run_stateful_trace(
+        cpu, batches[:STATEFUL_CPU_STEPS], STATEFUL_CPU_STEPS)
+    cpu_s = time.perf_counter() - t_cpu
+    if c_alerts != alerts:
+        raise AssertionError("card and CPU engines materialized different "
+                             "alerts")
+    if c_fires != fires:
+        raise AssertionError("card and CPU engines fired different "
+                             "commands")
+    compare_snapshots(snap, c_snap)
+    worst = 0.0
+    for got, ref in zip(scores, c_scores):
+        torch.testing.assert_close(got, ref, rtol=SCORE_RTOL,
+                                   atol=SCORE_ATOL)
+        worst = max(worst, float((got - ref).abs().max()))
+    log(f"[stateful] card vs CPU engine over {STATEFUL_CPU_STEPS} steps: "
+        f"identical alerts ({sum(len(a) for a in alerts)}), command fires "
+        f"({sum(len(f) for f in fires)}), state groups and counters; "
+        f"anomaly scores max |diff| {worst:.3g}; CPU run {cpu_s:.1f} s")
+    del cpu
+
+    spans = stateful_spans(engine, batches[-1], card)
+    prof = profile_engine(engine, batches)
+    log(f"[stateful] profiler: {json.dumps(prof)} on {card}")
+    log(f"[stateful] phase took {time.perf_counter() - t_phase:.1f} s")
+    return summary, launches, spans, prof
 
 
 def main() -> int:
@@ -569,6 +899,8 @@ def main() -> int:
         shapes = phase_kernel_vs_plain(dev, card)
         engine, batches, summary, launches = phase_main_path(dev, card)
         phase_breakdown(engine, batches, card)
+        del engine
+        _, stateful_launches, _, _ = phase_stateful(dev, card, summary)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -580,6 +912,7 @@ def main() -> int:
         "source": "sitewhere_tpu_torch/csrc/geofence.cu",
         "replaces": "sitewhere_tpu/ops/pallas_geofence.py:63",
         "launches": launches["points_in_zones"],
+        "launches_stateful_path": stateful_launches,
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],

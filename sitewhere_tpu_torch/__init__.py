@@ -6,10 +6,11 @@ JAX package stays the reference; this package keeps its layout and names
 counterpart, and imports nothing of it: the host-side pieces it needs
 (interners, wire packer, lane decoder) are its own copies.
 
-This slice covers the single-device hot path — wire unpack, validation,
-threshold and geofence rules, the device-state fold, alert-lane compaction,
-alert materialization and the presence sweep — with the geofence
-containment as a hand-written Hopper kernel (`csrc/geofence.cu`).
+It covers the single-device step — wire unpack, validation, threshold and
+geofence rules, the device-state fold, the stateful stages (rule programs,
+anomaly models, actuation policies), alert and command lanes, alert
+materialization and the presence sweep — with the geofence containment as
+a hand-written Hopper kernel (`csrc/geofence.cu`).
 
 Entry points run on `device="cuda"` unless the caller asks for the CPU;
 without a CUDA device they raise (`device.resolve_device`), they never fall

@@ -9,6 +9,12 @@ without the port importing a single JAX class:
   params_from_numpy(d)      -> PipelineParams
   state_from_numpy(d)       -> DeviceStateTensors
   state_to_numpy(state)     -> dict of numpy arrays
+  rule_state_from_numpy(d), model_state_from_numpy(d),
+  actuation_state_from_numpy(d)
+                            -> the stateful stages' state groups
+  rule_state_to_numpy(s), model_state_to_numpy(s),
+  actuation_state_to_numpy(s)
+                            -> dicts of numpy arrays
   registry_from_snapshot(arrays, device_tokens, tenant_tokens, ...)
                             -> RegistryTensors (columns + interners)
 """
@@ -21,12 +27,21 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from sitewhere_tpu_torch.actuation.compiler import (
+    ActuationPolicyTable, empty_policy_table)
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
+from sitewhere_tpu_torch.ml.compiler import (
+    AnomalyModelTable, empty_model_table)
+from sitewhere_tpu_torch.ops.actuate import ActuationStateTensors
+from sitewhere_tpu_torch.ops.anomaly import ModelStateTensors
 from sitewhere_tpu_torch.ops.geofence import GeofenceRuleTable, ZoneTable
+from sitewhere_tpu_torch.ops.stateful import RuleStateTensors
 from sitewhere_tpu_torch.ops.threshold import ThresholdRuleTable
 from sitewhere_tpu_torch.pipeline.state_tensors import DeviceStateTensors
 from sitewhere_tpu_torch.pipeline.step import PipelineParams
 from sitewhere_tpu_torch.registry.tensors import RegistryTensors
+from sitewhere_tpu_torch.rules.compiler import (
+    RuleProgramTable, empty_program_table)
 from sitewhere_tpu_torch.tree import to_device
 
 
@@ -42,9 +57,17 @@ def params_from_numpy(d: Dict, device: DeviceLike = "cuda"
                       ) -> PipelineParams:
     """PipelineParams on `device` from {"assignment_status", "tenant_idx",
     "area_idx", "device_type_idx": [D] arrays, "threshold": {...},
-    "zones": {...}, "geofence": {...}} — the nested dicts under the field
-    names of ThresholdRuleTable, ZoneTable and GeofenceRuleTable."""
+    "zones": {...}, "geofence": {...}, "programs": {...}, "models": {...},
+    "policies": {...}} — the nested dicts under the field names of
+    ThresholdRuleTable, ZoneTable, GeofenceRuleTable, RuleProgramTable,
+    AnomalyModelTable and ActuationPolicyTable. An absent "programs",
+    "models" or "policies" is that family's empty table at the engine's
+    default buckets (nothing installed)."""
     dev = resolve_device(device)
+    stateful = {
+        "programs": (RuleProgramTable, empty_program_table),
+        "models": (AnomalyModelTable, empty_model_table),
+        "policies": (ActuationPolicyTable, empty_policy_table)}
     params = PipelineParams(
         assignment_status=np.asarray(d["assignment_status"]),
         tenant_idx=np.asarray(d["tenant_idx"]),
@@ -52,8 +75,20 @@ def params_from_numpy(d: Dict, device: DeviceLike = "cuda"
         device_type_idx=np.asarray(d["device_type_idx"]),
         threshold=_build(ThresholdRuleTable, d["threshold"]),
         zones=_build(ZoneTable, d["zones"]),
-        geofence=_build(GeofenceRuleTable, d["geofence"]))
+        geofence=_build(GeofenceRuleTable, d["geofence"]),
+        **{name: _build(cls, d[name]) if name in d else empty()
+           for name, (cls, empty) in stateful.items()})
     return to_device(params, dev)
+
+
+def _to_numpy(group) -> Dict[str, np.ndarray]:
+    """Every field of a state group (tensors or arrays) as a host numpy
+    array (copies)."""
+    def host(a):
+        return np.array(a.cpu() if isinstance(a, torch.Tensor) else a)
+
+    return {f.name: host(getattr(group, f.name))
+            for f in dataclasses.fields(group)}
 
 
 def state_from_numpy(d: Dict, device: DeviceLike = "cuda"
@@ -65,8 +100,35 @@ def state_from_numpy(d: Dict, device: DeviceLike = "cuda"
 
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
     """Every DeviceStateTensors field as a host numpy array (copies)."""
-    return {f.name: np.array(torch.as_tensor(getattr(state, f.name)).cpu())
-            for f in dataclasses.fields(state)}
+    return _to_numpy(state)
+
+
+def rule_state_from_numpy(d: Dict, device: DeviceLike = "cuda"
+                          ) -> RuleStateTensors:
+    """RuleStateTensors on `device` from {"slab", "gen", "fire_count",
+    "suppress_count"}."""
+    dev = resolve_device(device)
+    return to_device(_build(RuleStateTensors, d), dev)
+
+
+def model_state_from_numpy(d: Dict, device: DeviceLike = "cuda"
+                           ) -> ModelStateTensors:
+    """ModelStateTensors on `device` from {"slab", "gen", "fire_count",
+    "eval_count"}."""
+    dev = resolve_device(device)
+    return to_device(_build(ModelStateTensors, d), dev)
+
+
+def actuation_state_from_numpy(d: Dict, device: DeviceLike = "cuda"
+                               ) -> ActuationStateTensors:
+    """ActuationStateTensors on `device` from {"slab", "gen", "fire_count",
+    "debounce_count"}."""
+    dev = resolve_device(device)
+    return to_device(_build(ActuationStateTensors, d), dev)
+
+
+rule_state_to_numpy = model_state_to_numpy = actuation_state_to_numpy = \
+    _to_numpy
 
 
 def registry_from_snapshot(arrays: Dict,

@@ -1,2 +1,3 @@
-"""Device ops of the hot path: wire pack/unpack, rules, geofence (plain +
-CUDA kernel), keyed folds, alert-lane compaction."""
+"""Device ops of the step: wire pack/unpack, rules, geofence (plain + CUDA
+kernel), keyed folds, alert-lane compaction, and the stateful stages (rule
+programs, anomaly models, actuation) over fused state slabs."""

@@ -81,6 +81,21 @@ def last_by_key(keys: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
     return new_state_ts, tuple(new_states)
 
 
+def batch_device_order(dev: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable permutation grouping batch rows by device, plus its inverse
+    (`inv[order[i]] == i`). The stateful stages gather their state rows at
+    `dev[order]` so all rows of a device read adjacent state, and un-sort
+    their per-row outputs with `out[inv]`. Stability keeps batch order
+    inside each device's segment, as the reference's `lexsort((rows, dev))`
+    does."""
+    _, order = torch.sort(dev, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], dtype=order.dtype,
+                              device=order.device)
+    return order, inv
+
+
 def scatter_max_by_key(keys: torch.Tensor, values: torch.Tensor,
                        valid: torch.Tensor, num_segments: int,
                        state: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,17 @@
 """PipelineEngine: host orchestrator of the step on the card.
 
 Counterpart of `sitewhere_tpu/pipeline/engine.py` `PipelineEngine`, with
-its main-path surface: rule CRUD and the rule-table compilers, the params
-refresh on registry or rule version change, submit / submit_blob /
-submit_routed, alert materialization from the device-compacted lanes (one
-host copy per step), the presence sweep, and state reads.
+its main-path surface: rule CRUD and the rule-table compilers, the CRUD of
+rule programs, anomaly models and actuation policies with their state
+groups (sized to a [D, 1, ...] placeholder while a family is empty), the
+params refresh on registry or rule version change, submit / submit_blob /
+submit_routed, alert and command materialization from the
+device-compacted lanes (one host copy per step), the presence sweep, and
+state reads.
 
 Not in this slice (the flight recorder, fault points, health, the metrics
-registry, the staging ring, the feeders, and the stateful stages' CRUD)
-— see ROADMAP.md.
+registry, the staging ring, the feeders, the command dispatcher and the
+rule/model/policy stores) — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -22,12 +25,23 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from sitewhere_tpu_torch.actuation.compiler import (
+    MAX_POLICY_BUCKET, compile_policy_into, empty_policy_table)
+from sitewhere_tpu_torch.actuation.compiler import \
+    dry_run_compile as dry_run_policy
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.errors import (
     DuplicateTokenError, ErrorCode, SiteWhereError)
+from sitewhere_tpu_torch.ml.compiler import (
+    MAX_MODEL_BUCKET, compile_model_into, empty_model_table)
+from sitewhere_tpu_torch.ml.compiler import dry_run_compile as dry_run_model
 from sitewhere_tpu_torch.model.event import (
     AlertLevel, AlertSource, DeviceAlert)
 from sitewhere_tpu_torch.model.state import DeviceState, PresenceState
+from sitewhere_tpu_torch.ops.actuate import (
+    DEFAULT_COMMAND_LANE_CAPACITY, MIN_COMMAND_LANE_CAPACITY,
+    decode_command_lanes, init_actuation_state)
+from sitewhere_tpu_torch.ops.anomaly import init_model_state
 from sitewhere_tpu_torch.ops.compact import (
     DEFAULT_ALERT_LANE_CAPACITY, MIN_ALERT_LANE_CAPACITY, decode_alert_lanes)
 from sitewhere_tpu_torch.ops.geofence import (
@@ -35,17 +49,27 @@ from sitewhere_tpu_torch.ops.geofence import (
     empty_geofence_table)
 from sitewhere_tpu_torch.ops.pack import (
     EventBatch, EventPacker, batch_to_blob, blob_to_batch)
+from sitewhere_tpu_torch.ops.slab import state_slab_lanes
+from sitewhere_tpu_torch.ops.stateful import init_rule_state
 from sitewhere_tpu_torch.ops.threshold import (
     ThresholdOp, ThresholdRuleTable, empty_threshold_table)
 from sitewhere_tpu_torch.pipeline.state_tensors import (
     DeviceStateTensors, init_device_state)
 from sitewhere_tpu_torch.pipeline.step import (
     PipelineParams, ProcessOutputs, check_presence, process_batch)
+from sitewhere_tpu_torch.registry.interning import TokenInterner
 from sitewhere_tpu_torch.registry.tensors import RegistryTensors
+from sitewhere_tpu_torch.rules.compiler import (
+    MAX_PROGRAM_BUCKET, compile_program_into, empty_program_table)
+from sitewhere_tpu_torch.rules.compiler import \
+    dry_run_compile as dry_run_program
 from sitewhere_tpu_torch.tree import to_device, tree_map
 
 _NEG = -(2 ** 31)
 _ALERT_LEVELS = {int(level): level for level in AlertLevel}
+# each state group's second per-slot counter, beside fire_count
+_SECOND_COUNTER = {"rule": "suppress_count", "model": "eval_count",
+                   "actuation": "debounce_count"}
 _log = logging.getLogger("sitewhere.pipeline")
 
 
@@ -156,6 +180,16 @@ class PipelineEngine:
                  presence_missing_interval_ms: int = 8 * 60 * 60 * 1000,
                  geofence_impl: str = "auto",
                  alert_lane_capacity: Optional[int] = None,
+                 max_rule_programs: int = 32,
+                 rule_program_nodes: int = 16,
+                 rule_program_state_slots: int = 8,
+                 max_anomaly_models: int = 8,
+                 anomaly_model_features: int = 4,
+                 anomaly_model_layers: int = 2,
+                 anomaly_model_width: int = 8,
+                 max_actuation_policies: int = 8,
+                 command_lane_capacity: Optional[int] = None,
+                 max_command_tokens: int = 1024,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         self.registry = registry_tensors
@@ -168,6 +202,42 @@ class PipelineEngine:
         if max(max_threshold_rules, max_geofence_rules) >= (1 << 15):
             raise ValueError("rule table capacity must be < 32768 "
                              "(alert-lane rule-id field width)")
+        # rule-program slot ids travel in 8 alert-lane meta bits
+        if not (0 < max_rule_programs <= MAX_PROGRAM_BUCKET):
+            raise ValueError(
+                f"max_rule_programs must be in 1..{MAX_PROGRAM_BUCKET} "
+                f"(alert-lane program-id field width)")
+        self.max_rule_programs = max_rule_programs
+        self.rule_program_nodes = rule_program_nodes
+        self.rule_program_state_slots = rule_program_state_slots
+        # anomaly-model slot ids travel in 8 alert-lane meta bits
+        if not (0 < max_anomaly_models <= MAX_MODEL_BUCKET):
+            raise ValueError(
+                f"max_anomaly_models must be in 1..{MAX_MODEL_BUCKET} "
+                f"(alert-lane model-id field width)")
+        if anomaly_model_features > anomaly_model_width:
+            raise ValueError(
+                "anomaly_model_features must be <= anomaly_model_width "
+                "(features embed in the activation vector)")
+        self.max_anomaly_models = max_anomaly_models
+        self.anomaly_model_features = anomaly_model_features
+        self.anomaly_model_layers = anomaly_model_layers
+        self.anomaly_model_width = anomaly_model_width
+        # actuation-policy slot ids travel in 8 command-lane meta bits
+        if not (0 < max_actuation_policies <= MAX_POLICY_BUCKET):
+            raise ValueError(
+                f"max_actuation_policies must be in 1..{MAX_POLICY_BUCKET} "
+                f"(command-lane policy-id field width)")
+        self.max_actuation_policies = max_actuation_policies
+        self.command_lane_capacity = (
+            command_lane_capacity if command_lane_capacity is not None
+            else DEFAULT_COMMAND_LANE_CAPACITY)
+        if self.command_lane_capacity < MIN_COMMAND_LANE_CAPACITY:
+            raise ValueError(
+                f"command_lane_capacity must be >= "
+                f"{MIN_COMMAND_LANE_CAPACITY}")
+        # command tokens the command lanes resolve back through
+        self.commands = TokenInterner(max_command_tokens, "commands")
         self.alert_lane_capacity = (alert_lane_capacity
                                     if alert_lane_capacity is not None
                                     else DEFAULT_ALERT_LANE_CAPACITY)
@@ -183,6 +253,26 @@ class PipelineEngine:
 
         self._threshold_rules: List[ThresholdRule] = []
         self._geofence_rules: List[GeofenceRule] = []
+        # rule programs, anomaly models, actuation policies: token ->
+        # {"slot", "epoch", "spec"}, with stable slots (lowest free slot on
+        # install) because per-device state is keyed by slot; a new epoch
+        # per install makes a recycled slot's state reset inside the step
+        self._rule_programs: Dict[str, Dict] = {}
+        self._anomaly_models: Dict[str, Dict] = {}
+        self._actuation_policies: Dict[str, Dict] = {}
+        self._epochs = {"program": 0, "model": 0, "policy": 0}
+        # node slots the compiled program table uses (the node-pass trim)
+        self._program_nodes_in_use = 0
+        # the stateful groups and the dims each was built for
+        self._rule_state = self._model_state = self._actuation_state = None
+        self._built_dims: Dict[str, Tuple[int, ...]] = {}
+        # command fan-out: with no dispatcher attached, fires park on the
+        # pending list and drain via take_command_fires()
+        self.command_dispatcher = None
+        self._pending_commands: List[Dict] = []
+        self.commands_fired = 0
+        self.commands_debounced = 0
+        self.commands_dropped = 0
         self._rules_version = 0
         self._params_built_for: Tuple[int, int] = (-1, -1)
         self._params: Optional[PipelineParams] = None
@@ -210,6 +300,165 @@ class PipelineEngine:
                     self.registry.devices.capacity, self.measurement_slots,
                     self.max_tenants, device=self.device)
         self._ensure_params()
+
+    # -- stateful state groups ------------------------------------------------
+
+    @property
+    def _programs_enabled(self) -> bool:
+        return bool(self._rule_programs)
+
+    @property
+    def _models_enabled(self) -> bool:
+        return bool(self._anomaly_models)
+
+    @property
+    def _actuation_enabled(self) -> bool:
+        return bool(self._actuation_policies)
+
+    def _group_dims(self, group: str) -> Tuple[int, ...]:
+        """Dims a state group is sized for: the family's buckets while it
+        has something installed, else a [D, 1, ...] placeholder (the stage
+        is off and its state passes through), so an empty family costs no
+        device memory. The full group is allocated on the empty->non-empty
+        transition and dropped on the way back."""
+        if group == "rule":
+            return ((self.max_rule_programs, self.rule_program_state_slots)
+                    if self._programs_enabled else (1, 1))
+        if group == "model":
+            return ((self.max_anomaly_models, self.anomaly_model_features)
+                    if self._models_enabled else (1, 1))
+        return ((self.max_actuation_policies,) if self._actuation_enabled
+                else (1,))
+
+    def _init_group(self, group: str):
+        dims = self._group_dims(group)
+        self._built_dims[group] = dims
+        init = {"rule": init_rule_state, "model": init_model_state,
+                "actuation": init_actuation_state}[group]
+        return init(self.registry.devices.capacity, *dims,
+                    device=self.device)
+
+    def _ensure_groups_sized(self) -> None:
+        """(Re)allocate every state group whose family went empty<->non-
+        empty since it was built (fresh state, as the reference's step
+        rebuild does)."""
+        with self._state_lock:
+            for group in ("rule", "model", "actuation"):
+                name = f"_{group}_state"
+                if (getattr(self, name) is None
+                        or self._built_dims.get(group)
+                        != self._group_dims(group)):
+                    setattr(self, name, self._init_group(group))
+
+    def _expected_group_shapes(self, group: str) -> Dict[str, Tuple]:
+        """Canonical shape per field of a state group at THIS engine's
+        current dims — what a checkpoint must match."""
+        D = self.registry.devices.capacity
+        dims = self._group_dims(group)
+        P, S = dims[0], (dims[1] if len(dims) > 1 else 1)
+        return {"slab": (D, P, state_slab_lanes(S)), "gen": (P,),
+                "fire_count": (P,), _SECOND_COUNTER[group]: (P,)}
+
+    def _canonical_group(self, group: str):
+        """Host snapshot of a state group: CPU copies of its fields."""
+        with self._state_lock:
+            state = getattr(self, f"_{group}_state")
+            if state is None:
+                return None
+            return tree_map(lambda t: t.to("cpu", copy=True), state)
+
+    def _load_canonical_group(self, group: str, state) -> None:
+        """Inverse of _canonical_group: every field must have the shape of
+        this engine's current dims for the group."""
+        for name, want in self._expected_group_shapes(group).items():
+            got = tuple(getattr(state, name).shape)
+            if got != want:
+                raise ValueError(
+                    f"{group}-state checkpoint shape mismatch for {name}: "
+                    f"got {got}, engine expects {want} (bucket/state "
+                    f"slots/device capacity must match)")
+        with self._state_lock:
+            setattr(self, f"_{group}_state", tree_map(
+                lambda t: torch.as_tensor(t).to(self.device, copy=True),
+                state))
+            self._built_dims[group] = self._group_dims(group)
+
+    def _counters(self, group: str, entries: Dict[str, Dict],
+                  names: Tuple[str, str]) -> Dict[str, Dict[str, int]]:
+        """Per-token cumulative counters of a family (one host copy of two
+        [P] vectors; a slot past the resident counter row — installed, not
+        stepped yet — counts zero)."""
+        state = getattr(self, f"_{group}_state")
+        if state is None:
+            return {}
+        with self._state_lock:
+            first = state.fire_count.cpu().numpy()
+            second = getattr(state, _SECOND_COUNTER[group]).cpu().numpy()
+        with self._lock:
+            return {token: {names[0]: int(first[e["slot"]])
+                            if e["slot"] < first.shape[0] else 0,
+                            names[1]: int(second[e["slot"]])
+                            if e["slot"] < second.shape[0] else 0}
+                    for token, e in entries.items()}
+
+    def _install(self, entries: Dict[str, Dict], family: str, capacity: int,
+                 what: str, spec: Dict, slot: Optional[int],
+                 epoch: Optional[int]) -> Dict:
+        """Install or replace one validated spec of a family: the existing
+        slot (or the lowest free one) and a new epoch, unless `slot` /
+        `epoch` pin them (checkpoint restore)."""
+        token = spec["token"]
+        with self._lock:
+            existing = entries.get(token)
+            if slot is None:
+                if existing is not None:
+                    slot = existing["slot"]
+                else:
+                    used = {e["slot"] for e in entries.values()}
+                    free = [s for s in range(capacity) if s not in used]
+                    if not free:
+                        raise SiteWhereError(
+                            f"{what} capacity exceeded ({capacity} slots)",
+                            ErrorCode.CAPACITY_EXCEEDED, http_status=409)
+                    slot = free[0]
+            if epoch is None:
+                self._epochs[family] += 1
+                epoch = self._epochs[family]
+            else:
+                self._epochs[family] = max(self._epochs[family], epoch)
+            entry = {"slot": int(slot), "epoch": int(epoch), "spec": spec}
+            entries[token] = entry
+            self._rules_version += 1
+        return entry
+
+    def _create(self, entries: Dict[str, Dict], what: str, spec: Dict,
+                upsert) -> Dict:
+        """REST create semantics: a duplicate token raises atomically."""
+        with self._lock:
+            token = (spec or {}).get("token")
+            if token in entries:
+                raise DuplicateTokenError(f"{what} '{token}' already exists")
+        return upsert(spec)
+
+    def _remove(self, entries: Dict[str, Dict], token: str) -> bool:
+        with self._lock:
+            if entries.pop(token, None) is None:
+                return False
+            self._rules_version += 1
+        return True
+
+    def _by_slot(self, entries: Dict[str, Dict]) -> Dict[int, Dict]:
+        with self._lock:
+            return {e["slot"]: dict(e["spec"]) for e in entries.values()}
+
+    def _manifest(self, entries: Dict[str, Dict]) -> List[Dict]:
+        """Checkpoint form: spec + the runtime (slot, epoch) assignment, so
+        a restore re-pins per-device state to its entry."""
+        with self._lock:
+            return [{"slot": e["slot"], "epoch": e["epoch"],
+                     "spec": dict(e["spec"])}
+                    for e in sorted(entries.values(),
+                                    key=lambda e: e["slot"])]
 
     # -- rules ----------------------------------------------------------------
 
@@ -329,6 +578,205 @@ class PipelineEngine:
                 rule.alert_type)
         return table
 
+    # -- rule programs (rules/compiler.py) ------------------------------------
+
+    def _compile_program_table(self):
+        table = empty_program_table(self.max_rule_programs,
+                                    self.rule_program_nodes)
+        for entry in self._rule_programs.values():
+            compile_program_into(
+                table, entry["slot"], entry["spec"], entry["epoch"],
+                intern_measurement=self.packer.measurements.intern,
+                intern_alert_type=self.packer.alert_types.intern,
+                lookup_tenant=self.registry.tenants.lookup,
+                lookup_device_type=self.registry.device_types.lookup,
+                measurement_slots=self.measurement_slots,
+                max_state_slots=self.rule_program_state_slots)
+        # node slots actually populated, for the node-pass trim (NOP is 0,
+        # and node 0 of a used program is never NOP)
+        used = np.nonzero((table.opcode != 0).any(axis=0))[0]
+        self._program_nodes_in_use = int(used.max()) + 1 if used.size else 0
+        return table
+
+    def upsert_rule_program(self, spec: Dict, *, slot: Optional[int] = None,
+                            epoch: Optional[int] = None) -> Dict:
+        """Install or replace a rule program (idempotent). The spec is
+        dry-run compiled against this engine's buckets and interners first
+        (RuleProgramError, a 409 naming the node, otherwise). A replace
+        bumps the slot's epoch so its temporal state resets inside the
+        step; `slot`/`epoch` pin the assignment on checkpoint restore."""
+        spec = dry_run_program(
+            spec, measurement_slots=self.measurement_slots,
+            max_nodes=self.rule_program_nodes,
+            max_state_slots=self.rule_program_state_slots,
+            intern_measurement=self.packer.measurements.intern)
+        return self._install(self._rule_programs, "program",
+                             self.max_rule_programs, "rule program", spec,
+                             slot, epoch)
+
+    def create_rule_program(self, spec: Dict) -> Dict:
+        return self._create(self._rule_programs, "rule program", spec,
+                            self.upsert_rule_program)
+
+    def remove_rule_program(self, token: str) -> bool:
+        return self._remove(self._rule_programs, token)
+
+    def get_rule_program(self, token: str) -> Optional[Dict]:
+        with self._lock:
+            entry = self._rule_programs.get(token)
+            return dict(entry["spec"]) if entry else None
+
+    def list_rule_programs(self) -> List[Dict]:
+        """Program specs in slot order (the order fires resolve in)."""
+        return [e["spec"] for e in self._manifest(self._rule_programs)]
+
+    def rule_programs_by_slot(self) -> Dict[int, Dict]:
+        return self._by_slot(self._rule_programs)
+
+    def rule_program_manifest(self) -> List[Dict]:
+        return self._manifest(self._rule_programs)
+
+    def rule_program_counters(self) -> Dict[str, Dict[str, int]]:
+        """Per-program cumulative fire/suppress counters (they live in the
+        rule state, so they survive checkpoints)."""
+        return self._counters("rule", self._rule_programs,
+                              ("fires", "suppressed"))
+
+    def canonical_rule_state(self):
+        """Host snapshot of the rule-program state (CPU copies)."""
+        return self._canonical_group("rule")
+
+    def load_canonical_rule_state(self, rule_state) -> None:
+        self._load_canonical_group("rule", rule_state)
+
+    # -- anomaly models (ml/compiler.py) --------------------------------------
+
+    def _compile_model_table(self):
+        table = empty_model_table(
+            self.max_anomaly_models, self.anomaly_model_features,
+            self.anomaly_model_layers, self.anomaly_model_width)
+        for entry in self._anomaly_models.values():
+            compile_model_into(
+                table, entry["slot"], entry["spec"], entry["epoch"],
+                intern_measurement=self.packer.measurements.intern,
+                intern_alert_type=self.packer.alert_types.intern,
+                lookup_tenant=self.registry.tenants.lookup,
+                lookup_device_type=self.registry.device_types.lookup,
+                measurement_slots=self.measurement_slots)
+        return table
+
+    def upsert_anomaly_model(self, spec: Dict, *,
+                             slot: Optional[int] = None,
+                             epoch: Optional[int] = None) -> Dict:
+        """Install or replace an anomaly model (idempotent), dry-run
+        compiled first (AnomalyModelError, a 409 naming the field). A
+        replace bumps the slot's epoch so its feature state resets."""
+        spec = dry_run_model(
+            spec, measurement_slots=self.measurement_slots,
+            max_features=self.anomaly_model_features,
+            max_layers=self.anomaly_model_layers,
+            width=self.anomaly_model_width,
+            intern_measurement=self.packer.measurements.intern)
+        return self._install(self._anomaly_models, "model",
+                             self.max_anomaly_models, "anomaly model", spec,
+                             slot, epoch)
+
+    def create_anomaly_model(self, spec: Dict) -> Dict:
+        return self._create(self._anomaly_models, "anomaly model", spec,
+                            self.upsert_anomaly_model)
+
+    def remove_anomaly_model(self, token: str) -> bool:
+        return self._remove(self._anomaly_models, token)
+
+    def get_anomaly_model(self, token: str) -> Optional[Dict]:
+        with self._lock:
+            entry = self._anomaly_models.get(token)
+            return dict(entry["spec"]) if entry else None
+
+    def list_anomaly_models(self) -> List[Dict]:
+        """Model specs in slot order (the order fires resolve in)."""
+        return [e["spec"] for e in self._manifest(self._anomaly_models)]
+
+    def anomaly_models_by_slot(self) -> Dict[int, Dict]:
+        return self._by_slot(self._anomaly_models)
+
+    def anomaly_model_manifest(self) -> List[Dict]:
+        return self._manifest(self._anomaly_models)
+
+    def anomaly_model_counters(self) -> Dict[str, Dict[str, int]]:
+        """Per-model cumulative fire/eval counters."""
+        return self._counters("model", self._anomaly_models,
+                              ("fires", "evals"))
+
+    def canonical_model_state(self):
+        """Host snapshot of the model feature state (CPU copies)."""
+        return self._canonical_group("model")
+
+    def load_canonical_model_state(self, model_state) -> None:
+        self._load_canonical_group("model", model_state)
+
+    # -- actuation policies (actuation/compiler.py) ---------------------------
+
+    def _compile_policy_table(self):
+        table = empty_policy_table(self.max_actuation_policies)
+        for entry in self._actuation_policies.values():
+            compile_policy_into(
+                table, entry["slot"], entry["spec"], entry["epoch"],
+                intern_command=self.commands.intern,
+                lookup_tenant=self.registry.tenants.lookup)
+        return table
+
+    def upsert_actuation_policy(self, spec: Dict, *,
+                                slot: Optional[int] = None,
+                                epoch: Optional[int] = None) -> Dict:
+        """Install or replace an actuation policy (idempotent), dry-run
+        compiled against the command interner first (ActuationPolicyError,
+        a 409 naming the field). A replace bumps the slot's epoch so its
+        per-(device, policy) debounce state resets."""
+        spec = dry_run_policy(spec, intern_command=self.commands.intern)
+        return self._install(self._actuation_policies, "policy",
+                             self.max_actuation_policies,
+                             "actuation policy", spec, slot, epoch)
+
+    def create_actuation_policy(self, spec: Dict) -> Dict:
+        return self._create(self._actuation_policies, "actuation policy",
+                            spec, self.upsert_actuation_policy)
+
+    def remove_actuation_policy(self, token: str) -> bool:
+        return self._remove(self._actuation_policies, token)
+
+    def get_actuation_policy(self, token: str) -> Optional[Dict]:
+        with self._lock:
+            entry = self._actuation_policies.get(token)
+            return dict(entry["spec"]) if entry else None
+
+    def list_actuation_policies(self) -> List[Dict]:
+        """Policy specs in slot order (the order lane rows resolve in)."""
+        return [e["spec"] for e in self._manifest(self._actuation_policies)]
+
+    def actuation_policies_by_slot(self) -> Dict[int, Dict]:
+        return self._by_slot(self._actuation_policies)
+
+    def actuation_policy_manifest(self) -> List[Dict]:
+        return self._manifest(self._actuation_policies)
+
+    def actuation_policy_counters(self) -> Dict[str, Dict[str, int]]:
+        """Per-policy cumulative fire/debounce counters."""
+        return self._counters("actuation", self._actuation_policies,
+                              ("fires", "debounced"))
+
+    def canonical_actuation_state(self):
+        """Host snapshot of the debounce state (CPU copies)."""
+        return self._canonical_group("actuation")
+
+    def load_canonical_actuation_state(self, actuation_state) -> None:
+        self._load_canonical_group("actuation", actuation_state)
+
+    def take_command_fires(self) -> List[Dict]:
+        """Drain command fires parked while no dispatcher was attached."""
+        out, self._pending_commands = self._pending_commands, []
+        return out
+
     # -- params refresh -------------------------------------------------------
 
     def _refresh_params(self) -> None:
@@ -344,14 +792,27 @@ class PipelineEngine:
                                 nvert=snap.zone_nvert,
                                 tenant_idx=snap.zone_tenant,
                                 active=snap.zone_active),
-                geofence=self._compile_geofence_table()), self.device)
+                geofence=self._compile_geofence_table(),
+                programs=self._compile_program_table(),
+                models=self._compile_model_table(),
+                policies=self._compile_policy_table()), self.device)
             self._params_built_for = (snap.version, self._rules_version)
 
     def _ensure_params(self) -> PipelineParams:
-        if self._params_built_for != (self.registry.version,
-                                      self._rules_version):
-            self._refresh_params()
-        return self._params
+        """Current params, the state groups sized to match, and the step's
+        stage flags (`_step_flags`), all under one lock so an install from
+        another thread cannot come between them."""
+        with self._lock:
+            if self._params_built_for != (self.registry.version,
+                                          self._rules_version):
+                self._refresh_params()
+            self._ensure_groups_sized()
+            self._step_flags = {
+                "programs_enabled": self._programs_enabled,
+                "program_node_limit": self._program_nodes_in_use,
+                "models_enabled": self._models_enabled,
+                "actuation_enabled": self._actuation_enabled}
+            return self._params
 
     # -- processing -----------------------------------------------------------
 
@@ -363,14 +824,18 @@ class PipelineEngine:
         """Run one step on a packed wire blob (numpy, or an int32 tensor on
         any device); the state advances. Returns without waiting for the
         card."""
-        self.start()  # state allocated, params current
+        self.start()  # state allocated, params and state groups current
         params = self._params
         blob = torch.as_tensor(blob).to(self.device)
         with self._state_lock:
-            self._state, outputs = process_batch(
-                params, self._state, blob_to_batch(blob),
+            (self._state, self._rule_state, self._model_state,
+             self._actuation_state, outputs) = process_batch(
+                params, self._state, self._rule_state, self._model_state,
+                self._actuation_state, blob_to_batch(blob),
                 geofence_impl=self.geofence_impl,
-                alert_lane_capacity=self.alert_lane_capacity)
+                alert_lane_capacity=self.alert_lane_capacity,
+                command_lane_capacity=self.command_lane_capacity,
+                **self._step_flags)
         self.batches_processed += 1
         return outputs
 
@@ -383,7 +848,7 @@ class PipelineEngine:
                            max_alerts: Optional[int] = None
                            ) -> List[DeviceAlert]:
         """Turn the step's device-compacted alert lanes into API-level
-        DeviceAlert events.
+        DeviceAlert events, and its command lane into command fires.
 
         Both fixed-shape lanes (alert + command) come back in ONE host
         copy per step, whatever the batch size; the accounting counts them
@@ -391,21 +856,76 @@ class PipelineEngine:
         overflow (> capacity fired rows) both count on `alerts_dropped`
         and log. The list is what a mask scan over the per-row outputs
         gives for the first `alert_lane_capacity` fired rows, order
-        included."""
+        included. Command fires go to the attached `command_dispatcher`,
+        or park for take_command_fires()."""
         K = outputs.alert_lanes.shape[1]
         both = torch.cat([outputs.alert_lanes, outputs.command_lanes],
                          dim=1).cpu().numpy()
         lanes, cmd_lanes = both[:, :K], both[:, K:]
         self.d2h_fetches += 2
         self.d2h_bytes += lanes.nbytes + cmd_lanes.nbytes
-        dec = decode_alert_lanes(lanes)
-        self._account_lane_overflow(dec.dropped_alerts)
-        dec = self._bound_alert_rows(dec, max_alerts)
-        if dec.n == 0:
-            return []
-        dev_rows = np.asarray(batch.device_idx)[dec.rows]
-        ts_rows = np.asarray(batch.ts)[dec.rows]
-        return self._emit_alerts(dec, dev_rows, ts_rows)
+        try:
+            dec = decode_alert_lanes(lanes)
+            self._account_lane_overflow(dec.dropped_alerts)
+            dec = self._bound_alert_rows(dec, max_alerts)
+            if dec.n == 0:
+                return []
+            dev_rows = np.asarray(batch.device_idx)[dec.rows]
+            ts_rows = np.asarray(batch.ts)[dec.rows]
+            return self._emit_alerts(dec, dev_rows, ts_rows)
+        finally:
+            self._materialize_commands(cmd_lanes)
+
+    def _materialize_commands(self, cmd_lanes: np.ndarray) -> None:
+        """Decode the step's command lane, account fire/debounce/overflow
+        activity, and hand resolved fires on."""
+        dec = decode_command_lanes(cmd_lanes)
+        self._account_command_activity(dec)
+        self._fanout_commands(self._emit_command_fires(dec) if dec.n
+                              else [])
+
+    def _fanout_commands(self, fires: List[Dict]) -> None:
+        """Hand resolved fires to the attached dispatcher, or park them for
+        take_command_fires() when none is attached."""
+        if not fires:
+            return
+        if self.command_dispatcher is not None:
+            self.command_dispatcher.dispatch(self, fires)
+        else:
+            self._pending_commands.extend(fires)
+
+    def _account_command_activity(self, dec) -> None:
+        self.commands_fired += dec.fired - dec.dropped
+        self.commands_debounced += dec.debounced
+        if dec.dropped:
+            self.commands_dropped += dec.dropped
+            _log.warning(
+                "command-lane overflow: %d policy fires beyond the %d-row "
+                "lane capacity dropped on device (commands_dropped=%d "
+                "total)", dec.dropped, self.command_lane_capacity,
+                self.commands_dropped)
+
+    def _emit_command_fires(self, dec) -> List[Dict]:
+        """Resolve decoded command-lane slots into fire records: device
+        token via the interner's cached array, command token and params
+        from the installed policy spec."""
+        policies = self.actuation_policies_by_slot()
+        tokens = self.registry.devices.token_array()[dec.dev].tolist()
+        slots = dec.policy_slot.tolist()
+        levels = dec.level.tolist()
+        sources = dec.source.tolist()
+        fires: List[Dict] = []
+        for i in range(dec.n):
+            spec = policies.get(slots[i])
+            if spec is None:  # policy removed between dispatch and fetch
+                continue
+            fires.append({
+                "policy": spec["token"], "slot": slots[i],
+                "device": tokens[i], "command": spec["command"],
+                "params": list(spec.get("params", ())),
+                "level": levels[i], "source": sources[i],
+                "tenant": spec.get("tenant_token", "")})
+        return fires
 
     def _account_lane_overflow(self, dropped: int) -> None:
         if not dropped:
@@ -431,13 +951,17 @@ class PipelineEngine:
 
     def _emit_alerts(self, dec, dev_rows: np.ndarray,
                      ts_rows: np.ndarray) -> List[DeviceAlert]:
-        """DeviceAlert list for decoded lane slots: threshold then geofence
-        per row (rule-program and anomaly-model fires come with the
-        stateful stages). Tokens, dates and levels resolve by array ops
-        before the per-alert loop."""
+        """DeviceAlert list for decoded lane slots: threshold, geofence,
+        rule-program then anomaly-model alerts per row. Tokens, dates and
+        levels resolve by array ops before the per-alert loop."""
         with self._lock:
             thr_rules = list(self._threshold_rules)
             geo_rules = list(self._geofence_rules)
+        programs = self.rule_programs_by_slot()
+        models = self.anomaly_models_by_slot()
+        prog_f, prog_r = dec.prog_fired.tolist(), dec.prog_rule.tolist()
+        prog_l = dec.prog_level.tolist()
+        model_f, model_s = dec.model_fired.tolist(), dec.model_slot.tolist()
         tokens = self.registry.devices.token_array()[dev_rows].tolist()
         dates = (ts_rows.astype(np.int64)
                  + self.packer.epoch_base_ms).tolist()
@@ -466,6 +990,27 @@ class PipelineEngine:
                     type=rule.alert_type,
                     message=rule.alert_message
                     or f"geofence rule {rule.token} fired",
+                    event_date=dates[i]))
+            if prog_f[i] and prog_r[i] in programs:
+                spec = programs[prog_r[i]]
+                alerts.append(DeviceAlert(
+                    device_id=token, source=AlertSource.SYSTEM,
+                    level=levels.get(prog_l[i]) or AlertLevel(prog_l[i]),
+                    type=spec["alert_type"],
+                    message=spec["alert_message"]
+                    or f"rule program {spec['token']} fired",
+                    event_date=dates[i]))
+            if model_f[i] and model_s[i] in models:
+                # the lane carries only the model slot; level and type
+                # come from the installed spec
+                spec = models[model_s[i]]
+                level = int(spec["alert_level"])
+                alerts.append(DeviceAlert(
+                    device_id=token, source=AlertSource.SYSTEM,
+                    level=levels.get(level) or AlertLevel(level),
+                    type=spec["alert_type"],
+                    message=spec["alert_message"]
+                    or f"anomaly model {spec['token']} fired",
                     event_date=dates[i]))
         return alerts
 

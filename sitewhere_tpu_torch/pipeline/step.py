@@ -1,16 +1,14 @@
-"""The pipeline step: validate + rules + device-state fold + alert lanes.
+"""The pipeline step: validate + rules + device-state fold + stateful
+stages + alert and command lanes.
 
 Counterpart of `sitewhere_tpu/pipeline/step.py` `process_batch` and
 `check_presence`, for the single-device hot path. What the reference does
 with per-event service hops — device lookup and assignment check, rule
 processing, zone containment, device-state upserts — happens here as a
 short sequence of batched torch ops and one hand-written kernel (geofence
-containment) over a whole batch.
-
-The stateful stages of the JAX step (rule programs, anomaly models,
-actuation) are not in this slice: the step behaves as the reference does
-with `programs_enabled = models_enabled = actuation_enabled = False`, and
-their outputs are the same placeholders.
+containment) over a whole batch; then the three stateful stages of the
+JAX step — rule programs, anomaly models and actuation policies — each
+dropped when its family has nothing installed.
 """
 
 from __future__ import annotations
@@ -20,23 +18,29 @@ from typing import Dict, Tuple
 
 import torch
 
+from sitewhere_tpu_torch.actuation.compiler import ActuationPolicyTable
+from sitewhere_tpu_torch.ml.compiler import AnomalyModelTable
 from sitewhere_tpu_torch.model.event import DeviceEventType
+from sitewhere_tpu_torch.ops.actuate import (
+    COMMAND_LANE_ROWS, DEFAULT_COMMAND_LANE_CAPACITY, ActuationStateTensors,
+    eval_actuation_policies)
+from sitewhere_tpu_torch.ops.anomaly import (
+    ModelStateTensors, eval_anomaly_models)
 from sitewhere_tpu_torch.ops.compact import (
     DEFAULT_ALERT_LANE_CAPACITY, compact_alert_lanes)
 from sitewhere_tpu_torch.ops.geofence import (
     GeofenceRuleTable, ZoneTable, eval_geofence_rules)
 from sitewhere_tpu_torch.ops.pack import EventBatch
 from sitewhere_tpu_torch.ops.segments import (
-    count_by_key, last_by_key, scatter_max_by_key)
+    batch_device_order, count_by_key, last_by_key, scatter_max_by_key)
+from sitewhere_tpu_torch.ops.stateful import (
+    RuleStateTensors, eval_rule_programs, observations_of_batch)
 from sitewhere_tpu_torch.ops.threshold import (
     ThresholdRuleTable, eval_threshold_rules)
 from sitewhere_tpu_torch.pipeline.state_tensors import DeviceStateTensors
+from sitewhere_tpu_torch.rules.compiler import RuleProgramTable
 
 _NEG = -(2 ** 31)
-# the actuation stage's command lane, a zero placeholder in this slice:
-# [COMMAND_LANE_ROWS, DEFAULT_COMMAND_LANE_CAPACITY] of the reference
-COMMAND_LANE_ROWS = 4
-DEFAULT_COMMAND_LANE_CAPACITY = 64
 
 
 @dataclasses.dataclass
@@ -53,6 +57,10 @@ class PipelineParams:
     threshold: ThresholdRuleTable
     zones: ZoneTable
     geofence: GeofenceRuleTable
+    # compiled rule programs, anomaly models and actuation policies
+    programs: RuleProgramTable
+    models: AnomalyModelTable
+    policies: ActuationPolicyTable
 
 
 @dataclasses.dataclass
@@ -67,18 +75,19 @@ class ProcessOutputs:
     geofence_fired: torch.Tensor         # bool [B]
     geofence_first_rule: torch.Tensor    # int32 [B]
     geofence_alert_level: torch.Tensor   # int32 [B]
-    program_fired: torch.Tensor          # bool [B] (placeholder: False)
-    program_first_rule: torch.Tensor     # int32 [B] (placeholder: -1)
-    program_alert_level: torch.Tensor    # int32 [B] (placeholder: -1)
-    model_fired: torch.Tensor            # bool [B] (placeholder: False)
-    model_first: torch.Tensor            # int32 [B] (placeholder: -1)
-    model_level: torch.Tensor            # int32 [B] (placeholder: -1)
-    model_score: torch.Tensor            # f32 [B] (placeholder: 0)
+    # rule-program and anomaly-model fires, on their attach rows
+    program_fired: torch.Tensor          # bool [B]
+    program_first_rule: torch.Tensor     # int32 [B] program slot, -1 = none
+    program_alert_level: torch.Tensor    # int32 [B]
+    model_fired: torch.Tensor            # bool [B]
+    model_first: torch.Tensor            # int32 [B] model slot, -1 = none
+    model_level: torch.Tensor            # int32 [B] max fired level
+    model_score: torch.Tensor            # f32 [B] lowest scored slot's score
     tenant_counts: torch.Tensor          # int32 [T] events per tenant
     processed: torch.Tensor              # int32 scalar, valid events
     alerts: torch.Tensor                 # int32 scalar, alerts fired
     alert_lanes: torch.Tensor            # int32 [ALERT_LANE_ROWS, K]
-    command_lanes: torch.Tensor          # int32 [4, 64] (placeholder: 0)
+    command_lanes: torch.Tensor          # int32 [COMMAND_LANE_ROWS, K_cmd]
 
 
 def validate_batch(params: PipelineParams, batch: EventBatch,
@@ -162,21 +171,63 @@ def _placeholders(B: int, device) -> Tuple[Dict, Dict]:
     return prog, model
 
 
+def stateful_rows(params: PipelineParams, state: DeviceStateTensors,
+                  batch: EventBatch
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                             torch.Tensor]:
+    """The device-sorted row view both stateful stages read: (the row
+    keywords of eval_rule_programs / eval_anomaly_models, the rows' newest
+    observation ts, the inverse permutation that un-sorts their outputs).
+    `state` is the POST-fold device state and `batch` the validated batch.
+    Rows of one device read adjacent state. Gathers clamp a device index
+    >= D to row D-1, as XLA does in the reference."""
+    D = state.num_devices
+    obs_mm, _, now_d, attach_row = observations_of_batch(
+        batch, state.num_measurement_slots, D)
+    order, inv = batch_device_order(batch.device_idx)
+    sdev = batch.device_idx[order]
+    gdev = sdev.clamp(0, D - 1).long()
+    rows = dict(dev=sdev, attach=attach_row[order], obs_row=obs_mm[gdev],
+                lm_row=state.last_measurement[gdev],
+                lmts_row=state.last_measurement_ts[gdev],
+                tenant_row=params.tenant_idx[gdev],
+                dtype_row=params.device_type_idx[gdev])
+    return rows, now_d[gdev], inv
+
+
 def process_batch(params: PipelineParams, state: DeviceStateTensors,
+                  rule_state: RuleStateTensors,
+                  model_state: ModelStateTensors,
+                  actuation_state: ActuationStateTensors,
                   batch: EventBatch, *, geofence_impl: str = "auto",
-                  alert_lane_capacity: int = DEFAULT_ALERT_LANE_CAPACITY
-                  ) -> Tuple[DeviceStateTensors, ProcessOutputs]:
+                  alert_lane_capacity: int = DEFAULT_ALERT_LANE_CAPACITY,
+                  programs_enabled: bool = False,
+                  program_node_limit: int = 0,
+                  models_enabled: bool = False,
+                  actuation_enabled: bool = False,
+                  command_lane_capacity: int = DEFAULT_COMMAND_LANE_CAPACITY
+                  ) -> Tuple[DeviceStateTensors, RuleStateTensors,
+                             ModelStateTensors, ActuationStateTensors,
+                             ProcessOutputs]:
     """One step over a batch already on the step's device.
 
-    Returns (new_state, outputs). The state is NOT updated in place: the
-    new state is a fresh set of tensors (the reference donates its state
-    buffers to the same effect), so `state` stays readable until the caller
-    drops it; for one step both copies are alive, some 40 bytes + 8 bytes
-    per measurement slot per device.
+    Returns (new_state, rule_state, model_state, actuation_state, outputs).
+    The device-state group is NOT updated in place: the new state is a
+    fresh set of tensors, so `state` stays readable until the caller drops
+    it. The slabs of the three stateful groups ARE updated in place (the
+    reference donates them): they hold hundreds of MB at full size, and a
+    step writes only its batch's devices.
 
+    Each stateful stage runs only when its flag is set — the engine sets it
+    while its family has something installed — and its state passes
+    through untouched otherwise (any value, None included); the rows of an
+    off stage are the reference's placeholders and the command lane is
+    zeros. `program_node_limit` trims the rule programs' node pass to the
+    node slots the compiled table uses (0 = all).
     `geofence_impl` "auto" runs the containment kernel on CUDA tensors and
     the plain version on CPU tensors; "plain" forces the plain version.
-    `alert_lane_capacity` is the K of the compacted alert lanes."""
+    `alert_lane_capacity` and `command_lane_capacity` are the K of the
+    alert and command lanes."""
     T = state.tenant_event_count.shape[0]
     B = batch.device_idx.shape[0]
 
@@ -194,9 +245,36 @@ def process_batch(params: PipelineParams, state: DeviceStateTensors,
     new_state = fold_device_state(state, batch)
     prog, model = _placeholders(B, valid.device)
 
+    if programs_enabled or models_enabled:
+        rows, now_row, inv = stateful_rows(params, new_state, batch)
+
+    # stage 3b: rule programs, on the POST-fold measurement state
+    if programs_enabled:
+        rule_state, sprog = eval_rule_programs(
+            params.programs, rule_state, now_row=now_row,
+            node_limit=program_node_limit, **rows)
+        prog = {k: v[inv] for k, v in sprog.items()}
+
+    # stage 3c: anomaly-model scoring
+    if models_enabled:
+        model_state, smodel = eval_anomaly_models(params.models, model_state,
+                                                  **rows)
+        model = {k: v[inv] for k, v in smodel.items()}
+
+    # stage 3d: actuation policies, over every family's fire bits
+    if actuation_enabled:
+        actuation_state, command_lanes = eval_actuation_policies(
+            params.policies, actuation_state, dev=batch.device_idx,
+            ts=batch.ts, tenant_row=tenant, thr=thr, geo=geo, prog=prog,
+            model=model, capacity=command_lane_capacity)
+    else:
+        command_lanes = torch.zeros(
+            (COMMAND_LANE_ROWS, command_lane_capacity), dtype=torch.int32,
+            device=valid.device)
+
     # stage 4: stats + alert lanes
     tenant_counts = count_by_key(tenant, valid, T)
-    fired_any = thr["fired"] | geo["fired"]
+    fired_any = thr["fired"] | geo["fired"] | prog["fired"] | model["fired"]
     new_state = dataclasses.replace(
         new_state,
         tenant_event_count=state.tenant_event_count + tenant_counts,
@@ -221,14 +299,14 @@ def process_batch(params: PipelineParams, state: DeviceStateTensors,
         tenant_counts=tenant_counts,
         processed=valid.sum(dtype=torch.int32),
         alerts=(thr["fired"].sum(dtype=torch.int32)
-                + geo["fired"].sum(dtype=torch.int32)),
+                + geo["fired"].sum(dtype=torch.int32)
+                + prog["fired"].sum(dtype=torch.int32)
+                + model["fired"].sum(dtype=torch.int32)),
         alert_lanes=compact_alert_lanes(thr, geo, alert_lane_capacity,
                                         prog, model),
-        command_lanes=torch.zeros(
-            (COMMAND_LANE_ROWS, DEFAULT_COMMAND_LANE_CAPACITY),
-            dtype=torch.int32, device=valid.device),
+        command_lanes=command_lanes,
     )
-    return new_state, outputs
+    return new_state, rule_state, model_state, actuation_state, outputs
 
 
 def check_presence(state: DeviceStateTensors, registered: torch.Tensor,

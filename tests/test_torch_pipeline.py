@@ -287,8 +287,9 @@ def _run_step_trace(world, blobs, now_rel):
     for step, blob in enumerate(blobs):
         jstate, rs, ms, acts, jout = jeng._step_blob(
             jparams, jstate, rs, ms, acts, jnp.asarray(blob))
-        tstate, tout = process_batch(
-            tparams, tstate, tpack.blob_to_batch(torch.from_numpy(blob)),
+        tstate, _, _, _, tout = process_batch(
+            tparams, tstate, None, None, None,
+            tpack.blob_to_batch(torch.from_numpy(blob)),
             alert_lane_capacity=K)
         assert_dataclass_bits_equal(jout, tout, f"step {step} outputs")
         assert_dataclass_bits_equal(jstate, tstate, f"step {step} state")
@@ -333,9 +334,9 @@ def test_out_of_range_device_index_matches_xla_clamp(world):
         _jax_params_dict(world["jeng"]._ensure_params()), "cpu")
     tstate = convert.state_from_numpy(
         dataclasses.asdict(init_device_state_np(D, M, T)), "cpu")
-    _, out = process_batch(tparams, tstate,
-                           tpack.blob_to_batch(torch.from_numpy(blob)),
-                           alert_lane_capacity=K)
+    *_, out = process_batch(tparams, tstate, None, None, None,
+                            tpack.blob_to_batch(torch.from_numpy(blob)),
+                            alert_lane_capacity=K)
     assert out.valid[:6].all()        # gathered status of row D-1
     with pytest.raises(IndexError):   # what unclamped torch indexing does
         tparams.assignment_status[torch.from_numpy(cols["device_idx"][:6])
