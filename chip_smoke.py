@@ -339,30 +339,35 @@ def phase_kernel_vs_plain(dev, card):
     return results
 
 
-def build_world(dev, geofence_impl, epoch_base_ms=None):
+def build_world(dev, geofence_impl, epoch_base_ms=None, *,
+                max_devices=MAX_DEVICES, n_registered=N_REGISTERED,
+                n_zones=N_ZONES, n_verts=N_VERTS, batch=BATCH, **engine_kw):
+    """Phase 3's world (the sizes are keywords so the card tests can build
+    it small): registry, zones, threshold and geofence rules, a started
+    engine on `dev`."""
     from sitewhere_tpu_torch.model import AlertLevel
     from sitewhere_tpu_torch.pipeline import (
         GeofenceRule, PipelineEngine, ThresholdRule)
     from sitewhere_tpu_torch.registry import RegistryTensors
 
     rng = np.random.default_rng(SEED)
-    reg = RegistryTensors(max_devices=MAX_DEVICES, max_zones=N_ZONES,
-                          max_zone_vertices=N_VERTS)
-    reg.mirror_devices([f"dev-{i}" for i in range(1, N_REGISTERED + 1)],
+    reg = RegistryTensors(max_devices=max_devices, max_zones=n_zones,
+                          max_zone_vertices=n_verts)
+    reg.mirror_devices([f"dev-{i}" for i in range(1, n_registered + 1)],
                        tenant="tenant-1", device_type="sensor",
                        area="area-1")
-    _, _, verts = random_world(SEED, 1, N_ZONES, N_VERTS, box=LAT_LON_BOX,
+    _, _, verts = random_world(SEED, 1, n_zones, n_verts, box=LAT_LON_BOX,
                                radius=ZONE_RADIUS)
-    for z in range(N_ZONES):
+    for z in range(n_zones):
         reg.mirror_zone(f"zone-{z}", "tenant-1",
                         [tuple(v) for v in verts[z]], area="area-1")
     engine = PipelineEngine(
-        reg, batch_size=BATCH, measurement_slots=MEASUREMENT_SLOTS,
+        reg, batch_size=batch, measurement_slots=MEASUREMENT_SLOTS,
         max_tenants=MAX_TENANTS, max_threshold_rules=MAX_RULES,
         max_geofence_rules=MAX_RULES,
         presence_missing_interval_ms=PRESENCE_MS,
         geofence_impl=geofence_impl,
-        device=dev)
+        device=dev, **engine_kw)
     engine.packer.epoch_base_ms = (
         epoch_base_ms if epoch_base_ms is not None
         else int(time.time() * 1000) - EPOCH_LAG_MS)
@@ -371,7 +376,7 @@ def build_world(dev, geofence_impl, epoch_base_ms=None):
         engine.add_threshold_rule(ThresholdRule(
             token=f"thr-{i}", measurement_name="m1", operator=">",
             threshold=95.0 + i, alert_level=AlertLevel.WARNING))
-    zones = rng.permutation(N_ZONES)[:N_GEOFENCE]
+    zones = rng.permutation(n_zones)[:min(N_GEOFENCE, n_zones)]
     for g, z in enumerate(zones):
         engine.add_geofence_rule(GeofenceRule(
             token=f"fence-{g}", zone_token=f"zone-{z}",
@@ -386,25 +391,120 @@ def _alert_keys(alerts):
              a.event_date) for a in alerts]
 
 
-def run_trace(engine, batches):
+def run_trace(engine, batches, twin=None):
     """submit + materialize_alerts over `batches`; per-step wall seconds
     (each ends in the lanes' host copy, which waits for the card) and the
-    materialized alert keys."""
+    materialized alert keys. With an EagerTwin of the engine, each step's
+    outputs are held against the twin's step (outside the walls)."""
     walls, alerts = [], []
-    for batch in batches:
+    for i, batch in enumerate(batches):
         t0 = time.perf_counter()
         out = engine.submit(batch)
         got = engine.materialize_alerts(batch, out)
         walls.append(time.perf_counter() - t0)
         alerts.append(_alert_keys(got))
+        if twin is not None:
+            assert_tree_bits_equal(twin.step(batch), out, f"step {i}")
     return walls, alerts
 
 
+def flight_stage_ms(engine, steps):
+    """Mean ms per stage over the engine's last `steps` flight records,
+    and the mean sum of stages per step (the engine's own attribution of
+    its host time)."""
+    records = engine.flight.export(last_n=steps)["records"]
+    totals = {}
+    for rec in records:
+        for stage, seg in rec["stages"].items():
+            totals[stage] = totals.get(stage, 0.0) + seg["ms"]
+    out = {k: v / len(records) for k, v in totals.items()}
+    out["sum_of_stages"] = sum(r["sum_ms"] for r in records) / len(records)
+    return out
+
+
+def reset_launch_counts(*engines):
+    """Set every count of kernel launches to 0: the wrappers' own (eager
+    launches) and the engines' (launches made by replays of captured
+    steps)."""
+    from sitewhere_tpu_torch.pipeline.graph import STEP_KERNELS
+
+    for wrapper in STEP_KERNELS.values():
+        wrapper.launches = 0
+    for engine in engines:
+        engine.graph_kernel_launches.clear()
+
+
+def launch_counts(*engines):
+    """Kernel name -> launches since reset_launch_counts: the wrapper's
+    eager launches plus every replay's, counted per replay."""
+    from sitewhere_tpu_torch.pipeline.graph import STEP_KERNELS
+
+    return {name: wrapper.launches + sum(
+                e.graph_kernel_launches.get(name, 0) for e in engines)
+            for name, wrapper in STEP_KERNELS.items()}
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def assert_tree_bits_equal(a, b, what):
+    """Raise unless two dataclass trees hold the same tensors (f32 as bit
+    patterns)."""
+    from sitewhere_tpu_torch.tree import tree_leaves
+
+    for f in a.__dataclass_fields__:
+        x, y = getattr(a, f), getattr(b, f)
+        if hasattr(x, "__dataclass_fields__"):
+            assert_tree_bits_equal(x, y, f"{what}.{f}")
+        elif not torch.equal(_bits(x), _bits(y.to(x.device))):
+            raise AssertionError(f"{what}.{f} differs")
+    assert len(tree_leaves(a)) == len(tree_leaves(b))
+
+
+class EagerTwin:
+    """The engine's step run eagerly, op by op, with `process_batch` on
+    copies of the engine's params and state groups taken at construction:
+    the reference its captured step is held to on the card."""
+
+    def __init__(self, engine):
+        from sitewhere_tpu_torch.tree import tree_map
+
+        self.engine = engine
+        clone = lambda group: tree_map(torch.clone, group)  # noqa: E731
+        self.params = clone(engine._ensure_params())
+        self.groups = [clone(g) for g in (
+            engine._state, engine._rule_state, engine._model_state,
+            engine._actuation_state)]
+
+    def step(self, batch):
+        from sitewhere_tpu_torch.ops.pack import batch_to_blob, blob_to_batch
+        from sitewhere_tpu_torch.pipeline.step import process_batch
+
+        eng = self.engine
+        blob = torch.from_numpy(batch_to_blob(batch)).to(eng.device)
+        *self.groups, out = process_batch(
+            self.params, *self.groups, blob_to_batch(blob),
+            geofence_impl=eng.geofence_impl,
+            alert_lane_capacity=eng.alert_lane_capacity,
+            command_lane_capacity=eng.command_lane_capacity,
+            **eng._step_flags)
+        return out
+
+    def assert_state_equal(self, engine):
+        for mine, theirs, name in zip(self.groups, (
+                engine._state, engine._rule_state, engine._model_state,
+                engine._actuation_state),
+                ("state", "rule", "model", "actuation")):
+            assert_tree_bits_equal(mine, theirs, name)
+
+
 def phase_main_path(dev, card):
-    from sitewhere_tpu_torch.ops.geofence_kernel import (
-        points_in_zones_kernel)
+    from sitewhere_tpu_torch.runtime.flight import FlightRecorder
+
     t0 = time.perf_counter()
     engine = build_world(dev, "auto")
+    engine.flight = FlightRecorder(capacity=64)
     batches = [synthetic_batch(engine.packer, N_REGISTERED, BATCH, SEED + s)
                for s in range(WARMUP + STEPS)]
     log(f"[main] world + {len(batches)} batches built in "
@@ -412,18 +512,21 @@ def phase_main_path(dev, card):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    points_in_zones_kernel.launches = 0
+    reset_launch_counts(engine)
     walls, alerts = run_trace(engine, batches)
     state_before_sweep = engine.canonical_state()
     t_sweep = time.perf_counter()
     missing = engine.presence_sweep()
     sweep_s = time.perf_counter() - t_sweep
-    launches = {"points_in_zones": points_in_zones_kernel.launches}
+    launches = launch_counts(engine)
     peak = torch.cuda.max_memory_allocated()
     if launches["points_in_zones"] != len(batches):
         raise AssertionError(f"geofence kernel launched "
                              f"{launches['points_in_zones']} times over "
                              f"{len(batches)} steps; expected one per step")
+    if engine.graph_captures != 1:
+        raise AssertionError(f"{engine.graph_captures} captures of one "
+                             f"static configuration")
 
     timed = walls[WARMUP:]
     events = BATCH * STEPS
@@ -439,14 +542,30 @@ def phase_main_path(dev, card):
         "presence_missing": len(missing), "presence_sweep_ms": sweep_s * 1e3,
         "max_memory_allocated_bytes": peak,
         "kernel_launches": launches["points_in_zones"],
+        "graph_captures": engine.graph_captures,
     }
     log(f"[main] {json.dumps(summary)} on {card}")
+    log(f"[main] flight, mean ms per timed step: "
+        f"{json.dumps(flight_stage_ms(engine, STEPS))} on {card}")
     if stats["tenant_event_count"][1] != BATCH * len(batches):
         raise AssertionError(f"tenant event count {stats} != "
                              f"{BATCH * len(batches)}")
     if not missing or summary["alerts_materialized"] == 0:
         raise AssertionError("main path fired no alerts or no presence "
                              "transition")
+
+    # the captured step against the same step run op by op on the card,
+    # in lockstep on a second engine of the same world
+    graphed = build_world(dev, "auto", engine.packer.epoch_base_ms)
+    twin = EagerTwin(graphed)
+    _, twin_alerts = run_trace(graphed, batches, twin)
+    twin.assert_state_equal(graphed)
+    if twin_alerts != alerts or graphed.graph_captures != 1:
+        raise AssertionError("a second graph engine differs from the first")
+    del twin, graphed
+    log(f"[main] graph engine vs eager process_batch on the card: "
+        f"identical outputs and lanes over {len(batches)} steps "
+        f"(1 eager + {len(batches) - 1} replays) and identical state")
 
     plain = build_world(dev, "plain", engine.packer.epoch_base_ms)
     _, plain_alerts = run_trace(plain, batches)
@@ -460,19 +579,15 @@ def phase_main_path(dev, card):
     # the sweep stamps each engine's own wall clock into
     # presence_missing_since, so the state is compared before the sweeps
     # and the sweeps by their transitions and presence bits
-    for name in plain_state.__dataclass_fields__:
-        a, b = getattr(state_before_sweep, name), getattr(plain_state, name)
-        if a.dtype == torch.float32:   # bit patterns: -0.0 and NaN count
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        if not torch.equal(a, b):
-            raise AssertionError(f"canonical state differs in {name}")
+    assert_tree_bits_equal(state_before_sweep, plain_state,
+                           "canonical state")
     if plain_missing != missing or not torch.equal(
             engine.state.present, plain.state.present):
         raise AssertionError("presence transitions differ")
     log(f"[main] plain-geofence engine: identical alerts "
         f"({summary['alerts_materialized']} timed), canonical state and "
         f"presence transitions ({len(missing)})")
-    return engine, batches, summary, launches
+    return engine, batches, summary, launches, alerts, state_before_sweep
 
 
 def phase_breakdown(engine, batches, card, reps=10):
@@ -561,7 +676,10 @@ def profile_engine(engine, batches, n_prof=5):
     profiler also books each kernel's time under the op that launched it,
     so a sum over all events counts it twice; earlier versions of this
     script reported that sum as busy time, and it is printed beside as
-    `all_events_sum_ms_per_step` for comparison with their records."""
+    `all_events_sum_ms_per_step` for comparison with their records. Under
+    the captured step the launching op is the graph replay, so the device
+    kernels are also listed by their own names, and the geofence kernel's
+    device events are counted (`b1_device_events_per_step`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -579,6 +697,7 @@ def profile_engine(engine, batches, n_prof=5):
     device_us = sum(e.self_device_time_total for e in on_device)
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
+    kernels = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
     return {
         "steps": n_prof, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": (device_us / 1e3 / n_prof
@@ -591,6 +710,12 @@ def profile_engine(engine, batches, n_prof=5):
         "top_device_ops_ms_per_step": {
             e.key[:60]: e.self_device_time_total / 1e3 / n_prof
             for e in top if e.self_device_time_total},
+        "top_device_kernels_ms_per_step": {
+            e.key[:60]: e.self_device_time_total / 1e3 / n_prof
+            for e in kernels if e.self_device_time_total},
+        "b1_device_events_per_step": sum(
+            e.count for e in on_device
+            if "points_in_zones" in e.key) / n_prof,
     }
 
 
@@ -666,10 +791,10 @@ STATEFUL_POLICIES = [
 ]
 
 
-def build_stateful_world(dev, epoch_base_ms=None):
+def build_stateful_world(dev, epoch_base_ms=None, **world_kw):
     """Phase 3's world with the stateful families installed; the engine's
     stateful buckets are its defaults, the JAX engine's."""
-    engine = build_world(dev, "auto", epoch_base_ms)
+    engine = build_world(dev, "auto", epoch_base_ms, **world_kw)
     engine.packer.measurements.intern("m2")
     for spec in STATEFUL_PROGRAMS:
         engine.upsert_rule_program(dict(spec))
@@ -677,7 +802,7 @@ def build_stateful_world(dev, epoch_base_ms=None):
         engine.upsert_anomaly_model(dict(spec))
     for spec in STATEFUL_POLICIES:
         engine.upsert_actuation_policy(dict(spec))
-    engine.start()
+    engine._ensure_params()   # the installed families compiled now
     return engine
 
 
@@ -720,10 +845,6 @@ def run_stateful_trace(engine, batches, n_check):
             snap = stateful_snapshot(engine)
     return (walls, counts, alerts, fires, scores, snap,
             families.cpu().tolist())
-
-
-def _bits(t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
 def compare_snapshots(card, cpu):
@@ -803,9 +924,6 @@ def stateful_spans(engine, batch, card, reps=10):
 
 
 def phase_stateful(dev, card, main_summary):
-    from sitewhere_tpu_torch.ops.geofence_kernel import (
-        points_in_zones_kernel)
-
     t_phase = time.perf_counter()
     engine = build_stateful_world(dev)
     batches = [synthetic_batch(engine.packer, N_REGISTERED, BATCH,
@@ -820,15 +938,18 @@ def phase_stateful(dev, card, main_summary):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    points_in_zones_kernel.launches = 0
+    reset_launch_counts(engine)
     walls, counts, alerts, fires, scores, snap, families = \
         run_stateful_trace(engine, batches, STATEFUL_CPU_STEPS)
-    launches = points_in_zones_kernel.launches
+    launches = launch_counts(engine)["points_in_zones"]
     peak = torch.cuda.max_memory_allocated()
     if launches != len(batches):
         raise AssertionError(f"geofence kernel launched {launches} times "
                              f"over {len(batches)} stateful steps; "
                              f"expected one per step")
+    if engine.graph_captures != 1:
+        raise AssertionError(f"{engine.graph_captures} captures of one "
+                             f"static configuration")
     timed = walls[WARMUP:]
     counters = {"programs": engine.rule_program_counters(),
                 "models": engine.anomaly_model_counters(),
@@ -849,6 +970,7 @@ def phase_stateful(dev, card, main_summary):
         "commands_debounced": engine.commands_debounced,
         "commands_dropped": engine.commands_dropped,
         "kernel_launches": launches,
+        "graph_captures": engine.graph_captures,
     }
     log(f"[stateful] {json.dumps(summary)} on {card}")
     log(f"[stateful] counters {json.dumps(counters)}")
@@ -884,7 +1006,184 @@ def phase_stateful(dev, card, main_summary):
     prof = profile_engine(engine, batches)
     log(f"[stateful] profiler: {json.dumps(prof)} on {card}")
     log(f"[stateful] phase took {time.perf_counter() - t_phase:.1f} s")
-    return summary, launches, spans, prof
+    reference = {"batches": batches, "alerts": alerts, "fires": fires,
+                 "snapshot": snap, "epoch_base_ms": engine.packer.epoch_base_ms}
+    return summary, launches, prof, reference
+
+
+# -- phase 6: the host runtime (pipelined feeder, staging ring, drill) ---------
+
+# h2d_error, dispatch_error and lane_fetch_error each fire twice in a row
+# (a retry loop has three attempts, so each is absorbed) in the serial half
+# of the run, and a third time in the pipelined half
+DRILL_PLAN = {"seed": SEED, "rules": [
+    {"point": "h2d_error", "times": 2, "after": 2},
+    {"point": "dispatch_error", "times": 2, "after": 3},
+    {"point": "lane_fetch_error", "times": 2, "after": 1},
+    {"point": "h2d_error", "times": 1, "after": 16},
+    {"point": "dispatch_error", "times": 1, "after": 16}]}
+PIPE_DEPTH, PIPE_STAGERS = 3, 2
+
+
+def run_pipelined(engine, batches, take_fires=False):
+    """Feed `batches` through a PipelinedSubmitter(PIPE_DEPTH,
+    PIPE_STAGERS) from a producer thread while this thread materializes
+    each step in order as its future resolves. Returns the host clock at
+    each step's end (its alerts materialized), the alert keys and, with
+    `take_fires`, the command fires per step."""
+    import threading
+
+    from sitewhere_tpu_torch.pipeline.feed import PipelinedSubmitter
+
+    sub = PipelinedSubmitter(engine, depth=PIPE_DEPTH, stagers=PIPE_STAGERS)
+    futures = [None] * len(batches)
+    submitted = [threading.Event() for _ in batches]
+    errors = []
+
+    def produce():
+        try:
+            for i, batch in enumerate(batches):
+                futures[i] = sub.submit(batch)
+                submitted[i].set()
+        except Exception as exc:   # surfaces below, on the caller's thread
+            errors.append(exc)
+            for event in submitted:
+                event.set()
+
+    producer = threading.Thread(target=produce, name="smoke-producer")
+    t0 = time.perf_counter()
+    producer.start()
+    ends, alerts, fires = [], [], []
+    try:
+        for i, batch in enumerate(batches):
+            submitted[i].wait(timeout=300)
+            if errors:
+                raise errors[0]
+            out = futures[i].result(timeout=300)
+            alerts.append(_alert_keys(engine.materialize_alerts(batch, out)))
+            if take_fires:
+                fires.append(engine.take_command_fires())
+            ends.append(time.perf_counter())
+    finally:
+        producer.join(timeout=300)
+        sub.close()
+    return [t0] + ends, alerts, fires
+
+
+def _rates(ends, warmup):
+    """events/s and step p50/p99 (ms) of a pipelined run from its step
+    end times: a step's time is the gap since the previous step's end."""
+    gaps = np.diff(ends)[warmup:]
+    return {"events_per_s": BATCH * len(gaps) / float(np.sum(gaps)),
+            "step_ms_p50": float(np.percentile(gaps, 50) * 1e3),
+            "step_ms_p99": float(np.percentile(gaps, 99) * 1e3),
+            "steps": len(gaps)}
+
+
+def phase_pipelined(dev, card, main_ref, stateful_ref, runs):
+    """The pipelined feeder against serial submission at full size, a
+    fault drill on the card, and the host runtime's readings."""
+    from sitewhere_tpu_torch.runtime import faults, hbmledger
+    from sitewhere_tpu_torch.runtime.flight import FlightRecorder
+
+    t_phase = time.perf_counter()
+    batches = main_ref["batches"]
+    # main path: pipelined == serial (phase 3), alerts and state
+    engine = build_world(dev, "auto", main_ref["epoch_base_ms"])
+    engine.flight = FlightRecorder(capacity=64)
+    ends, alerts, _ = run_pipelined(engine, batches)
+    if alerts != main_ref["alerts"]:
+        raise AssertionError("pipelined and serial submission materialized "
+                             "different alerts on the main path")
+    assert_tree_bits_equal(main_ref["state"], engine.canonical_state(),
+                           "pipelined main-path state")
+    main_pipe = _rates(ends, WARMUP)
+    flight = engine.flight.export(last_n=STEPS)["rollups"]
+    flight["stage_ms"] = flight_stage_ms(engine, STEPS)
+    ledger = hbmledger.ledger(engine)
+    allocated = torch.cuda.memory_allocated()
+    log(f"[pipelined] main path: pipelined == serial over {len(batches)} "
+        f"steps (alerts, canonical state); graph_captures "
+        f"{engine.graph_captures}, ring {engine.staging_ring.state()}")
+    del engine
+
+    # the drill: serial, then pipelined, under one seeded plan
+    engine = build_world(dev, "auto", main_ref["epoch_base_ms"])
+    retries0 = engine._retry_counter.value
+    plan = faults.FaultPlan.from_json(DRILL_PLAN)
+    half = len(batches) // 2
+    faults.arm(plan)
+    try:
+        _, drill_alerts = run_trace(engine, batches[:half])
+        _, more, _ = run_pipelined(engine, batches[half:])
+    finally:
+        faults.disarm()
+    fires = {}
+    for rule in plan.report()["rules"]:
+        fires[rule["point"]] = fires.get(rule["point"], 0) + rule["fires"]
+    drill = {"fires": fires,
+             "step_retries": engine._retry_counter.value - retries0,
+             "health": engine.health.to_json()["state"],
+             "health_transitions": engine.health.transitions,
+             "graph_captures": engine.graph_captures}
+    if drill_alerts + more != main_ref["alerts"]:
+        raise AssertionError("the fault drill changed the alerts")
+    assert_tree_bits_equal(main_ref["state"], engine.canonical_state(),
+                           "state after the fault drill")
+    if not all(drill["fires"].values()) or drill["step_retries"] != sum(
+            drill["fires"].values()):
+        raise AssertionError(f"drill not absorbed as planned: {drill}")
+    log(f"[pipelined] drill absorbed (identical alerts and state): "
+        f"{json.dumps(drill)}")
+    del engine
+
+    # stateful path: the first STATEFUL_CPU_STEPS steps pipelined ==
+    # serial (phase 5); then the rest pipelined, for its rates
+    sbatches = stateful_ref["batches"]
+    engine = build_stateful_world(dev, stateful_ref["epoch_base_ms"])
+    n = STATEFUL_CPU_STEPS
+    _, s_alerts, s_fires = run_pipelined(engine, sbatches[:n],
+                                         take_fires=True)
+    if s_alerts != stateful_ref["alerts"] or s_fires != stateful_ref["fires"]:
+        raise AssertionError("pipelined and serial submission differ on the "
+                             "stateful path")
+    compare_snapshots(stateful_ref["snapshot"], stateful_snapshot(engine))
+    ends, _, _ = run_pipelined(engine, sbatches[n:], take_fires=True)
+    stateful_pipe = _rates(ends, WARMUP)
+    stateful_ledger = hbmledger.ledger(engine)
+    stateful_allocated = torch.cuda.memory_allocated()
+    log(f"[pipelined] stateful path: pipelined == serial over {n} steps "
+        f"(alerts, command fires, state groups, counters); graph_captures "
+        f"{engine.graph_captures}")
+    del engine
+
+    for path, serial, pipe in (("main", runs["main"], main_pipe),
+                               ("stateful", runs["stateful"],
+                                stateful_pipe)):
+        log(f"[pipelined] {path} rates: " + json.dumps({
+            "serial": {k: serial[k] for k in ("events_per_s", "step_ms_p50",
+                                              "step_ms_p99", "steps")},
+            "pipelined": pipe}) + f" on {card}")
+    for path, prof in (("main", runs["main_profile"]),
+                       ("stateful", runs["stateful_profile"])):
+        log(f"[pipelined] {path} under the graph: " + json.dumps({
+            "graph_captures": runs[path]["graph_captures"],
+            "device_events_per_step": prof["device_events_per_step"],
+            "device_idle_share": prof["device_idle_share"],
+            "b1_device_events_per_step":
+                prof["b1_device_events_per_step"]}) + f" on {card}")
+    log(f"[pipelined] main host split, ms: {json.dumps(runs['host_ms'])} "
+        f"on {card}")
+    log(f"[pipelined] main flight rollups: " + json.dumps({
+        k: flight.get(k) for k in ("h2d_overlap_fraction",
+                                   "stage_occupancy", "staging_ring",
+                                   "sync_total_ms", "stage_ms",
+                                   "critical_stage_counts")}))
+    log(f"[pipelined] main HBM ledger: {json.dumps(ledger)}; "
+        f"torch.cuda.memory_allocated {allocated}")
+    log(f"[pipelined] stateful HBM ledger: {json.dumps(stateful_ledger)}; "
+        f"torch.cuda.memory_allocated {stateful_allocated}")
+    log(f"[pipelined] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -897,10 +1196,17 @@ def main() -> int:
         torch.cuda.set_device(dev)
         card, name = phase_card()
         shapes = phase_kernel_vs_plain(dev, card)
-        engine, batches, summary, launches = phase_main_path(dev, card)
-        phase_breakdown(engine, batches, card)
+        engine, batches, summary, launches, alerts, state = \
+            phase_main_path(dev, card)
+        host_ms, _, main_prof = phase_breakdown(engine, batches, card)
+        main_ref = {"batches": batches, "alerts": alerts, "state": state,
+                    "epoch_base_ms": engine.packer.epoch_base_ms}
         del engine
-        _, stateful_launches, _, _ = phase_stateful(dev, card, summary)
+        stateful, stateful_launches, stateful_prof, stateful_ref = \
+            phase_stateful(dev, card, summary)
+        phase_pipelined(dev, card, main_ref, stateful_ref, {
+            "main": summary, "stateful": stateful, "host_ms": host_ms,
+            "main_profile": main_prof, "stateful_profile": stateful_prof})
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

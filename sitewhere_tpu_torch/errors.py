@@ -23,6 +23,11 @@ class SiteWhereError(Exception):
         self.http_status = http_status
 
 
+class LifecycleError(SiteWhereError):
+    """A component failed a lifecycle transition (reference: lifecycle error
+    states)."""
+
+
 class DuplicateTokenError(SiteWhereError):
     def __init__(self, message: str,
                  code: ErrorCode = ErrorCode.DUPLICATE_TOKEN):

@@ -10,7 +10,12 @@ synchronising, or raises — it never takes the plain path for a CUDA tensor.
 The kernel sizes its own grid and shared memory (one persistent block per
 SM, zones walked in chunks when the table is large); `launch_plan` reports
 the choice.
-`points_in_zones_kernel.launches` counts kernel launches.
+`points_in_zones_kernel.launches` counts kernel launches. A call made
+while the current stream is capturing a CUDA graph records the launch
+into the graph and runs nothing: it counts on
+`points_in_zones_kernel.captures` instead, and each replay of that graph
+launches the kernel again (the engine counts those, see
+pipeline/graph.py).
 """
 
 from __future__ import annotations
@@ -81,11 +86,15 @@ def points_in_zones_kernel(lat: torch.Tensor, lon: torch.Tensor,
         raise RuntimeError(
             f"geofence kernel launch failed: "
             f"{lib.swt_error_string(rc).decode()} (cudaError {rc})")
-    points_in_zones_kernel.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        points_in_zones_kernel.captures += 1
+    else:
+        points_in_zones_kernel.launches += 1
     return out
 
 
 points_in_zones_kernel.launches = 0
+points_in_zones_kernel.captures = 0
 
 
 def launch_plan(B: int, Z: int, V: int, device: int = 0) -> dict:

@@ -111,10 +111,15 @@ def _embed_ts_base(row0: np.ndarray, ts_base: int) -> None:
             << np.uint32(_BASE_SHIFT)
 
 
-def batch_to_blob(batch: EventBatch) -> np.ndarray:
+def batch_to_blob(batch: EventBatch,
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
     """Pack a host batch into the wire blob (numpy, [rows, B] int32) in the
     smallest layout its content allows. A well-formed batch — anything the
-    packer produces — round-trips exactly."""
+    packer produces — round-trips exactly.
+
+    `out` is an optional preallocated [WIRE_ROWS, B] int32 buffer (the
+    engine passes a pinned staging buffer): the blob is written into its
+    first `rows` rows and that contiguous view is returned."""
     B = batch.device_idx.shape[-1]
     rows, ts_base = wire_variant_for(batch)
     dev = np.asarray(batch.device_idx, np.int32)
@@ -126,7 +131,11 @@ def batch_to_blob(batch: EventBatch) -> np.ndarray:
     et = np.asarray(batch.event_type, np.int32) & 7
     is_loc = et == _ET_LOCATION
     is_alert = et == _ET_ALERT
-    blob = np.empty((rows, B), np.int32)
+    if out is not None and out.shape[-1] == B and out.ndim == 2 \
+            and out.shape[0] >= rows:
+        blob = out[:rows]
+    else:
+        blob = np.empty((rows, B), np.int32)
     valid = np.asarray(batch.valid)
     blob[0] = (dev
                | (et << _ET_SHIFT)

@@ -1,17 +1,27 @@
 """PipelineEngine: host orchestrator of the step on the card.
 
-Counterpart of `sitewhere_tpu/pipeline/engine.py` `PipelineEngine`, with
-its main-path surface: rule CRUD and the rule-table compilers, the CRUD of
-rule programs, anomaly models and actuation policies with their state
-groups (sized to a [D, 1, ...] placeholder while a family is empty), the
-params refresh on registry or rule version change, submit / submit_blob /
-submit_routed, alert and command materialization from the
-device-compacted lanes (one host copy per step), the presence sweep, and
-state reads.
+Counterpart of `sitewhere_tpu/pipeline/engine.py` `PipelineEngine` (a
+LifecycleComponent, as the reference's is): rule CRUD and the rule-table
+compilers, the CRUD of rule programs, anomaly models and actuation policies
+with their state groups (sized to a [D, 1, ...] placeholder while a family
+is empty), the params refresh on registry or rule version change, submit /
+submit_blob / submit_routed, the H2D staging ring (`stage_blob`), alert
+and command materialization from the device-compacted lanes (one host copy
+per step), the presence sweep and state reads; and the host runtime the
+reference reports through: flight records per step, the step-path
+histograms and counters under the reference's metric names, fault points
+with bounded retries around H2D, dispatch and lane fetch, and the
+engine's health ladder.
 
-Not in this slice (the flight recorder, fault points, health, the metrics
-registry, the staging ring, the feeders, the command dispatcher and the
-rule/model/policy stores) — see ROADMAP.md.
+On the card each static configuration's step is one captured CUDA graph
+(pipeline/graph.py): the first step of a key runs eagerly and is kept, the
+capture follows, later steps replay. The state groups and params are
+engine-owned buffers that every step and every load updates IN PLACE —
+never rebind `_state`, a group or `_params` on the card: a graph would keep
+reading the old buffers. A path that must reallocate drops the graphs.
+
+Not in this slice (the feeder fleet, the command dispatcher, the
+rule/model/policy stores, checkpoints) — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -48,11 +58,14 @@ from sitewhere_tpu_torch.ops.geofence import (
     GEOFENCE_IMPLS, GeofenceCondition, GeofenceRuleTable, ZoneTable,
     empty_geofence_table)
 from sitewhere_tpu_torch.ops.pack import (
-    EventBatch, EventPacker, batch_to_blob, blob_to_batch)
+    WIRE_ROWS, EventBatch, EventPacker, batch_to_blob, blob_to_batch)
 from sitewhere_tpu_torch.ops.slab import state_slab_lanes
 from sitewhere_tpu_torch.ops.stateful import init_rule_state
 from sitewhere_tpu_torch.ops.threshold import (
     ThresholdOp, ThresholdRuleTable, empty_threshold_table)
+from sitewhere_tpu_torch.pipeline.graph import (
+    capture_step, commit, same_layout, step_key)
+from sitewhere_tpu_torch.pipeline.staging import StagedBlob, StagingRing
 from sitewhere_tpu_torch.pipeline.state_tensors import (
     DeviceStateTensors, init_device_state)
 from sitewhere_tpu_torch.pipeline.step import (
@@ -63,6 +76,13 @@ from sitewhere_tpu_torch.rules.compiler import (
     MAX_PROGRAM_BUCKET, compile_program_into, empty_program_table)
 from sitewhere_tpu_torch.rules.compiler import \
     dry_run_compile as dry_run_program
+from sitewhere_tpu_torch.runtime.eventage import (
+    age_histogram, observe_summary)
+from sitewhere_tpu_torch.runtime.faults import fault_point, jittered
+from sitewhere_tpu_torch.runtime.flight import GLOBAL_FLIGHT
+from sitewhere_tpu_torch.runtime.health import EngineHealth
+from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
+from sitewhere_tpu_torch.runtime.metrics import GLOBAL_METRICS
 from sitewhere_tpu_torch.tree import to_device, tree_map
 
 _NEG = -(2 ** 31)
@@ -71,6 +91,18 @@ _ALERT_LEVELS = {int(level): level for level in AlertLevel}
 _SECOND_COUNTER = {"rule": "suppress_count", "model": "eval_count",
                    "actuation": "debounce_count"}
 _log = logging.getLogger("sitewhere.pipeline")
+# pinned host staging buffers of the blob ring (see _staging_blob_buffer)
+_BLOB_RING_SLOTS = 6
+
+
+def record_event(device: torch.device):
+    """A CUDA event recorded on `device`'s current stream: ready once the
+    work queued there so far is done. None on the CPU (always ready)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
 
 
 @dataclasses.dataclass
@@ -168,7 +200,7 @@ def rule_from_dict(data: Dict):
         ErrorCode.GENERIC)
 
 
-class PipelineEngine:
+class PipelineEngine(LifecycleComponent):
     """One engine per process; multi-tenant by construction (the tenant is
     a tensor column, not a separate engine). Runs on `device` ("cuda"
     unless the caller asks for the CPU; raises without a CUDA device)."""
@@ -178,6 +210,7 @@ class PipelineEngine:
                  max_tenants: int = 16, max_threshold_rules: int = 256,
                  max_geofence_rules: int = 256,
                  presence_missing_interval_ms: int = 8 * 60 * 60 * 1000,
+                 name: str = "pipeline-engine",
                  geofence_impl: str = "auto",
                  alert_lane_capacity: Optional[int] = None,
                  max_rule_programs: int = 32,
@@ -187,10 +220,12 @@ class PipelineEngine:
                  anomaly_model_features: int = 4,
                  anomaly_model_layers: int = 2,
                  anomaly_model_width: int = 8,
+                 h2d_buffer_depth: int = 3,
                  max_actuation_policies: int = 8,
                  command_lane_capacity: Optional[int] = None,
                  max_command_tokens: int = 1024,
                  device: DeviceLike = "cuda"):
+        super().__init__(name)
         self.device = resolve_device(device)
         self.registry = registry_tensors
         self.batch_size = batch_size
@@ -291,15 +326,75 @@ class PipelineEngine:
         # back in one host copy
         self.d2h_fetches = 0
         self.d2h_bytes = 0
+        self._metrics = GLOBAL_METRICS.scoped(f"pipeline.{name}")
+        # step flight recorder: one record per step; feeders pass records
+        # they opened on stager threads via submit_blob(flight_rec=...)
+        self.flight = GLOBAL_FLIGHT
+        self._flight_last = None
+        self._flight_step_n = 0
+        self._flight_sample_every = 16
+        self._stage_hist = GLOBAL_METRICS.histogram(
+            "pipeline.step_stage_seconds")
+        # per-tenant event volume, sampled every Nth step
+        self._tenant_hist = GLOBAL_METRICS.histogram(
+            "pipeline.step_tenant_events",
+            buckets=(1.0, 8.0, 64.0, 512.0, 4096.0, 32768.0))
+        # ingest->effect event-age histogram; materialize closes the
+        # sidecar a submit carried in
+        self._age_hist = age_histogram(GLOBAL_METRICS)
+        # pinned host staging buffers for full-size blobs (card only):
+        # _blob_ring_guards[i] is the event that proves slot i's last H2D
+        # copy finished reading it
+        self._blob_ring: Optional[List[np.ndarray]] = None
+        self._blob_ring_pinned: Optional[List[torch.Tensor]] = None
+        self._blob_ring_guards: Optional[list] = None
+        self._blob_ring_pos = 0
+        self._blob_ring_lock = threading.Lock()
+        # the H2D staging ring: every staged transfer takes a slot, so at
+        # most `h2d_buffer_depth` are in flight; built at first use
+        if not (1 <= int(h2d_buffer_depth) <= 8):
+            raise ValueError("h2d_buffer_depth must be in 1..8")
+        self.h2d_buffer_depth = int(h2d_buffer_depth)
+        self._staging_ring: Optional[StagingRing] = None
+        self._staging_ring_lock = threading.Lock()
+        # staged H2D copies run on this side stream (card only)
+        self._h2d_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
+        # transient H2D / dispatch / lane-fetch failures retry with
+        # backoff and jitter (step_retries attempts past the first); the
+        # health ladder tracks healthy -> degraded -> draining -> failed
+        self.step_retries = 2
+        self.health = EngineHealth(name, metrics=self._metrics)
+        self._retry_counter = self._metrics.counter("step_retries")
+        # captured steps (card only): step_key -> CapturedStep. A capture
+        # counts on graph_captures; each replay adds its graph's kernel
+        # launches to graph_kernel_launches
+        self._graphs: Dict[Tuple, object] = {}
+        self._failed_captures: Dict[Tuple, str] = {}
+        self.graph_captures = 0
+        self.graph_kernel_launches: Dict[str, int] = {}
 
-    def start(self) -> None:
-        """Allocate the device state and build the params (idempotent)."""
+    # -- lifecycle ------------------------------------------------------------
+
+    def on_initialize(self, monitor) -> None:
+        """Allocate the device state and build the params and groups."""
         with self._state_lock:
             if self._state is None:
                 self._state = init_device_state(
                     self.registry.devices.capacity, self.measurement_slots,
                     self.max_tenants, device=self.device)
         self._ensure_params()
+
+    def on_start(self, monitor) -> None:
+        if self._state is None:
+            self.on_initialize(monitor)
+
+    def _ensure_started(self) -> PipelineParams:
+        """State allocated (lazy init for direct, un-started use), params
+        and state groups current."""
+        if self._state is None:
+            self.initialize()
+        return self._ensure_params()
 
     # -- stateful state groups ------------------------------------------------
 
@@ -341,7 +436,8 @@ class PipelineEngine:
     def _ensure_groups_sized(self) -> None:
         """(Re)allocate every state group whose family went empty<->non-
         empty since it was built (fresh state, as the reference's step
-        rebuild does)."""
+        rebuild does). A reallocation drops the captured steps: they read
+        the old buffers."""
         with self._state_lock:
             for group in ("rule", "model", "actuation"):
                 name = f"_{group}_state"
@@ -349,6 +445,7 @@ class PipelineEngine:
                         or self._built_dims.get(group)
                         != self._group_dims(group)):
                     setattr(self, name, self._init_group(group))
+                    self._graphs.clear()
 
     def _expected_group_shapes(self, group: str) -> Dict[str, Tuple]:
         """Canonical shape per field of a state group at THIS engine's
@@ -369,7 +466,8 @@ class PipelineEngine:
 
     def _load_canonical_group(self, group: str, state) -> None:
         """Inverse of _canonical_group: every field must have the shape of
-        this engine's current dims for the group."""
+        this engine's current dims for the group. Copies into the resident
+        group (sized to those dims first), which keeps its storage."""
         for name, want in self._expected_group_shapes(group).items():
             got = tuple(getattr(state, name).shape)
             if got != want:
@@ -377,11 +475,10 @@ class PipelineEngine:
                     f"{group}-state checkpoint shape mismatch for {name}: "
                     f"got {got}, engine expects {want} (bucket/state "
                     f"slots/device capacity must match)")
-        with self._state_lock:
-            setattr(self, f"_{group}_state", tree_map(
-                lambda t: torch.as_tensor(t).to(self.device, copy=True),
-                state))
-            self._built_dims[group] = self._group_dims(group)
+        with self._lock, self._state_lock:
+            self._ensure_groups_sized()
+            commit(getattr(self, f"_{group}_state"),
+                   tree_map(torch.as_tensor, state))
 
     def _counters(self, group: str, entries: Dict[str, Dict],
                   names: Tuple[str, str]) -> Dict[str, Dict[str, int]]:
@@ -782,7 +879,7 @@ class PipelineEngine:
     def _refresh_params(self) -> None:
         with self._lock:
             snap = self.registry.snapshot()
-            self._params = to_device(PipelineParams(
+            self._install_params(to_device(PipelineParams(
                 assignment_status=snap.assignment_status,
                 tenant_idx=snap.tenant_idx,
                 area_idx=snap.area_idx,
@@ -795,14 +892,27 @@ class PipelineEngine:
                 geofence=self._compile_geofence_table(),
                 programs=self._compile_program_table(),
                 models=self._compile_model_table(),
-                policies=self._compile_policy_table()), self.device)
+                policies=self._compile_policy_table()), self.device))
             self._params_built_for = (snap.version, self._rules_version)
+
+    def _install_params(self, params: PipelineParams) -> None:
+        """Copy freshly built params into the resident ones (every table is
+        capacity-sized, so the layout never changes and captured steps
+        keep reading current params); a first build, or a layout change,
+        installs them as they are and drops the captured steps."""
+        with self._state_lock:
+            if self._params is not None and same_layout(self._params,
+                                                        params):
+                commit(self._params, params)
+            else:
+                self._params = params
+                self._graphs.clear()
 
     def _ensure_params(self) -> PipelineParams:
         """Current params, the state groups sized to match, and the step's
-        stage flags (`_step_flags`), all under one lock so an install from
-        another thread cannot come between them."""
-        with self._lock:
+        stage flags (`_step_flags`), all under both locks so neither an
+        install nor a step from another thread comes between them."""
+        with self._lock, self._state_lock:
             if self._params_built_for != (self.registry.version,
                                           self._rules_version):
                 self._refresh_params()
@@ -814,35 +924,336 @@ class PipelineEngine:
                 "actuation_enabled": self._actuation_enabled}
             return self._params
 
+    # -- the H2D staging ring ---------------------------------------------------
+
+    def _staging_blob_buffer(self, batch: EventBatch,
+                             flight_rec=None) -> Optional[np.ndarray]:
+        """Rotating reusable [WIRE_ROWS, B] PINNED staging buffer for
+        full-size batches (a ring of 6, so blob contents stay stable
+        through dispatch and the async H2D copy with the pipelined feeder's
+        depth 3 and two stagers). Odd-size batches, and every batch on the
+        CPU, allocate fresh (returns None): on the CPU the "transfer" is a
+        host copy, as the reference skips its ring there."""
+        if (self.device.type != "cuda"
+                or batch.device_idx.ndim != 1
+                or batch.device_idx.shape[0] != self.batch_size):
+            return None
+        with self._blob_ring_lock:
+            if self._blob_ring is None:
+                self._blob_ring_pinned = [
+                    torch.empty((WIRE_ROWS, self.batch_size),
+                                dtype=torch.int32, pin_memory=True)
+                    for _ in range(_BLOB_RING_SLOTS)]
+                self._blob_ring = [t.numpy()
+                                   for t in self._blob_ring_pinned]
+                self._blob_ring_guards = [None] * _BLOB_RING_SLOTS
+            pos = self._blob_ring_pos
+            self._blob_ring_pos = (pos + 1) % _BLOB_RING_SLOTS
+            buf = self._blob_ring[pos]
+            guard, self._blob_ring_guards[pos] = (
+                self._blob_ring_guards[pos], None)
+        if guard is not None:
+            # slot reuse waits for the slot's previous H2D copy; by the
+            # time a 6-slot ring cycles back it is almost always done
+            if flight_rec is not None:
+                flight_rec.begin_stage("guard")
+            guard.synchronize()
+            if flight_rec is not None:
+                flight_rec.end_stage("guard")
+        return buf
+
+    def _note_blob_guard(self, buf, guard) -> None:
+        """Record the event that proves a blob-ring buffer was read (no-op
+        for other buffers). Compact and packed blobs are row views of a
+        ring buffer: they are matched by their first byte."""
+        if guard is None or not isinstance(buf, np.ndarray):
+            return
+        addr = buf.__array_interface__["data"][0]
+        with self._blob_ring_lock:
+            if self._blob_ring is None:
+                return
+            for i, ring_buf in enumerate(self._blob_ring):
+                if ring_buf.__array_interface__["data"][0] == addr:
+                    self._blob_ring_guards[i] = guard
+                    return
+
+    @property
+    def staging_ring(self) -> StagingRing:
+        """The H2D staging ring (pipeline/staging.py), built at first use
+        so `h2d_buffer_depth` can be set before."""
+        ring = self._staging_ring
+        if ring is None:
+            with self._staging_ring_lock:
+                if self._staging_ring is None:
+                    self._staging_ring = StagingRing(
+                        self.h2d_buffer_depth, metrics=self._metrics)
+                ring = self._staging_ring
+        return ring
+
+    def _retried(self, call, points, note_success=True):
+        """`call()` with bounded retry around transient failures: the fault
+        `points` armed first, then `step_retries` extra attempts with
+        exponential backoff and jitter, each counted on `step_retries` and
+        the health ladder, before the error propagates (so the consumer
+        layer can park the batch; the submitter is never wedged). Injected
+        faults raise before `call` queues any work, so drill retries are
+        always state-safe. Shared by the H2D, dispatch and lane-fetch
+        edges."""
+        attempt = 0
+        while True:
+            try:
+                for point in points:
+                    fault_point(point)
+                result = call()
+                if note_success:
+                    self.health.note_success()
+                return result
+            except Exception:
+                attempt += 1
+                if attempt > self.step_retries:
+                    raise
+                self._retry_counter.inc()
+                self.health.note_retry()
+                time.sleep(jittered(0.01 * (2 ** (attempt - 1))))
+
+    def _acquire_staging_slot(self, flight_rec, order: Optional[int]):
+        """Ordered, blocking ring-slot acquisition (backpressure when the
+        ring is full); stamps the at-acquire ring snapshot on the flight
+        record for the occupancy rollup."""
+        ring = self.staging_ring
+        slot = ring.acquire(order=order, flight_rec=flight_rec)
+        if flight_rec is not None:
+            flight_rec.ring = (ring.occupancy(), ring.depth)
+        return slot
+
+    def _stage_copy(self, slot, blob: np.ndarray):
+        """The transfer of `blob` into `slot`: on the card an async copy on
+        the H2D side stream into a row view of the slot's fixed device
+        buffer, returning (view, event recorded after the copy); on the CPU
+        a plain copy and no event."""
+        host = torch.from_numpy(np.ascontiguousarray(blob))
+        if self.device.type != "cuda":
+            return host.clone(), None
+        with torch.cuda.stream(self._h2d_stream):
+            if slot.buffer is None or slot.buffer.shape[1] != host.shape[1]:
+                slot.buffer = torch.empty(
+                    (WIRE_ROWS, host.shape[1]), dtype=torch.int32,
+                    device=self.device)
+            dst = slot.buffer[:host.shape[0]]
+            dst.copy_(host, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._h2d_stream)
+        return dst, ready
+
+    def stage_blob(self, blob, flight_rec=None,
+                   order: Optional[int] = None) -> StagedBlob:
+        """Stage a packed wire blob through the H2D staging ring: acquire a
+        slot (backpressure when all `h2d_buffer_depth` transfers are in
+        flight), start the async copy — arming the `h2d_error` fault point
+        with the same bounded retry/backoff as every transfer edge — and
+        return a handle that submit_blob dispatches and releases. The
+        pipelined feeder passes its sequence as `order` so slots are
+        granted in dispatch order. A failed transfer releases the slot
+        guard-free and propagates."""
+        slot = self._acquire_staging_slot(flight_rec, order)
+        if flight_rec is not None:
+            flight_rec.begin_stage("h2d")
+        try:
+            dev, ready = self._retried(lambda: self._stage_copy(slot, blob),
+                                       ("h2d_error",), note_success=False)
+        except BaseException:
+            self.staging_ring.release(slot)
+            raise
+        finally:
+            if flight_rec is not None:
+                flight_rec.end_stage("h2d")
+        slot.device_blob = dev
+        # the copy's event proves the host staging buffer was read
+        self._note_blob_guard(blob, ready)
+        return StagedBlob(dev, slot, self.staging_ring, ready)
+
     # -- processing -----------------------------------------------------------
 
-    def submit(self, batch: EventBatch) -> ProcessOutputs:
-        """Pack a host batch into the wire blob and run one step."""
-        return self.submit_blob(batch_to_blob(batch))
+    def submit(self, batch: EventBatch, age=None) -> ProcessOutputs:
+        """Pack a host batch into the wire blob and run one step; the state
+        advances in place. `age` is the optional ingest-age sidecar
+        (runtime/eventage.py) opened at the receive edge: it rides the
+        flight record and materialize_alerts closes it."""
+        rec = self.flight.begin_step(engine=self.name)
+        if age is not None:
+            rec.age = age
+        # buffer first: its guard wait is the "guard" segment and must not
+        # nest inside "pack"
+        out_buf = self._staging_blob_buffer(batch, flight_rec=rec)
+        rec.begin_stage("pack")
+        fault_point("pack_fail")
+        blob = batch_to_blob(batch, out=out_buf)
+        rec.end_stage("pack")
+        self._stage_hist.observe(rec.stage_s("pack"),
+                                 engine=self.name, stage="pack")
+        self._sample_tenant_mix(rec, batch)
+        return self.submit_blob(
+            blob, n_events=int(np.asarray(batch.valid).sum()),
+            flight_rec=rec)
 
-    def submit_blob(self, blob) -> ProcessOutputs:
-        """Run one step on a packed wire blob (numpy, or an int32 tensor on
-        any device); the state advances. Returns without waiting for the
-        card."""
-        self.start()  # state allocated, params and state groups current
-        params = self._params
-        blob = torch.as_tensor(blob).to(self.device)
-        with self._state_lock:
-            (self._state, self._rule_state, self._model_state,
-             self._actuation_state, outputs) = process_batch(
-                params, self._state, self._rule_state, self._model_state,
-                self._actuation_state, blob_to_batch(blob),
-                geofence_impl=self.geofence_impl,
+    def _sample_tenant_mix(self, rec, batch: EventBatch) -> None:
+        """Every Nth step, attach the batch's tenant mix (host bincount
+        over the registry's tenant mirror — never a device fetch) to the
+        flight record and the per-tenant event histogram."""
+        self._flight_step_n += 1
+        if self._flight_step_n % self._flight_sample_every:
+            return
+        try:
+            dev = np.asarray(batch.device_idx).ravel()
+            valid = np.asarray(batch.valid).ravel().astype(bool)
+            tenants = self.registry._tenant_idx[dev[valid]]
+            mix = np.bincount(tenants, minlength=1)
+        except Exception:
+            return
+        rec.tenant_mix = tuple(int(x) for x in mix[:self.max_tenants])
+        for tenant, count in enumerate(rec.tenant_mix):
+            if count:
+                self._tenant_hist.observe(
+                    float(count), engine=self.name, tenant=str(tenant))
+
+    def submit_blob(self, blob, n_events: Optional[int] = None,
+                    flight_rec=None) -> ProcessOutputs:
+        """Run one step on a packed wire blob: numpy, an int32 tensor, or a
+        StagedBlob from stage_blob (its slot is released after dispatch
+        with the step's event as the reuse guard). Returns without waiting
+        for the card. `n_events` feeds the events meter; `flight_rec` is a
+        record opened by the caller (submit(), or a feeder's stager
+        thread), else this opens a dispatch-only record."""
+        slot = ready = None
+        if isinstance(blob, StagedBlob):
+            slot, ready, blob = blob.slot, blob.ready, blob.blob
+        self._ensure_started()
+        rec = flight_rec if flight_rec is not None else (
+            self.flight.begin_step(engine=self.name))
+        rec.begin_stage("dispatch")
+        try:
+            outputs = self._dispatch_with_retry(blob, ready)
+        except BaseException:
+            if slot is not None:
+                # guard-free release: nothing consumed the slot's blob
+                self.staging_ring.release(slot)
+            raise
+        rec.end_stage("dispatch")
+        guard = record_event(self.device)
+        if slot is not None:
+            self.staging_ring.release(slot, guard)
+        if n_events is not None:
+            rec.events = int(n_events)
+        self._flight_last = rec
+        self._stage_hist.observe(rec.stage_s("dispatch"),
+                                 engine=self.name, stage="dispatch")
+        # the step's event proves a ring buffer's H2D copy was read
+        self._note_blob_guard(blob, guard)
+        self.batches_processed += 1
+        if n_events is not None:
+            self._metrics.meter("events").mark(n_events)
+        return outputs
+
+    def _dispatch_with_retry(self, blob, ready=None) -> ProcessOutputs:
+        """Run one state-advancing step with bounded retry around transient
+        H2D/dispatch failures (`_retried`). The first step of a static
+        configuration runs eagerly here; its capture follows OUTSIDE the
+        retries (a retried eager step would apply twice), and a failed
+        capture raises and marks the engine failed."""
+        def step():
+            with self._state_lock:
+                return self._run_step(blob, ready)
+
+        outputs, capture_from = self._retried(
+            step, ("h2d_error", "dispatch_error"))
+        if capture_from is not None:
+            with self._state_lock:
+                try:
+                    self._capture(capture_from, outputs)
+                except Exception as exc:
+                    key = capture_from[0]
+                    self._failed_captures[key] = repr(exc)
+                    self.health.note_fatal("step capture failed")
+                    raise RuntimeError(
+                        f"capturing the step of {key} failed ({exc!r}); "
+                        f"the card never runs it eagerly after its first "
+                        f"step") from exc
+        return outputs
+
+    def _captures(self) -> bool:
+        """Whether this engine runs its steps as captured graphs (on the
+        card)."""
+        return self.device.type == "cuda"
+
+    def _run_step(self, blob, ready):
+        """One step, under the state lock: a replay of the key's captured
+        step, or, for a key's first step (and every step on the CPU), the
+        step run eagerly on the live buffers. Returns (outputs, None), or
+        (outputs, (key, device blob)) when the key is to be captured."""
+        key = step_key(self._step_flags, blob.shape)
+        if key in self._failed_captures:
+            raise RuntimeError(f"the step of {key} failed to capture "
+                               f"({self._failed_captures[key]})")
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            outputs = graph.replay(blob)
+            for name, n in graph.kernel_launches.items():
+                self.graph_kernel_launches[name] = \
+                    self.graph_kernel_launches.get(name, 0) + n
+            return outputs, None
+        if not (isinstance(blob, torch.Tensor)
+                and blob.device == self.device):
+            blob = torch.as_tensor(blob).to(self.device, non_blocking=True)
+        outputs = self._step_into_state(blob)
+        return outputs, ((key, blob) if self._captures() else None)
+
+    def _step_into_state(self, blob: torch.Tensor) -> ProcessOutputs:
+        """The step as a graph captures it: process_batch on the resident
+        params and state groups, the new state copied back INTO the
+        resident buffers (the stateful slabs already update in place), so
+        every buffer keeps its storage across steps."""
+        state, rule_state, model_state, actuation_state, outputs = \
+            process_batch(
+                self._params, self._state, self._rule_state,
+                self._model_state, self._actuation_state,
+                blob_to_batch(blob), geofence_impl=self.geofence_impl,
                 alert_lane_capacity=self.alert_lane_capacity,
                 command_lane_capacity=self.command_lane_capacity,
                 **self._step_flags)
-        self.batches_processed += 1
+        commit(self._state, state)
+        commit(self._rule_state, rule_state)
+        commit(self._model_state, model_state)
+        commit(self._actuation_state, actuation_state)
         return outputs
 
-    def submit_routed(self, batch: EventBatch):
+    def _capture(self, key_and_blob, outputs: ProcessOutputs) -> None:
+        """Capture the key's step, unless another thread changed the
+        static configuration since the eager step (the next step of the
+        key then runs eagerly again and captures)."""
+        key, blob = key_and_blob
+        if key in self._graphs or key != step_key(self._step_flags,
+                                                  blob.shape):
+            return
+        self._graphs[key] = capture_step(self._step_into_state, blob,
+                                         outputs)
+        self.graph_captures += 1
+
+    def submit_routed(self, batch: EventBatch, age=None):
         """(batch_for_materialization, outputs): the engine-agnostic submit
         of the reference (the sharded engine returns a routed batch)."""
-        return batch, self.submit(batch)
+        return batch, self.submit(batch, age=age)
+
+    def _fetch_lanes_with_retry(self, outputs: ProcessOutputs):
+        """Both fixed-shape lanes (alert + command) in one host copy, with
+        bounded retry (`_retried`); a fetch never changes state, so
+        retrying it is always safe."""
+        K = outputs.alert_lanes.shape[1]
+        both = self._retried(
+            lambda: torch.cat([outputs.alert_lanes, outputs.command_lanes],
+                              dim=1).cpu().numpy(), ("lane_fetch_error",))
+        return both[:, :K], both[:, K:]
 
     def materialize_alerts(self, batch: EventBatch, outputs: ProcessOutputs,
                            max_alerts: Optional[int] = None
@@ -857,14 +1268,21 @@ class PipelineEngine:
         and log. The list is what a mask scan over the per-row outputs
         gives for the first `alert_lane_capacity` fired rows, order
         included. Command fires go to the attached `command_dispatcher`,
-        or park for take_command_fires()."""
-        K = outputs.alert_lanes.shape[1]
-        both = torch.cat([outputs.alert_lanes, outputs.command_lanes],
-                         dim=1).cpu().numpy()
-        lanes, cmd_lanes = both[:, :K], both[:, K:]
-        self.d2h_fetches += 2
-        self.d2h_bytes += lanes.nbytes + cmd_lanes.nbytes
+        or park for take_command_fires(). The lane_fetch / materialize /
+        actuate segments land on the last dispatched step's flight record,
+        and its age sidecar closes here."""
+        rec = self._flight_last
+        if rec is not None:
+            rec.begin_stage("lane_fetch")
+        lanes, cmd_lanes = self._fetch_lanes_with_retry(outputs)
+        if rec is not None:
+            rec.end_stage("lane_fetch")
+            rec.begin_stage("materialize")
+            self._stage_hist.observe(rec.stage_s("lane_fetch"),
+                                     engine=self.name, stage="lane_fetch")
         try:
+            self.d2h_fetches += 2
+            self.d2h_bytes += lanes.nbytes + cmd_lanes.nbytes
             dec = decode_alert_lanes(lanes)
             self._account_lane_overflow(dec.dropped_alerts)
             dec = self._bound_alert_rows(dec, max_alerts)
@@ -874,31 +1292,77 @@ class PipelineEngine:
             ts_rows = np.asarray(batch.ts)[dec.rows]
             return self._emit_alerts(dec, dev_rows, ts_rows)
         finally:
-            self._materialize_commands(cmd_lanes)
+            if rec is not None:
+                rec.end_stage("materialize")
+                self._stage_hist.observe(
+                    rec.stage_s("materialize"),
+                    engine=self.name, stage="materialize")
+            self._materialize_commands(cmd_lanes, rec)
+            if rec is not None:
+                self._close_age(rec)
 
-    def _materialize_commands(self, cmd_lanes: np.ndarray) -> None:
+    def _close_age(self, rec) -> None:
+        """Close the step's ingest-age sidecar at the materialize edge into
+        the AgeSummary that replaces it on the record, feeding the (engine,
+        edge) histogram; with command fires in the step, the same summary
+        is the detection->actuation age."""
+        age = rec.age
+        if age is None or not hasattr(age, "close"):
+            return
+        summary = age.close()
+        rec.age = summary
+        observe_summary(self._age_hist, summary,
+                        engine=self.name, edge="materialize")
+        if getattr(rec, "commands", 0):
+            observe_summary(self._age_hist, summary, engine=self.name,
+                            edge="detection_to_actuation")
+
+    def _materialize_commands(self, cmd_lanes: np.ndarray, rec) -> None:
         """Decode the step's command lane, account fire/debounce/overflow
         activity, and hand resolved fires on."""
+        if rec is not None:
+            rec.begin_stage("actuate")
         dec = decode_command_lanes(cmd_lanes)
         self._account_command_activity(dec)
-        self._fanout_commands(self._emit_command_fires(dec) if dec.n
-                              else [])
+        fires = self._emit_command_fires(dec) if dec.n else []
+        if rec is not None:
+            rec.commands = len(fires)
+            rec.end_stage("actuate")
+            self._stage_hist.observe(rec.stage_s("actuate"),
+                                     engine=self.name, stage="actuate")
+        self._fanout_commands(fires, rec)
 
-    def _fanout_commands(self, fires: List[Dict]) -> None:
+    def _fanout_commands(self, fires: List[Dict], rec) -> None:
         """Hand resolved fires to the attached dispatcher, or park them for
         take_command_fires() when none is attached."""
         if not fires:
             return
-        if self.command_dispatcher is not None:
-            self.command_dispatcher.dispatch(self, fires)
-        else:
-            self._pending_commands.extend(fires)
+        if rec is not None:
+            rec.begin_stage("command_fanout")
+        try:
+            if self.command_dispatcher is not None:
+                self.command_dispatcher.dispatch(self, fires)
+            else:
+                self._pending_commands.extend(fires)
+        finally:
+            if rec is not None:
+                rec.end_stage("command_fanout")
+                self._stage_hist.observe(
+                    rec.stage_s("command_fanout"),
+                    engine=self.name, stage="command_fanout")
 
     def _account_command_activity(self, dec) -> None:
-        self.commands_fired += dec.fired - dec.dropped
-        self.commands_debounced += dec.debounced
+        fired = int(dec.fired) - int(dec.dropped)
+        if fired:
+            self.commands_fired += fired
+            self._metrics.counter("actuation.fires").inc(fired)
+        if dec.debounced:
+            self.commands_debounced += int(dec.debounced)
+            self._metrics.counter("actuation.debounced").inc(
+                int(dec.debounced))
         if dec.dropped:
-            self.commands_dropped += dec.dropped
+            self.commands_dropped += int(dec.dropped)
+            self._metrics.counter("commands.dropped").inc(int(dec.dropped))
             _log.warning(
                 "command-lane overflow: %d policy fires beyond the %d-row "
                 "lane capacity dropped on device (commands_dropped=%d "
@@ -931,6 +1395,7 @@ class PipelineEngine:
         if not dropped:
             return
         self.alerts_dropped += dropped
+        self._metrics.counter("alerts.dropped").inc(dropped)
         _log.warning(
             "alert-lane overflow: %d alerts beyond the %d-row lane "
             "capacity dropped on device (alerts_dropped=%d total)",
@@ -943,6 +1408,7 @@ class PipelineEngine:
             return dec
         dropped = dec.n - max_alerts
         self.alerts_dropped += dropped
+        self._metrics.counter("alerts.dropped").inc(dropped)
         _log.warning(
             "alert storm: %d fired rows exceed max_alerts=%d; dropping %d "
             "(alerts_dropped=%d total)", dec.n, max_alerts, dropped,
@@ -958,10 +1424,17 @@ class PipelineEngine:
             thr_rules = list(self._threshold_rules)
             geo_rules = list(self._geofence_rules)
         programs = self.rule_programs_by_slot()
+        # model-fire resolution is its own flight segment inside
+        # materialize: the lane carries only slot ids
+        flight = self._flight_last
+        if flight is not None:
+            flight.begin_stage("model_eval")
         models = self.anomaly_models_by_slot()
+        model_f, model_s = dec.model_fired.tolist(), dec.model_slot.tolist()
+        if flight is not None:
+            flight.end_stage("model_eval")
         prog_f, prog_r = dec.prog_fired.tolist(), dec.prog_rule.tolist()
         prog_l = dec.prog_level.tolist()
-        model_f, model_s = dec.model_fired.tolist(), dec.model_slot.tolist()
         tokens = self.registry.devices.token_array()[dev_rows].tolist()
         dates = (ts_rows.astype(np.int64)
                  + self.packer.epoch_base_ms).tolist()
@@ -1018,14 +1491,15 @@ class PipelineEngine:
 
     def presence_sweep(self) -> List[str]:
         """Run the presence check at the current time; returns the tokens
-        of newly-missing devices."""
-        self.start()  # state allocated, params current
-        params = self._params
+        of newly-missing devices. The new presence columns are copied into
+        the resident state, which keeps its storage."""
+        params = self._ensure_started()
         now_rel = self.packer.rel_ts(int(time.time() * 1000))
         with self._state_lock:
-            self._state, newly_missing = check_presence(
+            state, newly_missing = check_presence(
                 self._state, params.assignment_status == 1, now_rel,
                 min(self.presence_missing_interval_ms, 2 ** 31 - 1))
+            commit(self._state, state)
         rows = np.nonzero(newly_missing.cpu().numpy())[0]
         if rows.size == 0:
             return []
@@ -1048,8 +1522,9 @@ class PipelineEngine:
 
     def load_canonical_state(self, state: DeviceStateTensors) -> None:
         """Inverse of canonical_state: every field must have this engine's
-        shape (device capacity, measurement slots, tenant width)."""
-        self.start()
+        shape (device capacity, measurement slots, tenant width). Copies
+        into the resident state, which keeps its storage."""
+        self._ensure_started()
         for f in dataclasses.fields(state):
             got = tuple(getattr(state, f.name).shape)
             expect = tuple(getattr(self._state, f.name).shape)
@@ -1059,9 +1534,7 @@ class PipelineEngine:
                     f"engine expects {expect} (device capacity/measurement "
                     f"slots/tenant width must match)")
         with self._state_lock:
-            self._state = tree_map(
-                lambda t: torch.as_tensor(t).to(self.device, copy=True),
-                state)
+            commit(self._state, tree_map(torch.as_tensor, state))
 
     def get_device_state(self, device_token: str) -> Optional[DeviceState]:
         """Materialize one device's state row as the API-level DeviceState."""

@@ -21,6 +21,15 @@ def tree_map(fn: Callable, obj):
     return fn(obj)
 
 
+def tree_leaves(obj) -> list:
+    """The non-dataclass fields of dataclass `obj`, depth first, in field
+    order."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [leaf for f in dataclasses.fields(obj)
+                for leaf in tree_leaves(getattr(obj, f.name))]
+    return [obj]
+
+
 def to_device(obj, device):
     """Every leaf as a torch tensor on `device` (array leaves are copied and
     keep their dtype: int32 stays int32, bool stays bool)."""

@@ -41,6 +41,13 @@ def test_importing_every_module_loads_no_jax():
     info = json.loads(out.stdout.strip().splitlines()[-1])
     assert "sitewhere_tpu_torch.pipeline.engine" in info["modules"]
     assert "sitewhere_tpu_torch.ops.geofence_kernel" in info["modules"]
+    # the host runtime: imported (and so importable) JAX-free as well
+    runtime = {f"sitewhere_tpu_torch.runtime.{m}" for m in (
+        "metrics", "faults", "health", "flight", "eventage", "lifecycle",
+        "hbmledger")} | {f"sitewhere_tpu_torch.pipeline.{m}"
+                         for m in ("staging", "feed", "graph")}
+    assert runtime <= set(info["modules"]) <= set(info["loaded"]) | \
+        set(info["preloaded"])
     assert not [m for m in info["preloaded"] if _forbidden(m)]
     assert not [m for m in info["loaded"] if _forbidden(m)]
 
