@@ -31,7 +31,25 @@ Phases (any failure prints its error and exits non-zero, with no result):
      and a profile. The first STATEFUL_CPU_STEPS batches then run through
      the same engine built on the CPU: alerts, command fires, every state
      group (f32 as bit patterns) and every counter must be identical, the
-     per-row anomaly scores within rtol=1e-4, atol=1e-5.
+     per-row anomaly scores within rtol=1e-4, atol=1e-5;
+  6. the host runtime: the pipelined feeder against serial submission on
+     both worlds, a seeded h2d/dispatch/lane-fetch fault drill, the flight
+     rollups and the device-memory ledger;
+  7. durable state (persist/checkpoint.py and the families' host side) at
+     full size: the main world saves after DURABLE_CUT steps fed from an
+     in-process EventBus and restores into a fresh card engine and into one
+     that has captured its graph; both continue beside the uninterrupted
+     engine with identical alerts, presence transitions and state, and no
+     new capture; `recover` replays exactly the records past the saved
+     offsets. The stateful world saves with debounce, for-duration and
+     hysteresis windows open and restores into a fresh card engine and the
+     same engine on the CPU, which continue with identical fires and state
+     groups (scores within the tolerance above). A seeded
+     `command_delivery_error` drill through CommandFanout delivers the
+     fires a twin's take_command_fires gives, DriftRefitter on the card
+     gives the CPU engine's refit, and one DevicePresenceManager sweep
+     equals a twin's presence_sweep. Save, restore and recover wall times,
+     their device<->host parts and the bytes on disk are printed.
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -42,6 +60,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -72,6 +91,8 @@ WIDE_RADIUS = (20.0, 30.0)    # zones as wide as the box: little rejection
 # package's own tolerance (tanh/exp differ in the last bits)
 STATEFUL_CPU_STEPS = 4
 SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-5
+# phase 7: steps before the save and after the restore
+DURABLE_CUT, DURABLE_AFTER = 3, 3
 H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
 H100_HBM_BYTES_S = 3.35e12    # NVIDIA H100 SXM data sheet, HBM3
 # phase 2's worlds of B=BATCH points: (name, seed, Z, V, zone radius)
@@ -1186,6 +1207,259 @@ def phase_pipelined(dev, card, main_ref, stateful_ref, runs):
     log(f"[pipelined] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 7: durable state ------------------------------------------------------
+
+def _blob_record(blob):
+    """A bus value: the blob's row count, then its int32 rows."""
+    return np.int32(blob.shape[0]).tobytes() + blob.tobytes()
+
+
+def _record_blob(record):
+    rows = int(np.frombuffer(record.value[:4], np.int32)[0])
+    return np.frombuffer(record.value[4:], np.int32).reshape(rows, -1).copy()
+
+
+def run_blob(engine, blob):
+    """submit_blob + materialize_alerts of one packed blob; alert keys."""
+    from sitewhere_tpu_torch.ops.pack import blob_to_batch
+
+    out = engine.submit_blob(blob)
+    batch = blob_to_batch(torch.from_numpy(blob))
+    return _alert_keys(engine.materialize_alerts(batch, out))
+
+
+def timed_sync(fn):
+    """fn() between two synchronizes of the card; (result, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def open_windows(engine):
+    """Per-device windows open in the stateful world's state: rule-program
+    rows with a running counter (debounce, for-duration), rows whose
+    program output latched (hysteresis and every held condition), and
+    (device, policy) rows inside a debounce window."""
+    from sitewhere_tpu_torch.ops.slab import unpack_state_slab_np
+
+    rule = unpack_state_slab_np(engine.canonical_rule_state().slab.numpy())
+    act = engine.canonical_actuation_state().slab.numpy()
+    return {"rule_counters": int((rule["counter"] > 0).sum()),
+            "rule_latched": int((rule["flag"] != 0).sum()),
+            "debounce_rows": int((act[..., 2] != -(2 ** 31)).sum())}
+
+
+def phase_durable(dev, card, main_ref, stateful_ref):
+    """Checkpoint, restore and recover on both worlds; the command fan-out,
+    drift refit and presence manager on the card. Returns the readings and
+    the geofence kernel's launches on this path."""
+    from sitewhere_tpu_torch.actuation.dispatcher import CommandFanout
+    from sitewhere_tpu_torch.actuation.refit import DriftRefitter
+    from sitewhere_tpu_torch.ops.pack import batch_to_blob
+    from sitewhere_tpu_torch.persist.checkpoint import PipelineCheckpointer
+    from sitewhere_tpu_torch.pipeline.presence import DevicePresenceManager
+    from sitewhere_tpu_torch.runtime import faults
+    from sitewhere_tpu_torch.runtime.bus import EventBus
+
+    t_phase = time.perf_counter()
+    readings = {}
+    cut, n = DURABLE_CUT, DURABLE_CUT + DURABLE_AFTER
+    epoch = main_ref["epoch_base_ms"]
+    blobs = [batch_to_blob(b) for b in main_ref["batches"][:n]]
+    workdir = tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-")
+    engines = []
+    # every engine's replay counts (the dicts outlive their engines)
+    replay_counts = []
+
+    def track(engine):
+        replay_counts.append(engine.graph_kernel_launches)
+        engines.append(engine)
+        return engine
+
+    reset_launch_counts()
+    try:
+        # -- main world: bus-fed steps, save, restore x2, continue, recover
+        bus = EventBus(partitions=1)
+        for i, blob in enumerate(blobs):
+            bus.publish("events", f"b{i}".encode(), _blob_record(blob))
+        ref = track(build_world(dev, "auto", epoch))
+        consumer = bus.consumer("events", "pipeline")
+        ref_alerts = [run_blob(ref, _record_blob(r))
+                      for r in consumer.poll(cut)]
+        bus.commit(consumer)
+        ckpt = PipelineCheckpointer(f"{workdir.name}/main")
+        _, save_s = timed_sync(lambda: ckpt.save(
+            ref, bus, consumer_groups=[consumer]))
+        readings["main_save"] = dict(ckpt.last_timings, wall_s=save_s)
+        fresh = track(build_world(dev, "auto", epoch + 1))
+        captured = track(build_world(dev, "auto", epoch + 2))
+        for blob in blobs[-2:]:                # its own traffic, captured
+            run_blob(captured, blob)
+        if captured.graph_captures != 1:
+            raise AssertionError("the captured engine did not capture")
+        for name, engine in (("main_restore_fresh", fresh),
+                             ("main_restore_captured", captured)):
+            _, wall = timed_sync(lambda: ckpt.restore(engine))
+            readings[name] = dict(ckpt.last_timings, wall_s=wall)
+        ref_alerts += [run_blob(ref, _record_blob(r))
+                       for r in consumer.poll(DURABLE_AFTER)]
+        for engine in (fresh, captured):
+            got = [run_blob(engine, blob) for blob in blobs[cut:]]
+            if got != ref_alerts[cut:]:
+                raise AssertionError("a restored main-world engine "
+                                     "materialized other alerts")
+            assert_tree_bits_equal(ref.canonical_state(),
+                                   engine.canonical_state(),
+                                   "restored main-world state")
+        if captured.graph_captures != 1 or fresh.graph_captures != 1:
+            raise AssertionError(
+                f"restores recaptured: {captured.graph_captures} / "
+                f"{fresh.graph_captures} captures")
+        # a crash after the save: recover replays the uncommitted records
+        recovered = track(build_world(dev, "auto", epoch + 3))
+        replayed = []
+
+        def replay(records):
+            replayed.extend(run_blob(recovered, _record_blob(r))
+                            for r in records)
+
+        n_replayed, wall = timed_sync(lambda: ckpt.recover(
+            recovered, bus, "events", "pipeline", replay))
+        readings["main_recover"] = dict(ckpt.last_timings, wall_s=wall,
+                                        replayed=n_replayed)
+        if n_replayed != DURABLE_AFTER or replayed != ref_alerts[cut:]:
+            raise AssertionError(f"recover replayed {n_replayed} records "
+                                 f"with other alerts")
+        assert_tree_bits_equal(ref.canonical_state(),
+                               recovered.canonical_state(),
+                               "recovered state")
+        # presence: the manager's sweep against a twin's presence_sweep
+        manager = DevicePresenceManager(fresh)
+        missing = manager.sweep()
+        twin_missing = captured.presence_sweep()
+        if not missing or missing != twin_missing or not torch.equal(
+                fresh.state.present, captured.state.present):
+            raise AssertionError("presence manager sweep differs from the "
+                                 "twin's presence_sweep")
+        readings["presence_missing"] = len(missing)
+        log(f"[durable] main world: 2 restores + recover ({n_replayed} "
+            f"records) continue bit-equal to the uninterrupted engine over "
+            f"{DURABLE_AFTER} steps (alerts, canonical state), no new "
+            f"capture; presence manager == twin ({len(missing)} missing)")
+        del ref, fresh, captured, recovered
+        engines.clear()
+
+        # -- stateful world: save mid-window, restore on card and CPU
+        sbatches = stateful_ref["batches"][:n]
+        sepoch = stateful_ref["epoch_base_ms"]
+        ref = track(build_stateful_world(dev, sepoch))
+        ref_steps = []
+        for batch in sbatches[:cut]:
+            out = ref.submit(batch)
+            ref_steps.append((_alert_keys(ref.materialize_alerts(batch, out)),
+                              ref.take_command_fires(), out.model_score.cpu()))
+        windows = open_windows(ref)
+        if not all(windows.values()):
+            raise AssertionError(f"no window open at the save: {windows}")
+        ckpt = PipelineCheckpointer(f"{workdir.name}/stateful")
+        _, save_s = timed_sync(lambda: ckpt.save(ref))
+        readings["stateful_save"] = dict(ckpt.last_timings, wall_s=save_s)
+        card_engine = track(build_stateful_world(dev, sepoch + 1))
+        cpu_engine = track(build_stateful_world(torch.device("cpu"),
+                                                sepoch + 2))
+        for name, engine in (("stateful_restore_card", card_engine),
+                             ("stateful_restore_cpu", cpu_engine)):
+            _, wall = timed_sync(lambda: ckpt.restore(engine))
+            readings[name] = dict(ckpt.last_timings, wall_s=wall)
+        worst = 0.0
+        for batch in sbatches[cut:]:
+            out = ref.submit(batch)
+            want = (_alert_keys(ref.materialize_alerts(batch, out)),
+                    ref.take_command_fires())
+            ref_steps.append((*want, out.model_score.cpu()))
+            for engine in (card_engine, cpu_engine):
+                got_out = engine.submit(batch)
+                got = (_alert_keys(engine.materialize_alerts(batch, got_out)),
+                       engine.take_command_fires())
+                if got != want:
+                    raise AssertionError(f"restored stateful engine on "
+                                         f"{engine.device} fired otherwise")
+                score = got_out.model_score.cpu()
+                if engine is card_engine:
+                    if not torch.equal(_bits(score),
+                                       _bits(out.model_score.cpu())):
+                        raise AssertionError("card scores differ")
+                else:
+                    torch.testing.assert_close(
+                        score, out.model_score.cpu(), rtol=SCORE_RTOL,
+                        atol=SCORE_ATOL)
+                    worst = max(worst, float(
+                        (score - out.model_score.cpu()).abs().max()))
+        snap = stateful_snapshot(ref)
+        compare_snapshots(snap, stateful_snapshot(card_engine))
+        compare_snapshots(snap, stateful_snapshot(cpu_engine))
+        log(f"[durable] stateful world, saved with windows open "
+            f"{json.dumps(windows)}: card and CPU restores continue with "
+            f"identical alerts, fires, state groups and counters over "
+            f"{DURABLE_AFTER} steps; CPU scores max |diff| {worst:.3g}")
+
+        # refit: the card engine's against the CPU engine's
+        refits = {}
+        for spec in STATEFUL_MODELS:
+            token = spec["token"]
+            (report, wall) = timed_sync(
+                lambda: DriftRefitter(card_engine).refit(token))
+            cpu_report = DriftRefitter(cpu_engine).refit(token)
+            if report != cpu_report or card_engine.get_anomaly_model(
+                    token) != cpu_engine.get_anomaly_model(token):
+                raise AssertionError(f"refit of {token} differs between "
+                                     f"the card and the CPU")
+            refits[token] = {"devices": report and report["devices"],
+                             "wall_s": wall}
+        readings["refit"] = refits
+        log(f"[durable] DriftRefitter on the card == on the CPU engine: "
+            f"{json.dumps(refits)}")
+        del cpu_engine, card_engine
+        engines[1:] = []
+
+        # the command fan-out under a seeded delivery-fault drill, against
+        # the fires the uninterrupted engine parked (its twin)
+        drilled = track(build_stateful_world(dev, sepoch))
+        fan = CommandFanout(max_retries=2)
+        drilled.command_dispatcher = fan
+        faults.arm(faults.FaultPlan.from_json({"seed": SEED, "rules": [
+            {"point": "command_delivery_error", "p": 0.3}]}))
+        try:
+            for batch in sbatches:
+                drilled.materialize_alerts(batch, drilled.submit(batch))
+        finally:
+            faults.disarm()
+        stats = dict(fan.stats())
+        redelivered = fan.redeliver_parked()
+        wanted = [f for _, fires, _ in ref_steps for f in fires]
+        key = lambda f: json.dumps(f, sort_keys=True)  # noqa: E731
+        if (sorted(map(key, fan.sent)) != sorted(map(key, wanted))
+                or stats["delivered"] + stats["parked"] != len(wanted)
+                or not stats["retries"]):
+            raise AssertionError(f"fan-out drill not absorbed: {stats}")
+        readings["fanout"] = dict(stats, redelivered=redelivered,
+                                  fires=len(wanted))
+        log(f"[durable] fan-out drill absorbed: {json.dumps(readings['fanout'])}")
+    finally:
+        faults.disarm()
+        del engines[:]
+        workdir.cleanup()
+    launches = launch_counts()["points_in_zones"] + sum(
+        c.get("points_in_zones", 0) for c in replay_counts)
+    if not launches:
+        raise AssertionError("the durable path launched no geofence kernel")
+    readings["phase_s"] = time.perf_counter() - t_phase
+    log(f"[durable] readings {json.dumps(readings)} on {card}")
+    return readings, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
@@ -1207,6 +1481,8 @@ def main() -> int:
         phase_pipelined(dev, card, main_ref, stateful_ref, {
             "main": summary, "stateful": stateful, "host_ms": host_ms,
             "main_profile": main_prof, "stateful_profile": stateful_prof})
+        _, durable_launches = phase_durable(dev, card, main_ref,
+                                            stateful_ref)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1219,6 +1495,7 @@ def main() -> int:
         "replaces": "sitewhere_tpu/ops/pallas_geofence.py:63",
         "launches": launches["points_in_zones"],
         "launches_stateful_path": stateful_launches,
+        "launches_durable_path": durable_launches,
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],

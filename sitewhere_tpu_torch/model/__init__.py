@@ -1,12 +1,14 @@
 """API-level model of the hot path (events, alerts, device state)."""
 
 from sitewhere_tpu_torch.model.event import (
-    AlertLevel, AlertSource, DeviceAlert, DeviceEvent, DeviceEventType,
-    DeviceLocation, DeviceMeasurement)
+    AlertLevel, AlertSource, CommandInitiator, DeviceAlert,
+    DeviceCommandInvocation, DeviceEvent, DeviceEventType, DeviceLocation,
+    DeviceMeasurement, DeviceStateChange)
 from sitewhere_tpu_torch.model.state import DeviceState, PresenceState
 
 __all__ = [
-    "AlertLevel", "AlertSource", "DeviceAlert", "DeviceEvent",
-    "DeviceEventType", "DeviceLocation", "DeviceMeasurement", "DeviceState",
-    "PresenceState",
+    "AlertLevel", "AlertSource", "CommandInitiator", "DeviceAlert",
+    "DeviceCommandInvocation", "DeviceEvent", "DeviceEventType",
+    "DeviceLocation", "DeviceMeasurement", "DeviceState",
+    "DeviceStateChange", "PresenceState",
 ]

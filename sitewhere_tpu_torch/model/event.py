@@ -1,9 +1,11 @@
 """Device event model: the API view of the hot path's payloads.
 
 Counterpart of `sitewhere_tpu/model/event.py` (reference surface:
-sitewhere-core-api spi/device/event/). Only what the packer reads and the
-alert materializer writes is kept; events never exist as Python objects on
-the hot path — they are packed into the SoA columns of ops/pack.py.
+sitewhere-core-api spi/device/event/). Only what the packer reads, the
+alert materializer writes and the host families emit (presence state
+changes, command invocations) is kept; events never exist as Python
+objects on the hot path — they are packed into the SoA columns of
+ops/pack.py.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import enum
 import time
 import uuid
 from dataclasses import dataclass, field
+from typing import Dict
 
 
 def new_id() -> str:
@@ -33,6 +36,17 @@ class DeviceEventType(enum.IntEnum):
     COMMAND_RESPONSE = 4
     STATE_CHANGE = 5
     STREAM_DATA = 6
+
+
+class CommandInitiator(enum.IntEnum):
+    REST = 0
+    BATCH_OPERATION = 1
+    SCRIPT = 2
+    SCHEDULER = 3
+
+
+class CommandTarget(enum.IntEnum):
+    ASSIGNMENT = 0
 
 
 class AlertSource(enum.IntEnum):
@@ -83,3 +97,28 @@ class DeviceAlert(DeviceEvent):
     level: AlertLevel = AlertLevel.INFO
     type: str = ""
     message: str = ""
+
+
+@dataclass
+class DeviceCommandInvocation(DeviceEvent):
+    """Cloud->device command call (IDeviceCommandInvocation)."""
+
+    event_type: DeviceEventType = DeviceEventType.COMMAND_INVOCATION
+    initiator: CommandInitiator = CommandInitiator.REST
+    initiator_id: str = ""
+    target: CommandTarget = CommandTarget.ASSIGNMENT
+    target_id: str = ""
+    device_command_id: str = ""
+    command_token: str = ""
+    parameter_values: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class DeviceStateChange(DeviceEvent):
+    """Registration/presence/state transition (IDeviceStateChange)."""
+
+    event_type: DeviceEventType = DeviceEventType.STATE_CHANGE
+    attribute: str = ""  # e.g. "presence", "registration"
+    type: str = ""
+    previous_state: str = ""
+    new_state: str = ""

@@ -28,7 +28,9 @@ Step semantics:
 
 Everything written to the slab (features, EWMA, rate, counters,
 generation) is the reference's bits exactly; the scores themselves carry
-`tanh`/`exp` last-bit differences between libraries.
+`tanh`/`exp` last-bit differences between libraries. On the CPU, tanh and
+exp come from ops/numerics.py (`tanh_f32`, `exp_f32`), so a score's bits
+do not depend on the process or its thread count.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ import torch
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.ml.compiler import (
     AnomalyModelTable, FeatureKind, ModelKind)
-from sitewhere_tpu_torch.ops.numerics import flush_denormals, fma_f32
+from sitewhere_tpu_torch.ops.numerics import (
+    exp_f32, flush_denormals, fma_f32, tanh_f32)
 from sitewhere_tpu_torch.ops.slab import _slab_f32, _slab_i32, state_slab_lanes
 from sitewhere_tpu_torch.ops.stateful import first_fired, write_attach_rows
 
@@ -190,12 +193,12 @@ def eval_anomaly_models(
         w = table.w[:, li]                                 # [P, H, H]
         lin = (w[None] * h[:, :, None, :]).sum(dim=-1) + table.b[None, :, li]
         last = (table.n_layers - 1) == li                  # [P]
-        act = torch.where((is_ae & last)[None, :, None], lin, torch.tanh(lin))
+        act = torch.where((is_ae & last)[None, :, None], lin, tanh_f32(lin))
         live = (li < table.n_layers)[None, :, None]
         h = torch.where(live, act, h)
 
     logit = (table.out_w[None] * h).sum(dim=-1) + table.out_b[None, :]
-    mlp_score = 1.0 / (1.0 + torch.exp(-logit))
+    mlp_score = 1.0 / (1.0 + exp_f32(-logit))
     lane_used = torch.arange(H, device=dev.device)[None, :] \
         < table.n_features[:, None]                        # [P, H]
     err = torch.where(lane_used[None], h - h0, 0.0)

@@ -61,3 +61,61 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
     toward = torch.where(err > 0, float("inf"), float("-inf"))
     s = torch.where(step, torch.nextafter(s, toward), s)
     return flush_denormals(s.float())
+
+
+# -- tanh and exp whose bits do not depend on the CPU's thread split ----------
+#
+# On the CPU, torch.tanh (and torch.exp) over a large f32 tensor gave other
+# last bits in about one process in five or ten, on the same input and at
+# the same thread count (an MKL vector-math call per parallel chunk, where
+# a chunk boundary or a dispatch decision of the run changes which code path
+# evaluates an element); a score near a model's threshold could then flip a
+# fire between processes. On the CPU these are evaluated instead from IEEE
+# basic operations alone (+ - * / and exact scalings by powers of two),
+# which round the same in every vector width and chunking: in f64, then
+# rounded once to f32. On the card torch.tanh / torch.exp stay as they are.
+
+_LN2 = 0.6931471805599453
+# 1/n! for the expm1 polynomial on |r| <= ln2/2 (truncation < 1e-15)
+_EXPM1_COEF = [1.0 / 479001600, 1.0 / 39916800, 1.0 / 3628800,
+               1.0 / 362880, 1.0 / 40320, 1.0 / 5040, 1.0 / 720,
+               1.0 / 120, 1.0 / 24, 1.0 / 6, 0.5, 1.0]
+
+
+def _pow2_f64(k: torch.Tensor) -> torch.Tensor:
+    """2^k for integral f64 k in [-1022, 1023], exactly (exponent bits)."""
+    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _expm1_parts_f64(y: torch.Tensor):
+    """(2^k, q) with exp(y) = 2^k * (1 + q) and expm1(r) = q for the
+    reduced r = y - k*ln2, |r| <= ln2/2; y is f64 in [-1000, 700], and NaN
+    gives NaN."""
+    k = torch.nan_to_num(torch.round(y / _LN2))
+    r = y - k * _LN2
+    q = torch.full_like(r, _EXPM1_COEF[0])
+    for c in _EXPM1_COEF[1:]:
+        q = q * r + c
+    return _pow2_f64(k.clamp(-1022, 1023)), q * r
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """tanh of an f32 tensor: torch.tanh on the card; on the CPU from
+    expm1 as sign(x) * e / (e + 2), e = expm1(2|x|) (no cancellation near
+    0), in f64, rounded once to f32. NaN stays NaN, -0.0 stays -0.0."""
+    if x.device.type != "cpu":
+        return torch.tanh(x)
+    a = 2.0 * x.double().abs().clamp(max=40.0)
+    scale, q = _expm1_parts_f64(a)
+    e = torch.where(scale == 1.0, q, scale * q + (scale - 1.0))
+    return torch.copysign((e / (e + 2.0)).float(), x)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of an f32 tensor: torch.exp on the card; on the CPU as
+    2^k * (1 + expm1(r)) in f64, rounded once to f32 (inf past the f32
+    range, 0 below it, NaN stays NaN)."""
+    if x.device.type != "cpu":
+        return torch.exp(x)
+    scale, q = _expm1_parts_f64(x.double().clamp(-110.0, 100.0))
+    return (scale * (1.0 + q)).float()

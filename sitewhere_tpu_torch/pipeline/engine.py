@@ -20,8 +20,12 @@ engine-owned buffers that every step and every load updates IN PLACE —
 never rebind `_state`, a group or `_params` on the card: a graph would keep
 reading the old buffers. A path that must reallocate drops the graphs.
 
-Not in this slice (the feeder fleet, the command dispatcher, the
-rule/model/policy stores, checkpoints) — see ROADMAP.md.
+Around it (own modules): the checkpointer (persist/checkpoint.py), which
+reads the state groups off the card and copies restored ones back into the
+resident buffers; the command fan-out (actuation/dispatcher.py, attached as
+`command_dispatcher`); the drift refitter (actuation/refit.py); the
+presence manager (pipeline/presence.py). Not in this slice: the feeder
+fleet and the sharded engine — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -305,6 +309,10 @@ class PipelineEngine(LifecycleComponent):
         # pending list and drain via take_command_fires()
         self.command_dispatcher = None
         self._pending_commands: List[Dict] = []
+        # alerts fired outside a caller's submit/materialize pair (a
+        # restored overflow backlog folded by the checkpointer): delivered
+        # at the head of the next materialize_alerts, before its own rows
+        self._pending_alerts: List[DeviceAlert] = []
         self.commands_fired = 0
         self.commands_debounced = 0
         self.commands_dropped = 0
@@ -464,17 +472,25 @@ class PipelineEngine(LifecycleComponent):
                 return None
             return tree_map(lambda t: t.to("cpu", copy=True), state)
 
+    def canonical_group_mismatch(self, group: str, state) -> Optional[str]:
+        """Why `state` cannot load into the state group `group` ("rule",
+        "model" or "actuation") at this engine's current dims, or None when
+        every field has the shape it needs."""
+        for name, want in self._expected_group_shapes(group).items():
+            got = tuple(getattr(state, name).shape)
+            if got != want:
+                return (f"{group}-state checkpoint shape mismatch for "
+                        f"{name}: got {got}, engine expects {want} "
+                        f"(bucket/state slots/device capacity must match)")
+        return None
+
     def _load_canonical_group(self, group: str, state) -> None:
         """Inverse of _canonical_group: every field must have the shape of
         this engine's current dims for the group. Copies into the resident
         group (sized to those dims first), which keeps its storage."""
-        for name, want in self._expected_group_shapes(group).items():
-            got = tuple(getattr(state, name).shape)
-            if got != want:
-                raise ValueError(
-                    f"{group}-state checkpoint shape mismatch for {name}: "
-                    f"got {got}, engine expects {want} (bucket/state "
-                    f"slots/device capacity must match)")
+        mismatch = self.canonical_group_mismatch(group, state)
+        if mismatch is not None:
+            raise ValueError(mismatch)
         with self._lock, self._state_lock:
             self._ensure_groups_sized()
             commit(getattr(self, f"_{group}_state"),
@@ -1267,14 +1283,23 @@ class PipelineEngine(LifecycleComponent):
         overflow (> capacity fired rows) both count on `alerts_dropped`
         and log. The list is what a mask scan over the per-row outputs
         gives for the first `alert_lane_capacity` fired rows, order
-        included. Command fires go to the attached `command_dispatcher`,
-        or park for take_command_fires(). The lane_fetch / materialize /
-        actuate segments land on the last dispatched step's flight record,
-        and its age sidecar closes here."""
+        included, after the pending alerts (a restored overflow fold's),
+        which are drained first, as the reference drains them. Command
+        fires go to the attached `command_dispatcher`, or park for
+        take_command_fires(). The lane_fetch / materialize / actuate
+        segments land on the last dispatched step's flight record, and its
+        age sidecar closes here."""
+        pending, self._pending_alerts = self._pending_alerts, []
         rec = self._flight_last
         if rec is not None:
             rec.begin_stage("lane_fetch")
-        lanes, cmd_lanes = self._fetch_lanes_with_retry(outputs)
+        try:
+            lanes, cmd_lanes = self._fetch_lanes_with_retry(outputs)
+        except BaseException:
+            # the fetch ran out of retries: the drained alerts wait for
+            # the next materialize instead of being lost
+            self._pending_alerts[:0] = pending
+            raise
         if rec is not None:
             rec.end_stage("lane_fetch")
             rec.begin_stage("materialize")
@@ -1287,10 +1312,10 @@ class PipelineEngine(LifecycleComponent):
             self._account_lane_overflow(dec.dropped_alerts)
             dec = self._bound_alert_rows(dec, max_alerts)
             if dec.n == 0:
-                return []
+                return pending
             dev_rows = np.asarray(batch.device_idx)[dec.rows]
             ts_rows = np.asarray(batch.ts)[dec.rows]
-            return self._emit_alerts(dec, dev_rows, ts_rows)
+            return pending + self._emit_alerts(dec, dev_rows, ts_rows)
         finally:
             if rec is not None:
                 rec.end_stage("materialize")

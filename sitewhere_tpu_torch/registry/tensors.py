@@ -5,7 +5,9 @@ Counterpart of `sitewhere_tpu/registry/tensors.py`. Validation inside the
 fused step is a gather + compare against these columns instead of a
 per-event registry lookup. The control-plane store (`DeviceManagement`) is
 not part of this slice, so the mirror takes rows directly:
-`mirror_devices` in bulk and `mirror_zone` per zone.
+`mirror_devices` in bulk and `mirror_zone` per zone. Each device row
+remembers the token it was written for, so `rebuild` can move the rows to
+the device interner's indices after a checkpoint restore replaced them.
 
 Columns (capacity D = max_devices, index = device interner index, row 0 =
 UNKNOWN sentinel, always status 0):
@@ -32,6 +34,9 @@ import numpy as np
 from sitewhere_tpu_torch.registry.interning import TokenInterner
 
 ASSIGNMENT_ACTIVE = 1
+# the device-indexed columns (the rest are zone-indexed)
+_DEVICE_COLUMNS = ("assignment_status", "tenant_idx", "area_idx",
+                   "device_type_idx", "assignment_idx")
 
 
 @dataclass
@@ -84,6 +89,8 @@ class RegistryTensors:
         self._area_idx = np.zeros(D, np.int32)
         self._device_type_idx = np.zeros(D, np.int32)
         self._assignment_idx = np.zeros(D, np.int32)
+        # the device token each row was mirrored for (None = no row)
+        self._row_token = np.full(D, None, object)
 
         Z, V = max_zones, max_zone_vertices
         self._zone_vertices = np.zeros((Z, V, 2), np.float32)
@@ -122,6 +129,7 @@ class RegistryTensors:
             for i, token in enumerate(tokens):
                 d = self.devices.intern(token)
                 idx[i] = d
+                self._row_token[d] = token
                 st = int(statuses[i])
                 self._assignment_status[d] = st
                 self._tenant_idx[d] = self.tenants.intern(tenants[i])
@@ -186,10 +194,9 @@ class RegistryTensors:
         """Replace every column with the given arrays (keys: the
         RegistrySnapshot field names; shapes must match this mirror)."""
         with self._lock:
-            for name in ("assignment_status", "tenant_idx", "area_idx",
-                         "device_type_idx", "assignment_idx",
-                         "zone_vertices", "zone_nvert", "zone_tenant",
-                         "zone_area", "zone_active"):
+            for name in _DEVICE_COLUMNS + (
+                    "zone_vertices", "zone_nvert", "zone_tenant",
+                    "zone_area", "zone_active"):
                 dst = getattr(self, "_" + name)
                 src = np.asarray(arrays[name]).astype(dst.dtype, copy=False)
                 if src.shape != dst.shape:
@@ -197,4 +204,28 @@ class RegistryTensors:
                         f"registry column {name}: got shape {src.shape}, "
                         f"mirror holds {dst.shape}")
                 dst[...] = src
+            self._row_token[:] = None
+            tokens = self.devices.snapshot()[:len(self._row_token)]
+            self._row_token[:len(tokens)] = tokens
+            self._version += 1
+
+    def rebuild(self) -> None:
+        """Re-mirror every device row under the device interner's CURRENT
+        index of its token (interning tokens it no longer holds). Needed
+        after a checkpoint restore replaced the interner's assignment —
+        a snapshot of another layout (a sharded engine's shard-congruent
+        one) moves tokens to other indices; rows of no token clear."""
+        with self._lock:
+            old = np.array([i for i, t in enumerate(self._row_token)
+                            if t is not None], np.int64)
+            new = np.array([self.devices.intern(self._row_token[i])
+                            for i in old], np.int64)
+            for name in _DEVICE_COLUMNS:
+                col = getattr(self, "_" + name)
+                moved = np.zeros_like(col)
+                moved[new] = col[old]
+                col[...] = moved
+            tokens = self._row_token[old]
+            self._row_token[:] = None
+            self._row_token[new] = tokens
             self._version += 1

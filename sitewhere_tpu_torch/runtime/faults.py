@@ -15,10 +15,11 @@ through the hot path and control plane:
   checkpoint_torn_write checkpoint dir renamed with truncated state
   feeder_thread_death   pipelined-feeder stager thread dies
   rest_worker_stall     REST worker thread stalls mid-request
+  command_delivery_error one delivery attempt of a command fire fails
 
-The points the port does not run yet (bus, checkpoint, REST, feeder
-processes, command delivery) stay in the vocabulary so a plan written for
-the reference loads unchanged. Disarmed, :func:`fault_point` is one
+The points the port does not run yet (the networked bus, REST, feeder
+processes) stay in the vocabulary so a plan written for the reference
+loads unchanged. Disarmed, :func:`fault_point` is one
 module-global load and an identity test — no dict lookup, no allocation,
 no lock.
 

@@ -1,5 +1,6 @@
 """The port stands alone: it imports nothing of JAX, Flax or the JAX
-package, and its entry points never fall back to the CPU by themselves."""
+package (nor msgpack or pyarrow, which the card's installation may lack),
+and its entry points never fall back to the CPU by themselves."""
 
 import ast
 import json
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "sitewhere_tpu")
+FORBIDDEN = ("jax", "flax", "sitewhere_tpu", "msgpack", "pyarrow")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -44,8 +45,13 @@ def test_importing_every_module_loads_no_jax():
     # the host runtime: imported (and so importable) JAX-free as well
     runtime = {f"sitewhere_tpu_torch.runtime.{m}" for m in (
         "metrics", "faults", "health", "flight", "eventage", "lifecycle",
-        "hbmledger")} | {f"sitewhere_tpu_torch.pipeline.{m}"
-                         for m in ("staging", "feed", "graph")}
+        "hbmledger", "bus", "recovery")} | {
+        f"sitewhere_tpu_torch.pipeline.{m}"
+        for m in ("staging", "feed", "graph", "presence")} | {
+        f"sitewhere_tpu_torch.{m}" for m in (
+            "persist.atomic", "persist.checkpoint", "actuation.dispatcher",
+            "actuation.refit", "actuation.store", "ml.store",
+            "rules.store")}
     assert runtime <= set(info["modules"]) <= set(info["loaded"]) | \
         set(info["preloaded"])
     assert not [m for m in info["preloaded"] if _forbidden(m)]
