@@ -49,13 +49,35 @@ Phases (any failure prints its error and exits non-zero, with no result):
      fires a twin's take_command_fires gives, DriftRefitter on the card
      gives the CPU engine's refit, and one DevicePresenceManager sweep
      equals a twin's presence_sweep. Save, restore and recover wall times,
-     their device<->host parts and the bytes on disk are printed.
+     their device<->host parts and the bytes on disk are printed;
+  8. the ingest host tier at full size, on phase 3's world with its
+     control plane (a DeviceManagement of the same 100k devices attached
+     to the mirror): INGEST_WARMUP + INGEST_DELIVERIES deliveries of BATCH
+     events in the same mix as wire frames (INGEST_UNKNOWN of them from
+     unknown tokens, INGEST_CONTROL REGISTER frames each, every delivery
+     cut a few bytes into a frame so the remainder path runs) through
+     `BulkWireIngestService`: native decode, batched interning, the native
+     pack into the pinned staging buffer, the captured step (B1 counted),
+     alert materialization and persistence, the columnar event log, once
+     appended inline and once on the persistence worker. Alerts, canonical
+     state and presence transitions must equal a second card engine fed
+     the decoded batches through `submit`; the log's rows the batches'
+     valid rows; the unregistered topic the unknown tokens; the control
+     frames forwarded. Then the native decoder against the plain one on one
+     delivery, the native pack against the plain numpy pack into a pinned
+     buffer on each wire layout (byte-equal, then timed in alternation),
+     and an object-path drill (~1024 events from the bus through
+     `InboundProcessingService`, persistence triggers and
+     `PayloadEnrichment`) on the card against the same drill on the CPU.
+     Per-delivery host ms of its parts and events/s from bytes to
+     persisted rows are printed.
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -93,6 +115,14 @@ STATEFUL_CPU_STEPS = 4
 SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-5
 # phase 7: steps before the save and after the restore
 DURABLE_CUT, DURABLE_AFTER = 3, 3
+# phase 8: deliveries of BATCH events (warm-up, timed), the share of events
+# from unknown tokens, REGISTER frames per delivery, pack timing calls per
+# layout, devices of the object-path drill
+INGEST_WARMUP, INGEST_DELIVERIES = 3, 10
+INGEST_UNKNOWN = 0.001
+INGEST_CONTROL = 4
+INGEST_PACK_REPS = 20
+OBJECT_DEVICES = 64
 H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
 H100_HBM_BYTES_S = 3.35e12    # NVIDIA H100 SXM data sheet, HBM3
 # phase 2's worlds of B=BATCH points: (name, seed, Z, V, zone radius)
@@ -1460,6 +1490,550 @@ def phase_durable(dev, card, main_ref, stateful_ref):
     return readings, launches
 
 
+# -- phase 8: the ingest host tier --------------------------------------------
+
+def encode_delivery(rng, epoch, n_registered, batch, n_control):
+    """One delivery's wire bytes: `batch` hot frames of the headline traffic
+    (the 60/30/10 mix, values U(0,100), lat/lon in the box, ts within 1 s
+    of the epoch, INGEST_UNKNOWN of them from tokens the registry does not
+    hold) and `n_control` REGISTER frames spread among them. Returns
+    (frame byte lengths in order, the bytes, the unknown tokens in order,
+    the REGISTER frames)."""
+    from sitewhere_tpu_torch.transport.wire import (
+        MessageType, WireCodec, encode_frame)
+
+    kind = rng.choice(3, size=batch, p=[0.6, 0.3, 0.1])
+    dev = rng.integers(1, n_registered + 1, batch)
+    unknown = rng.random(batch) < INGEST_UNKNOWN
+    ts = epoch + rng.integers(0, 1000, batch)
+    value = rng.uniform(0, 100, batch)
+    lat = rng.uniform(*LAT_LON_BOX, batch)
+    lon = rng.uniform(*LAT_LON_BOX, batch)
+    level = rng.integers(0, 4, batch)
+    control_at = set(rng.choice(batch, n_control, replace=False).tolist())
+    frames, ghosts, controls = [], [], []
+    M, L, A = MessageType.MEASUREMENT, MessageType.LOCATION, MessageType.ALERT
+    for i in range(batch):
+        if i in control_at:
+            reg = encode_frame(MessageType.REGISTER, WireCodec.encode_register(
+                f"new-{len(controls)}-{int(dev[i])}", "sensor",
+                area_token="area-1"))
+            frames.append(reg)
+            controls.append(reg)
+        token = f"dev-{int(dev[i])}"
+        if unknown[i]:
+            token = f"ghost-{int(dev[i])}"
+            ghosts.append(token)
+        k = kind[i]
+        if k == 0:
+            frames.append(encode_frame(M, WireCodec.encode_measurement(
+                token, int(ts[i]), "m1", float(value[i]))))
+        elif k == 1:
+            frames.append(encode_frame(L, WireCodec.encode_location(
+                token, int(ts[i]), float(lat[i]), float(lon[i]))))
+        else:
+            frames.append(encode_frame(A, WireCodec.encode_alert(
+                token, int(ts[i]), "overheat", int(level[i]), "hot")))
+    return [len(f) for f in frames], b"".join(frames), ghosts, controls
+
+
+def build_registry_store(n_registered):
+    """The control plane of phase 3's world: a DeviceManagement holding the
+    same registered devices (type "sensor", area "area-1", assignment
+    "as-<token>"), so the bulk lane persists rule alerts through the event
+    management as a deployment does."""
+    from sitewhere_tpu_torch.model import (
+        Area, Device, DeviceAssignment, DeviceType)
+    from sitewhere_tpu_torch.registry.store import DeviceManagement
+
+    dm = DeviceManagement()
+    dtype = dm.create_device_type(DeviceType(token="sensor"))
+    area = dm.create_area(Area(token="area-1"))
+    for i in range(1, n_registered + 1):
+        d = dm.create_device(Device(token=f"dev-{i}", device_type_id=dtype.id))
+        dm.create_device_assignment(DeviceAssignment(
+            token=f"as-dev-{i}", device_id=d.id, area_id=area.id))
+    return dm
+
+
+def _timed(obj, name, sink, keep=None):
+    """Wrap obj.name (an instance attribute shadows the method) so each call
+    appends its host seconds to `sink` (and its result to `keep`)."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sink.append(time.perf_counter() - t0)
+        if keep is not None:
+            keep.append(out)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def run_bulk_lane(engine, dm, deliveries, worker):
+    """The deliveries through BulkWireIngestService (inline append, or the
+    persistence worker); per-delivery host seconds of its parts, the
+    decoded batches, the materialized alerts, and the log, bus and control
+    frames to check."""
+    from sitewhere_tpu_torch.persist.event_management import (
+        DeviceEventManagement)
+    from sitewhere_tpu_torch.persist.eventlog import ColumnarEventLog
+    from sitewhere_tpu_torch.runtime.bus import EventBus, TopicNaming
+    from sitewhere_tpu_torch.sources.fastlane import BulkWireIngestService
+
+    naming = TopicNaming()
+    bus = EventBus(partitions=1)
+    elog = ColumnarEventLog(segment_rows=BATCH)
+    controls = []
+    svc = BulkWireIngestService(
+        engine, eventlog=elog, bus=bus, tenant="tenant-1", naming=naming,
+        registry=dm, events=DeviceEventManagement(elog, registry=dm,
+                                                  tenant="tenant-1"),
+        control_sink=lambda frame, meta: controls.append(frame),
+        persist_async=worker)
+    t = {k: [] for k in ("ingest", "submit", "materialize", "append",
+                         "delivery")}
+    results, alerts = [], []
+    _timed(svc.lane, "ingest", t["ingest"], results)
+    _timed(engine, "submit_routed", t["submit"])
+    _timed(engine, "materialize_alerts", t["materialize"], alerts)
+    _timed(elog, "append_batch", t["append"])
+    svc.start()
+    try:
+        t0 = None
+        for i, data in enumerate(deliveries):
+            if i == INGEST_WARMUP:
+                if worker:
+                    svc.persister.flush()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            ts = time.perf_counter()
+            svc.on_encoded_event_received(data)
+            t["delivery"].append(time.perf_counter() - ts)
+        if worker:
+            svc.persister.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        svc.stop()
+        for name in ("submit_routed", "materialize_alerts"):
+            del engine.__dict__[name]
+    if svc.failed_counter.value or svc._remainder:
+        raise AssertionError("the bulk lane failed a decode or kept bytes")
+    batches = [b for r in results for b in r.batches]
+    return {"t": t, "wall": wall, "batches": batches, "alerts": alerts,
+            "log": elog, "bus": bus, "naming": naming, "controls": controls,
+            "n_events": sum(r.n_events for r in results)}
+
+
+def check_log_rows(elog, batches, epoch):
+    """The log's hot rows (in append order, the persisted rule alerts left
+    out) equal the batches' valid rows, column by column."""
+    names = ["id_seq", "alert_source", "device_idx", "event_type",
+             "event_date", "mm_idx", "value", "latitude", "longitude",
+             "elevation", "alert_level", "alert_type_idx"]
+    cols = elog.query_columns("tenant-1", _event_filter(), names)
+    order = np.argsort(cols["id_seq"], kind="stable")
+    hot = order[cols["alert_source"][order] != 1]
+    valid = [np.asarray(b.valid) for b in batches]
+    want = {
+        "device_idx": "device_idx", "event_type": "event_type",
+        "mm_idx": "mm_idx", "value": "value", "latitude": "lat",
+        "longitude": "lon", "elevation": "elevation",
+        "alert_level": "alert_level", "alert_type_idx": "alert_type_idx"}
+    for col, field in want.items():
+        got = cols[col][hot]
+        exp = np.concatenate([np.asarray(getattr(b, field))[v]
+                              for b, v in zip(batches, valid)])
+        if got.dtype == np.float32:
+            got, exp = got.view(np.int32), exp.view(np.int32)
+        if not np.array_equal(got, exp):
+            raise AssertionError(f"event log column {col} differs from the "
+                                 f"batches' rows")
+    exp_dates = np.concatenate([np.asarray(b.ts)[v].astype(np.int64) + epoch
+                                for b, v in zip(batches, valid)])
+    if not np.array_equal(cols["event_date"][hot], exp_dates):
+        raise AssertionError("event log dates differ from the batches'")
+    return len(hot)
+
+
+def _event_filter():
+    from sitewhere_tpu_torch.persist.eventlog import EventFilter
+
+    return EventFilter()
+
+
+def pack_vs_plain(dev_batches, card):
+    """The native pack against the plain numpy pack into a pinned buffer at
+    the full batch, on each layout: byte-equal blobs, then INGEST_PACK_REPS
+    calls of each in alternation."""
+    from sitewhere_tpu_torch.ops.pack import (
+        WIRE_ROWS, batch_to_blob, batch_to_blob_plain)
+
+    pinned = torch.empty((WIRE_ROWS, BATCH), dtype=torch.int32,
+                         pin_memory=True).numpy()
+    out = {}
+    for layout, batch in dev_batches.items():
+        blob = batch_to_blob(batch, out=pinned).copy()
+        plain = batch_to_blob_plain(batch)
+        if blob.shape[0] != {"full": 5, "compact": 4, "packed": 3}[layout] \
+                or blob.tobytes() != plain.tobytes():
+            raise AssertionError(f"native pack != plain pack on {layout}")
+        native_ms, plain_ms = [], []
+        for _ in range(INGEST_PACK_REPS):
+            for fn, sink in ((batch_to_blob, native_ms),
+                             (batch_to_blob_plain, plain_ms)):
+                t0 = time.perf_counter()
+                fn(batch, out=pinned)
+                sink.append((time.perf_counter() - t0) * 1e3)
+        out[layout] = {"native_ms": statistics.median(native_ms),
+                       "plain_ms": statistics.median(plain_ms),
+                       "rows": blob.shape[0]}
+    log(f"[ingest] pack into the pinned buffer, B={BATCH}, median of "
+        f"{INGEST_PACK_REPS} each in alternation: {json.dumps(out)} on "
+        f"{card}")
+    return out
+
+
+def layout_batches(packer, seed):
+    """Three full-size host batches, one per wire layout: the main path's
+    traffic (compact: no elevation), the same with elevations (full), and
+    measurements and alerts only within 1 s (packed)."""
+    compact = synthetic_batch(packer, N_REGISTERED, BATCH, seed)
+    full = synthetic_batch(packer, N_REGISTERED, BATCH, seed)
+    full.elevation = torch.from_numpy(np.random.default_rng(seed).uniform(
+        1, 50, BATCH).astype(np.float32))
+    packed = synthetic_batch(packer, N_REGISTERED, BATCH, seed,
+                             p_types=(0.9, 0.0, 0.1))
+    return {"full": full, "compact": compact, "packed": packed}
+
+
+def object_drill(dev, dm, epoch, records):
+    """~1024 events as decoded requests from the bus through the port's
+    InboundProcessingService, persistence triggers and PayloadEnrichment on
+    a small engine on `dev`; returns what was persisted, enriched and
+    routed unregistered, with the random parts (received dates, a rule
+    alert's id) left out."""
+    from sitewhere_tpu_torch.persist.event_management import (
+        DeviceEventManagement, EventPersistenceTriggers)
+    from sitewhere_tpu_torch.persist.eventlog import ColumnarEventLog
+    from sitewhere_tpu_torch.pipeline.enrichment import (
+        PayloadEnrichment, unpack_enriched)
+    from sitewhere_tpu_torch.pipeline.inbound import InboundProcessingService
+    from sitewhere_tpu_torch.runtime.bus import EventBus, TopicNaming
+
+    engine = build_object_engine(dev, dm, epoch)
+    naming, bus = TopicNaming(), EventBus(partitions=1)
+    elog = ColumnarEventLog()
+    events = DeviceEventManagement(elog, registry=dm, tenant="tenant-1",
+                                   device_interner=engine.packer.devices)
+    EventPersistenceTriggers(bus, naming, "tenant-1").attach(events)
+    inbound = InboundProcessingService(bus, dm, events=events, engine=engine,
+                                       tenant="tenant-1", naming=naming)
+    enrich = PayloadEnrichment(bus, dm, tenant="tenant-1", naming=naming)
+    decoded = naming.event_source_decoded_events("tenant-1")
+    for value in records:
+        bus.publish(decoded, b"k", value)
+    inbound.process(bus.consumer(decoded, "drill").poll(max_records=10_000))
+    enrich._process(bus.consumer(naming.inbound_persisted_events(
+        "tenant-1"), "drill").poll(max_records=10_000))
+
+    def normal(ev):
+        d = dataclasses.asdict(ev)
+        d.pop("received_date")
+        if d.get("source") == 1:
+            d.pop("id")
+        return d
+
+    persisted = [normal(e) for e in elog.query(
+        "tenant-1", _event_filter(), _criteria(10_000)).results]
+    enriched = []
+    for part in bus.topic(naming.inbound_enriched_events(
+            "tenant-1")).partitions:
+        for _, _, value, _ in part.read(0, 10_000):
+            ctx, ev = unpack_enriched(value)
+            enriched.append((dataclasses.asdict(ctx), normal(ev)))
+    unregistered = [v for part in bus.topic(
+        naming.inbound_unregistered_device_events("tenant-1")).partitions
+        for _, _, v, _ in part.read(0, 10_000)]
+    if inbound.failed_counter.value:
+        raise AssertionError("the inbound service failed records")
+    return persisted, enriched, unregistered, engine
+
+
+def _criteria(n):
+    from sitewhere_tpu_torch.model.common import SearchCriteria
+
+    return SearchCriteria(page_size=n)
+
+
+def object_world(n_devices=OBJECT_DEVICES):
+    """The object drill's control plane: registered devices and two zones
+    of phase 3's geometry."""
+    from sitewhere_tpu_torch.model import Zone
+    from sitewhere_tpu_torch.model.common import Location
+
+    dm = build_registry_store(n_devices)
+    area = dm.get_area_by_token("area-1")
+    _, _, verts = random_world(SEED, 1, 2, N_VERTS, box=LAT_LON_BOX,
+                               radius=(4.0, 8.0))
+    for z in range(2):
+        dm.create_zone(Zone(token=f"zone-{z}", area_id=area.id, bounds=[
+            Location(float(a), float(b)) for a, b in verts[z]]))
+    return dm
+
+
+def object_records(epoch, n_devices=OBJECT_DEVICES, n_requests=256):
+    """The drill's decoded requests (sources/manager's msgpack form): 4
+    events each with fixed ids, every 16th from an unknown device."""
+    import msgpack
+
+    from sitewhere_tpu_torch.model.common import _asdict
+    from sitewhere_tpu_torch.model.event import (
+        DeviceAlert, DeviceEventBatch, DeviceLocation, DeviceMeasurement)
+
+    rng = np.random.default_rng(SEED + 8)
+    out = []
+    for k in range(n_requests):
+        token = (f"ghost-{k}" if k % 16 == 5
+                 else f"dev-{int(rng.integers(1, n_devices + 1))}")
+        ts = epoch + int(rng.integers(0, 1000))
+        batch = DeviceEventBatch(
+            device_token=token,
+            measurements=[DeviceMeasurement(
+                id=f"m{j}-{k}", name=f"m{j + 1}",
+                value=float(rng.uniform(80, 100)), event_date=ts,
+                received_date=ts) for j in range(2)],
+            locations=[DeviceLocation(
+                id=f"l-{k}", latitude=float(rng.uniform(*LAT_LON_BOX)),
+                longitude=float(rng.uniform(*LAT_LON_BOX)), event_date=ts,
+                received_date=ts)],
+            alerts=[DeviceAlert(id=f"a-{k}", type="door", level=2,
+                                message="open", event_date=ts,
+                                received_date=ts)])
+        out.append(msgpack.packb({
+            "sourceId": "chip-smoke", "deviceToken": token,
+            "kind": "DeviceEventBatch", "request": _asdict(batch),
+            "metadata": {}}, use_bin_type=True))
+    return out
+
+
+def build_object_engine(dev, dm, epoch):
+    from sitewhere_tpu_torch.model import AlertLevel
+    from sitewhere_tpu_torch.pipeline import (
+        GeofenceRule, PipelineEngine, ThresholdRule)
+    from sitewhere_tpu_torch.registry import RegistryTensors
+
+    reg = RegistryTensors(max_devices=1024, max_zones=4,
+                          max_zone_vertices=N_VERTS)
+    reg.attach(dm, "tenant-1")
+    engine = PipelineEngine(reg, batch_size=256, measurement_slots=8,
+                            max_tenants=4, max_threshold_rules=8,
+                            max_geofence_rules=8, alert_lane_capacity=64,
+                            name=f"chip-smoke-object-{dev.type}", device=dev)
+    engine.packer.epoch_base_ms = epoch
+    engine.packer.measurements.intern("m1")
+    engine.add_threshold_rule(ThresholdRule(
+        token="thr", measurement_name="m1", operator=">", threshold=95.0,
+        alert_level=AlertLevel.WARNING))
+    engine.add_geofence_rule(GeofenceRule(
+        token="fence-in", zone_token="zone-0", condition="inside",
+        alert_level=AlertLevel.CRITICAL))
+    engine.add_geofence_rule(GeofenceRule(
+        token="fence-out", zone_token="zone-1", condition="outside"))
+    engine.start()
+    return engine
+
+
+def phase_ingest(dev, card, main_ref):
+    """The ingest host tier at full size: wire bytes -> native decode ->
+    batched interning -> native pack into the pinned staging buffer -> the
+    captured step (kernel B1) -> alert materialization -> the columnar event
+    log, inline and on the persistence worker; checked against a second card
+    engine fed the decoded batches through submit. Then the native pack
+    and decoder against their plain versions, and the object path on the
+    card against the CPU. Returns the readings and B1's launches on the
+    bulk lane."""
+    from sitewhere_tpu_torch import native
+    from sitewhere_tpu_torch.ops.pack import EventPacker
+    from sitewhere_tpu_torch.registry.interning import TokenInterner
+    from sitewhere_tpu_torch.runtime.flight import FlightRecorder
+    from sitewhere_tpu_torch.transport.wire import (
+        decode_event_frames_to_columns, decode_frames)
+
+    t_phase = time.perf_counter()
+    readings = {}
+    epoch = main_ref["epoch_base_ms"]
+    n = INGEST_WARMUP + INGEST_DELIVERIES
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 80)
+    lengths, datas, ghosts, controls = [], [], [], []
+    for _ in range(n):
+        lens, data, g, c = encode_delivery(rng, epoch, N_REGISTERED, BATCH,
+                                           INGEST_CONTROL)
+        lengths.append(lens)
+        datas.append(data)
+        ghosts += g
+        controls += c
+    stream = b"".join(datas)
+    # cut each delivery a few bytes into its first hot frame: every
+    # delivery but the first starts with the previous one's remainder
+    starts = np.cumsum([0] + [len(d) for d in datas])
+    cuts = [0] + [int(s) + 3 for s in starts[1:-1]] + [len(stream)]
+    deliveries = [stream[a:b] for a, b in zip(cuts, cuts[1:])]
+    log(f"[ingest] {n} deliveries of {BATCH} events + {INGEST_CONTROL} "
+        f"REGISTER frames encoded in {time.perf_counter() - t0:.2f} s "
+        f"({len(stream)} bytes, {len(ghosts)} unknown tokens)")
+    t0 = time.perf_counter()
+    dm = build_registry_store(N_REGISTERED)
+    log(f"[ingest] control plane ({N_REGISTERED} devices + assignments) "
+        f"built in {time.perf_counter() - t0:.2f} s")
+
+    engines = {}
+    for name in ("inline", "worker", "reference"):
+        engine = build_world(dev, "auto", epoch)
+        engine.flight = FlightRecorder(capacity=64)
+        if name != "reference":
+            engine.registry.attach(dm, "tenant-1")
+        engines[name] = engine
+    ref_snap = engines["reference"].registry.snapshot()
+    for name in ("inline", "worker"):
+        snap = engines[name].registry.snapshot()
+        for f in dataclasses.fields(snap):
+            if f.name != "version" and not np.array_equal(
+                    getattr(snap, f.name), getattr(ref_snap, f.name)):
+                raise AssertionError(f"the attached store's mirror differs "
+                                     f"from phase 3's rows: {f.name}")
+    torch.cuda.synchronize()
+    reset_launch_counts(engines["inline"], engines["worker"])
+    runs = {name: run_bulk_lane(engines[name], dm, deliveries,
+                                worker=(name == "worker"))
+            for name in ("inline", "worker")}
+    launches = launch_counts(engines["inline"], engines["worker"])[
+        "points_in_zones"]
+    if not launches:
+        raise AssertionError("the bulk lane launched no geofence kernel")
+
+    # -- checks: the reference engine fed the decoded batches via submit
+    ref = engines["reference"]
+    batches = runs["inline"]["batches"]
+    if len(batches) != n or runs["inline"]["n_events"] != n * BATCH:
+        raise AssertionError(f"{len(batches)} batches of "
+                             f"{runs['inline']['n_events']} events from "
+                             f"{n} deliveries")
+    for a, b in zip(batches, runs["worker"]["batches"]):
+        assert_tree_bits_equal(a, b, "worker lane batch")
+    ref_alerts = []
+    for batch in batches:
+        ref_alerts.append(_alert_keys(ref.materialize_alerts(
+            batch, ref.submit(batch))))
+    ref_state = ref.canonical_state()
+    ref_missing = ref.presence_sweep()
+    for name, run in runs.items():
+        engine = engines[name]
+        if [_alert_keys(a) for a in run["alerts"]] != ref_alerts:
+            raise AssertionError(f"{name} bulk lane materialized other "
+                                 f"alerts than submit")
+        assert_tree_bits_equal(ref_state, engine.canonical_state(),
+                               f"{name} canonical state")
+        if engine.presence_sweep() != ref_missing or not torch.equal(
+                engine.state.present, ref.state.present):
+            raise AssertionError(f"{name} presence transitions differ")
+        rows = check_log_rows(run["log"], run["batches"], epoch)
+        valid = sum(int(np.asarray(b.valid).sum()) for b in batches)
+        if rows != valid:
+            raise AssertionError(f"{name} log holds {rows} hot rows, the "
+                                 f"batches {valid}")
+        topic = run["naming"].inbound_unregistered_device_events("tenant-1")
+        unreg = [v.decode() for part in run["bus"].topic(topic).partitions
+                 for _, _, v, _ in part.read(0, 10 ** 7)]
+        if unreg != ghosts:
+            raise AssertionError(f"{name}: the unregistered topic holds "
+                                 f"{len(unreg)} tokens, not the "
+                                 f"{len(ghosts)} unknown ones")
+        if run["controls"] != controls:
+            raise AssertionError(f"{name}: control frames not forwarded")
+        t = run["t"]
+        timed = slice(INGEST_WARMUP, None)
+        readings[name] = {
+            "events_per_s_bytes_to_rows": INGEST_DELIVERIES * BATCH
+            / run["wall"],
+            "delivery_ms": statistics.median(t["delivery"][timed]) * 1e3,
+            "decode_intern_pack_columns_ms":
+                statistics.median(t["ingest"][timed]) * 1e3,
+            "submit_ms": statistics.median(t["submit"][timed]) * 1e3,
+            "materialize_ms": statistics.median(t["materialize"][timed])
+            * 1e3,
+            "append_batch_ms": statistics.median(t["append"][timed]) * 1e3,
+            "flight_pack_ms": flight_stage_ms(engine, INGEST_DELIVERIES)
+            .get("pack"),
+            "alerts": sum(len(a) for a in run["alerts"]),
+            "log_rows": run["log"].count("tenant-1"),
+        }
+        log(f"[ingest] bulk lane ({name}): {n} deliveries == submit of the "
+            f"decoded batches on a second card engine (alerts, canonical "
+            f"state, presence transitions {len(ref_missing)}); log rows == "
+            f"batch rows ({rows}); {len(unreg)} unknown tokens routed; "
+            f"{len(controls)} control frames forwarded; "
+            f"{json.dumps(readings[name])} on {card}")
+    del runs, engines, ref, batches
+
+    # -- the native decoder against the plain one, on one delivery
+    one = datas[1]
+    cols = native.decode_hot_frames(one)
+    frames, rest = decode_frames(one)
+    plain = decode_event_frames_to_columns(frames)
+    same = (cols.token_list() == plain["tokens"] and cols.n == BATCH
+            and cols.consumed == len(one) and rest == b""
+            and len(cols.others) == INGEST_CONTROL)
+    for k in ("event_type", "ts_ms", "value", "lat", "lon", "elevation",
+              "alert_level"):
+        a, b = np.asarray(getattr(cols, k)), np.asarray(plain[k])
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        same = same and np.array_equal(a, b)
+    for name in ("names", "alert_types"):
+        buf, off = getattr(cols, name)
+        same = same and [buf[off[i]:off[i + 1]].decode()
+                         for i in range(cols.n)] == plain[name]
+    if not same:
+        raise AssertionError("native decoder columns != plain decoder's")
+    log(f"[ingest] native decoder == plain decoder on one delivery "
+        f"({cols.n} events, {len(cols.others)} control frames)")
+
+    # -- the native pack against the plain one, per layout
+    packer = EventPacker(BATCH, TokenInterner(MAX_DEVICES, "devices"),
+                         epoch_base_ms=epoch)
+    readings["pack"] = pack_vs_plain(layout_batches(packer, SEED + 81), card)
+
+    # -- the object path on the card against the CPU
+    odm = object_world()
+    records = object_records(epoch)
+    card_out = object_drill(dev, odm, epoch, records)
+    cpu_out = object_drill(torch.device("cpu"), odm, epoch, records)
+    for what, a, b in zip(("persisted events", "enriched records",
+                           "unregistered records"), card_out, cpu_out):
+        if a != b:
+            raise AssertionError(f"object path: {what} differ between the "
+                                 f"card and the CPU")
+    persisted, enriched, unreg, _ = card_out
+    rule_alerts = sum(1 for e in persisted if e.get("source") == 1)
+    if not rule_alerts or len(enriched) != len(persisted) or not unreg:
+        raise AssertionError("object drill persisted no rule alert")
+    readings["object_path"] = {"persisted": len(persisted),
+                               "rule_alerts": rule_alerts,
+                               "enriched": len(enriched),
+                               "unregistered": len(unreg)}
+    log(f"[ingest] object path (inbound -> persist -> step -> alerts -> "
+        f"enrichment) on the card == on the CPU: "
+        f"{json.dumps(readings['object_path'])}")
+    readings["phase_s"] = time.perf_counter() - t_phase
+    log(f"[ingest] readings {json.dumps(readings)} on {card}")
+    return readings, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
@@ -1483,6 +2057,7 @@ def main() -> int:
             "main_profile": main_prof, "stateful_profile": stateful_prof})
         _, durable_launches = phase_durable(dev, card, main_ref,
                                             stateful_ref)
+        _, ingest_launches = phase_ingest(dev, card, main_ref)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1496,6 +2071,7 @@ def main() -> int:
         "launches": launches["points_in_zones"],
         "launches_stateful_path": stateful_launches,
         "launches_durable_path": durable_launches,
+        "launches_ingest_path": ingest_launches,
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],

@@ -5,9 +5,12 @@ Counterpart of `sitewhere_tpu/ops/pack.py`. The device view of events is
 variable-rate ingest never changes shapes. Timestamps are int32 ms relative
 to a host-held `epoch_base_ms` (int32 covers +-24 days per base).
 
-The host stages each batch as ONE int32 wire blob (`batch_to_blob`, numpy;
-its bytes are identical to the JAX package's) and the step unpacks it on
-the device (`blob_to_batch`, torch). Three layouts, picked per batch:
+The host stages each batch as ONE int32 wire blob (`batch_to_blob`: one
+pass of the native host library, `native.py`, written in place into the
+caller's buffer; its bytes are identical to the JAX package's) and the
+step unpacks it on the device (`blob_to_batch`, torch). The numpy pack
+`batch_to_blob_plain` is the plain version the tests and chip_smoke.py
+hold the native one against. Three layouts, picked per batch:
 
   5 rows, 20 B/event:
     row 0: device_idx (bits 0-21) | event_type (22-24) |
@@ -58,6 +61,10 @@ class EventBatch:
     alert_type_idx: torch.Tensor  # int32, interned alert type code
     alert_level: torch.Tensor     # int32, AlertLevel value
     valid: torch.Tensor           # bool, False for padding rows
+
+    @property
+    def batch_size(self) -> int:
+        return self.device_idx.shape[0]
 
 
 WIRE_ROWS = 5
@@ -111,31 +118,58 @@ def _embed_ts_base(row0: np.ndarray, ts_base: int) -> None:
             << np.uint32(_BASE_SHIFT)
 
 
-def batch_to_blob(batch: EventBatch,
-                  out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Pack a host batch into the wire blob (numpy, [rows, B] int32) in the
-    smallest layout its content allows. A well-formed batch — anything the
-    packer produces — round-trips exactly.
-
-    `out` is an optional preallocated [WIRE_ROWS, B] int32 buffer (the
-    engine passes a pinned staging buffer): the blob is written into its
-    first `rows` rows and that contiguous view is returned."""
-    B = batch.device_idx.shape[-1]
-    rows, ts_base = wire_variant_for(batch)
-    dev = np.asarray(batch.device_idx, np.int32)
+def _check_device_range(dev: np.ndarray) -> None:
     if dev.size and (int(dev.max()) >= WIRE_DEV_MAX or int(dev.min()) < 0):
         raise ValueError(
             f"device_idx out of wire-blob device field range "
             f"[0, {WIRE_DEV_MAX}): min {int(dev.min())}, "
             f"max {int(dev.max())}")
+
+
+def _blob_buffer(out: Optional[np.ndarray], rows: int, B: int) -> np.ndarray:
+    """The first `rows` rows of the caller's [>= rows, B] int32 buffer
+    (a contiguous view), or a fresh [rows, B] array."""
+    if out is not None and out.ndim == 2 and out.shape[-1] == B \
+            and out.shape[0] >= rows and out.dtype == np.int32 \
+            and out.flags.c_contiguous:
+        return out[:rows]
+    return np.empty((rows, B), np.int32)
+
+
+def batch_to_blob(batch: EventBatch,
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Pack a host batch into the wire blob ([rows, B] int32) in the
+    smallest layout its content allows, in one pass of the native host
+    library (`native.pack_blob`). A well-formed batch — anything the packer
+    produces — round-trips exactly.
+
+    `out` is an optional preallocated [WIRE_ROWS, B] int32 buffer (the
+    engine passes a pinned staging buffer): the blob is written in place
+    into its first `rows` rows and that contiguous view is returned."""
+    from sitewhere_tpu_torch import native
+
+    B = batch.device_idx.shape[-1]
+    rows, ts_base = wire_variant_for(batch)
+    blob = _blob_buffer(out, rows, B)
+    if not native.pack_blob(batch, blob, ts_base=ts_base):
+        _check_device_range(np.asarray(batch.device_idx, np.int32))
+        raise RuntimeError("the native pack refused a batch whose device "
+                           "indices are in range")
+    return blob
+
+
+def batch_to_blob_plain(batch: EventBatch,
+                        out: Optional[np.ndarray] = None) -> np.ndarray:
+    """The plain numpy version of batch_to_blob (about ten passes over
+    the columns): the same blob, byte for byte, and the same error."""
+    B = batch.device_idx.shape[-1]
+    rows, ts_base = wire_variant_for(batch)
+    dev = np.asarray(batch.device_idx, np.int32)
+    _check_device_range(dev)
     et = np.asarray(batch.event_type, np.int32) & 7
     is_loc = et == _ET_LOCATION
     is_alert = et == _ET_ALERT
-    if out is not None and out.shape[-1] == B and out.ndim == 2 \
-            and out.shape[0] >= rows:
-        blob = out[:rows]
-    else:
-        blob = np.empty((rows, B), np.int32)
+    blob = _blob_buffer(out, rows, B)
     valid = np.asarray(batch.valid)
     blob[0] = (dev
                | (et << _ET_SHIFT)
@@ -221,6 +255,26 @@ def blob_to_batch(blob: torch.Tensor) -> EventBatch:
                    else zf),
         alert_type_idx=torch.where(is_alert, pb, 0),
         **common)
+
+
+def blob_to_batch_np(blob: np.ndarray) -> EventBatch:
+    """Host inverse of batch_to_blob in one native pass: a [rows, n] wire
+    blob -> an EventBatch of CPU tensors (tenant_idx zero, as the wire does
+    not carry it). The plain version is `blob_to_batch` on a CPU tensor."""
+    from sitewhere_tpu_torch import native
+
+    blob = np.asarray(blob, np.int32)
+    n = blob.shape[-1]
+    cols = {name: np.empty(n, np.int32) for name in (
+        "device_idx", "event_type", "ts", "mm_idx", "alert_type_idx",
+        "alert_level")}
+    cols.update({name: np.empty(n, np.float32) for name in (
+        "value", "lat", "lon", "elevation")})
+    cols["valid"] = np.empty(n, np.uint8)
+    native.unpack_blob(blob, cols)
+    cols["valid"] = cols["valid"].view(bool)
+    return EventBatch(tenant_idx=torch.zeros(n, dtype=torch.int32),
+                      **{k: torch.from_numpy(v) for k, v in cols.items()})
 
 
 class EventPacker:

@@ -3,9 +3,11 @@ registry.
 
 Counterpart of `sitewhere_tpu/registry/tensors.py`. Validation inside the
 fused step is a gather + compare against these columns instead of a
-per-event registry lookup. The control-plane store (`DeviceManagement`) is
-not part of this slice, so the mirror takes rows directly:
-`mirror_devices` in bulk and `mirror_zone` per zone. Each device row
+per-event registry lookup. The mirror is fed two ways: `attach` mirrors a
+tenant's control-plane store (`registry/store.py` DeviceManagement) and
+follows its mutations through a listener, as the reference does; and rows
+can be written directly, `mirror_devices` in bulk and `mirror_zone` per
+zone (the full-size worlds of chip_smoke.py and the tests). Each device row
 remembers the token it was written for, so `rebuild` can move the rows to
 the device interner's indices after a checkpoint restore replaced them.
 
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -101,6 +103,97 @@ class RegistryTensors:
 
         self._version = 0
         self._lock = threading.Lock()
+        # attached control-plane stores by tenant token, and device entity
+        # id -> row, to retire a renamed token's row
+        self._managements: Dict[str, object] = {}
+        self._idx_by_device_id: Dict[str, int] = {}
+
+    # -- attached stores ------------------------------------------------------
+
+    def attach(self, management, tenant_token: str) -> None:
+        """Mirror a tenant's DeviceManagement and follow its mutations."""
+        tenant_idx = self.tenants.intern(tenant_token)
+        self._managements[tenant_token] = management
+        management.add_listener(
+            lambda kind, entity: self._on_change(management, tenant_idx,
+                                                 kind, entity))
+        self._full_rebuild(management, tenant_idx)
+
+    def _on_change(self, management, tenant_idx: int, kind: str,
+                   entity) -> None:
+        if kind in ("device", "assignment"):
+            with self._lock:
+                if kind == "assignment":
+                    device = management.devices.get(entity.device_id)
+                else:
+                    device = (entity if entity.id in management.devices.by_id
+                              else None)
+                    if device is None:  # deleted device
+                        idx = self.devices.lookup(entity.token)
+                        if idx:
+                            self._assignment_status[idx] = 0
+                        self._idx_by_device_id.pop(entity.id, None)
+                        self._version += 1
+                        return
+                if device is not None:
+                    self._mirror_device(management, tenant_idx, device)
+                self._version += 1
+        elif kind == "zone":
+            with self._lock:
+                self._mirror_zone(tenant_idx, entity,
+                                  active=entity.id in management.zones.by_id)
+                self._version += 1
+
+    def _mirror_device(self, management, tenant_idx: int, device) -> None:
+        idx = self.devices.intern(device.token)
+        self._row_token[idx] = device.token
+        prior = self._idx_by_device_id.get(device.id)
+        if prior is not None and prior != idx:
+            # token renamed: the retired token's row must stop validating
+            self._assignment_status[prior] = 0
+            self._assignment_idx[prior] = 0
+        self._idx_by_device_id[device.id] = idx
+        assignment = management.get_active_assignment(device.id)
+        if assignment is None:
+            self._assignment_status[idx] = 0
+            self._tenant_idx[idx] = tenant_idx
+            self._assignment_idx[idx] = 0
+            return
+        self._assignment_status[idx] = int(assignment.status)
+        self._tenant_idx[idx] = tenant_idx
+        area = management.areas.get(assignment.area_id)
+        self._area_idx[idx] = self.areas.intern(area.token) if area else 0
+        dtype = management.device_types.get(device.device_type_id)
+        self._device_type_idx[idx] = (
+            self.device_types.intern(dtype.token) if dtype else 0)
+        self._assignment_idx[idx] = self.assignments.intern(assignment.token)
+
+    def _mirror_zone(self, tenant_idx: int, zone, active: bool = True) -> None:
+        zidx = self.zones_interner.intern(zone.token) - 1  # row 0 = zone idx 1
+        if not (0 <= zidx < self.max_zones):
+            return
+        verts = [(b.latitude, b.longitude) for b in zone.bounds]
+        n = min(len(verts), self.max_zone_vertices)
+        self._zone_active[zidx] = active and n >= 3
+        self._zone_nvert[zidx] = n
+        self._zone_tenant[zidx] = tenant_idx
+        if verts:
+            arr = np.asarray(verts[:n], np.float32)
+            self._zone_vertices[zidx, :n] = arr
+            self._zone_vertices[zidx, n:] = arr[-1]
+        management = self._managements.get(
+            self.tenants.token_of(tenant_idx) or "")
+        if management is not None:
+            area = management.areas.get(zone.area_id)
+            self._zone_area[zidx] = self.areas.intern(area.token) if area else 0
+
+    def _full_rebuild(self, management, tenant_idx: int) -> None:
+        with self._lock:
+            for device in management.devices.all():
+                self._mirror_device(management, tenant_idx, device)
+            for zone in management.zones.all():
+                self._mirror_zone(tenant_idx, zone)
+            self._version += 1
 
     # -- mirroring ------------------------------------------------------------
 
@@ -170,6 +263,15 @@ class RegistryTensors:
 
     # -- reads ----------------------------------------------------------------
 
+    def tenant_of_device(self, token: str) -> Optional[str]:
+        """Tenant token owning a device token (host-side reverse lookup)."""
+        idx = self.devices.lookup(token)
+        if idx <= 0:
+            return None
+        with self._lock:
+            tenant_idx = int(self._tenant_idx[idx])
+        return self.tenants.token_of(tenant_idx)
+
     @property
     def version(self) -> int:
         return self._version
@@ -228,4 +330,8 @@ class RegistryTensors:
             tokens = self._row_token[old]
             self._row_token[:] = None
             self._row_token[new] = tokens
+            self._idx_by_device_id.clear()
             self._version += 1
+        # attached stores re-mirror as the reference's rebuild does
+        for tenant_token, management in self._managements.items():
+            self._full_rebuild(management, self.tenants.intern(tenant_token))
