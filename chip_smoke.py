@@ -70,7 +70,33 @@ Phases (any failure prints its error and exits non-zero, with no result):
      `InboundProcessingService`, persistence triggers and
      `PayloadEnrichment`) on the card against the same drill on the CPU.
      Per-delivery host ms of its parts and events/s from bytes to
-     persisted rows are printed.
+     persisted rows are printed;
+  9. the read side of the event log at full size (the JAX package's query
+     and serving fixtures, bench.py `_build_query_10m`, `_build_serving`):
+     a ColumnarEventLog of phase 3's batches, each chunk shifted one minute
+     forward and sealed, until it holds READ_ROWS rows (77 chunks, a
+     [131072, 128] grid). The path, with the segment-sum kernel's count
+     set to 0 before and read after: (b) `measurement_windows` with the
+     histogram on a card engine and a CPU engine: keys, tokens, every
+     grid's bits and the histogram equal; the host split of the query.
+     (c) the serving tier (QueryExecutor, QueryPlanner, WindowGridCache):
+     cold, warm and a one-segment delta query, each held against the
+     monolithic query under the reference's tolerance, then READ_CLIENTS
+     synchronous clients, each sending at least READ_MIN_QUERIES queries,
+     against a writer sealing a chunk every READ_WRITER_PERIOD_S: query
+     p50/p99 with their sample counts, queries/s over the wall from the
+     first send to the last completion, cache hits, sheds, no torn read,
+     spot results equal to a cold query at their watermark. Then (a) the
+     device ops at that query's own inputs on the card against the CPU
+     (every cell's bits), timed with CUDA events beside the bound of their
+     bytes, the segment-sum kernel against its plain version, then the
+     adversarial fixture with a hot cell of HOT_ROWS rows. (d) a fresh
+     phase 3 engine captures and steps beside querying clients: alerts and
+     state equal, one capture, its graph pool unchanged, its wall beside
+     its wall alone. (e) bus replay on the card equals the CPU and the
+     per-record loop. (f) a wide-row tenant's query on the card equals the
+     CPU. Last, hourly windows over CHATTY_DEVICES chatty devices (thousands
+     of rows a cell), card equal to CPU.
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -83,6 +109,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -123,6 +150,32 @@ INGEST_UNKNOWN = 0.001
 INGEST_CONTROL = 4
 INGEST_PACK_REPS = 20
 OBJECT_DEVICES = 64
+# phase 9: the read side at the JAX package's serving and query fixtures
+# (bench.py _build_query_10m, _build_serving): a log of at least READ_ROWS
+# rows in one-minute chunks sealed one segment each; the served range spans
+# READ_WINDOWS minutes (the log's and the chunks a writer seals after it);
+# the executor, cache and client counts of the serving tier; the bus
+# replay's records and devices; the adversarial fixture's rows and hot cell;
+# the chatty tenant: CHATTY_DEVICES devices over CHATTY_CHUNKS chunks of
+# phase 3's batches spread over one hour, queried in hourly windows
+# (thousands of rows per cell)
+READ_TENANT = "tenant-1"
+READ_ROWS = 10_000_000
+READ_SEGMENT_ROWS = 65536
+READ_WINDOW_MS = 60_000
+READ_WINDOWS = 128
+READ_WORKERS, READ_DEPTH = 8, 512
+READ_CACHE_BYTES = 64 << 20
+# 64 clients at >= 3 queries each took 91 s on the H100 at ~2.9 queries/s
+# served (PERF.md): cut, so that phase 9 stays near its time
+READ_CLIENTS = (1, 16)
+READ_MIN_QUERIES = 3          # each client's least number of queries
+READ_WRITER_PERIOD_S = 0.5
+READ_BESIDE_CLIENTS, READ_BESIDE_STEPS = 16, 6
+REPLAY_RECORDS, REPLAY_DEVICES = 24_000, 64
+ADVERSARIAL_ROWS, ADVERSARIAL_KEYS, HOT_ROWS = 1_000_000, 1024, 100_000
+CHATTY_TENANT, CHATTY_DEVICES, CHATTY_CHUNKS = "tenant-chatty", 256, 12
+HOUR_MS = 3_600_000
 H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
 H100_HBM_BYTES_S = 3.35e12    # NVIDIA H100 SXM data sheet, HBM3
 # phase 2's worlds of B=BATCH points: (name, seed, Z, V, zone radius)
@@ -240,6 +293,54 @@ def synthetic_batch(packer, n_registered, batch, seed,
     return packer.pack_columns(*cols, mm_idx=mm, **kw)
 
 
+def _f32(bits):
+    return np.array([bits], np.uint32).view(np.float32)[0]
+
+
+# values that hit every special case of the window ops: signed zeros, quiet
+# and signalling NaNs of both signs, infinities, near-overflow, denormals,
+# the smallest normals (whose sums cancel into denormals) and tiny normals
+WINDOW_SPECIALS = np.array(
+    [0.0, -0.0, np.nan, np.inf, -np.inf, 3e38, -3e38, 1e-40, -1e-40,
+     1.2e-38, -1.19e-38, 1e-30, 5e-39]
+    + [_f32(b) for b in (0x00800001, 0x80800001, 0x7FC00001, 0xFFC00002,
+                         0x7F800001, 0xFF800003, 0x00000001)], np.float32)
+
+
+def adversarial_window_rows(seed, n, num_keys, n_windows, window_ms,
+                            hot_rows=0):
+    """(keys int32, ts_rel int64, value f32, valid bool) for the window ops:
+    a quarter of the values from WINDOW_SPECIALS, keys and buckets reaching
+    below 0 and past the grid, ~5% invalid rows, window 0 of keys 0-3 made
+    only of near-FLT_MIN normals of both signs (partial sums that cancel
+    into denormals), and `hot_rows` rows of one key in window 1, spread
+    through the rows."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-2, num_keys + 2, n).astype(np.int32)
+    ts = rng.integers(-2 * window_ms, (n_windows + 2) * window_ms, n)
+    value = np.where(rng.random(n) < 0.25, rng.choice(WINDOW_SPECIALS, n),
+                     rng.normal(0, 10, n)).astype(np.float32)
+    valid = rng.random(n) > 0.05
+    ts[(keys >= 0) & (keys < 4) & (ts // window_ms == 0)] += 2 * window_ms
+    near = rng.random(n) < 0.05
+    keys[near] = rng.integers(0, min(num_keys, 4), int(near.sum()))
+    ts[near] = 0
+    value[near] = (rng.choice([-1.0, 1.0], int(near.sum()))
+                   * rng.uniform(1.0, 1.3, int(near.sum())) * 1.1754944e-38)
+    if hot_rows:
+        # the hot cell holds only the hot rows (finite values), so its sum
+        # is a long row-order fold, not a NaN
+        hot_key = num_keys // 2
+        ts[(keys == hot_key) & (ts // window_ms == 1)] += window_ms
+        hot = np.sort(rng.choice(n + hot_rows, hot_rows, replace=False))
+        keys = np.insert(keys, hot - np.arange(hot_rows), hot_key)
+        ts = np.insert(ts, hot - np.arange(hot_rows), window_ms + 1)
+        value = np.insert(value, hot - np.arange(hot_rows),
+                          rng.uniform(0, 100, hot_rows).astype(np.float32))
+        valid = np.insert(valid, hot - np.arange(hot_rows), True)
+    return keys, ts.astype(np.int64), value, valid
+
+
 # -- measurement helpers --------------------------------------------------------
 
 def log(msg):
@@ -322,7 +423,7 @@ def phase_card():
     card = card_line()
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | device {name} x{torch.cuda.device_count()}")
-    sources = ["geofence"]
+    sources = ["geofence", "segsum"]
     fresh = [s for s in sources if not cuda_build.library_path(s).exists()]
     t0 = time.perf_counter()
     cuda_build.build(sources)
@@ -2034,6 +2135,780 @@ def phase_ingest(dev, card, main_ref):
     return readings, launches
 
 
+# -- phase 9: the read side of the event log -------------------------------------
+
+def read_side_packer(epoch):
+    """Phase 3's packer without its engine: the same device interner
+    (dev-1.. dev-N at indices 1..N, as the registry mirror interns them),
+    the same epoch, m1 at measurement slot 1."""
+    from sitewhere_tpu_torch.ops.pack import EventPacker
+    from sitewhere_tpu_torch.registry.interning import TokenInterner
+
+    interner = TokenInterner(MAX_DEVICES, "devices")
+    for i in range(1, N_REGISTERED + 1):
+        interner.intern(f"dev-{i}")
+    packer = EventPacker(BATCH, interner, epoch_base_ms=epoch)
+    packer.measurements.intern("m1")
+    return packer
+
+
+class ReadLog:
+    """The log of phase 9: phase 3's batches, chunk i shifted i minutes
+    forward (modulo READ_WINDOWS: later chunks land in earlier windows, as
+    late data does) and sealed as one segment; `cum[i]` is the measurement
+    rows of chunks 0..i-1 (every chunk's rows are valid and in the served
+    range)."""
+
+    def __init__(self, batches, packer):
+        from sitewhere_tpu_torch.persist.eventlog import ColumnarEventLog
+
+        self.batches, self.packer = batches, packer
+        self.log = ColumnarEventLog(segment_rows=READ_SEGMENT_ROWS)
+        self.rows = 0
+        self.cum = [0]
+        self.devices = np.zeros(MAX_DEVICES + 1, bool)  # with measurements
+        self.lock = threading.Lock()
+
+    def chunk(self, i):
+        b = self.batches[i % len(self.batches)]
+        return dataclasses.replace(
+            b, ts=b.ts + (i % READ_WINDOWS) * READ_WINDOW_MS)
+
+    def seal_next(self):
+        """Append and seal the next chunk; returns its index."""
+        with self.lock:
+            i = len(self.cum) - 1
+            batch = self.chunk(i)
+            self.rows += self.log.append_batch(READ_TENANT, batch,
+                                               self.packer)
+            self.log.flush_tenant(READ_TENANT)
+            is_meas = ((batch.event_type == 0) & batch.valid).numpy()
+            self.devices[batch.device_idx.numpy()[is_meas]] = True
+            self.cum.append(self.cum[-1] + int(is_meas.sum()))
+            return i
+
+    def segments(self):
+        return self.log.tenant(READ_TENANT).sealed_snapshot()[1]
+
+
+def _f32_bits(a):
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def stats_mismatches(a, b):
+    """Cells whose bits differ, per grid, between two WindowedStats."""
+    return {f: int((_f32_bits(getattr(a, f).cpu())
+                    != _f32_bits(getattr(b, f).cpu())).sum())
+            for f in ("count", "sum", "mean", "min", "max")}
+
+
+def assert_reports_bits_equal(got, ref, what):
+    """Keys, tokens, every grid as bit patterns and the histogram."""
+    if (got.t0_ms, got.n_windows) != (ref.t0_ms, ref.n_windows) or \
+            not np.array_equal(np.asarray(got.key_ids, object),
+                               np.asarray(ref.key_ids, object)) or \
+            got.key_tokens != ref.key_tokens:
+        raise AssertionError(f"{what}: keys, tokens or geometry differ")
+    bad = stats_mismatches(got.stats, ref.stats)
+    if any(bad.values()):
+        raise AssertionError(f"{what}: grids differ {bad}")
+    if (got.type_counts is None) != (ref.type_counts is None) or (
+            got.type_counts is not None and
+            not np.array_equal(got.type_counts, ref.type_counts)):
+        raise AssertionError(f"{what}: histograms differ")
+
+
+def assert_matches_oracle(got, ref, what):
+    """tests/test_serving.py's `_assert_matches_oracle` (rtol=1e-6,
+    atol=1e-6 per cell; the cache merges partial sums), by token; returns
+    the sum cells whose bits differ and their largest difference in ulps."""
+    if (got.t0_ms, got.window_ms, got.n_windows) != \
+            (ref.t0_ms, ref.window_ms, ref.n_windows):
+        raise AssertionError(f"{what}: geometry differs")
+    gt, rt = (np.asarray(r.key_tokens, object) for r in (got, ref))
+    g, r = np.argsort(gt, kind="stable"), np.argsort(rt, kind="stable")
+    if not np.array_equal(gt[g], rt[r]):
+        raise AssertionError(f"{what}: key tokens differ")
+    n = got.n_windows
+    for f in ("count", "sum", "mean", "min", "max"):
+        a = getattr(got.stats, f).numpy()[g, :n]
+        b = getattr(ref.stats, f).numpy()[r, :n]
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6,
+                                   equal_nan=True, err_msg=f"{what} {f}")
+    a = got.stats.sum.numpy()[g, :n].view(np.int32).astype(np.int64)
+    b = ref.stats.sum.numpy()[r, :n].view(np.int32).astype(np.int64)
+    return int((a != b).sum()), int(np.abs(a - b).max()) if a.size else 0
+
+
+def segsum_vs_plain(dev, call, plain_reps=5, plain_warmup=3):
+    """The segment-sum kernel at the inputs the main path gave it, against
+    its plain version on the card (bit for bit), timed with CUDA events
+    beside its bound and beside `index_add_` (one PyTorch call that sums
+    the same segments, in no fixed order)."""
+    from sitewhere_tpu_torch.ops.segsum import (
+        segment_row_sum, segment_row_sum_plain)
+
+    (values, offsets), _ = call
+    got = segment_row_sum(values, offsets)
+    ref = segment_row_sum_plain(values, offsets)
+    differ = got.view(torch.int32) != ref.view(torch.int32)
+    mism = int(differ.sum())
+    err = float((got - ref)[differ].abs().max()) if mism else 0.0
+    S, n = offsets.numel() - 1, values.numel()
+    seg = torch.repeat_interleave(torch.arange(S, device=dev),
+                                  offsets[1:] - offsets[:-1], output_size=n)
+    moved = n * 4 + (S + 1) * 8 + S * 4
+    bytes_ms = moved / H100_HBM_BYTES_S * 1e3
+    ops_ms = n / H100_F32_FLOPS * 1e3
+    return {
+        "rows": n, "segments": S,
+        "longest_segment": int((offsets[1:] - offsets[:-1]).max()),
+        "mismatches": mism, "max_abs_err": err,
+        "ms": time_cuda(lambda: segment_row_sum(values, offsets)),
+        "plain_ms": time_cuda(lambda: segment_row_sum_plain(values, offsets),
+                              reps=plain_reps, warmup=plain_warmup),
+        "library_ms": time_cuda(lambda: torch.zeros(
+            S, device=dev).index_add_(0, seg, values)),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": moved}
+
+
+def window_ops_vs_plain(dev, calls, card):
+    """(a): the device ops at the monolithic query's own inputs, on the card
+    against the CPU (every cell bit-equal), timed with CUDA events beside
+    the bound of their bytes; the segment-sum kernel of the sum grid
+    against its plain version; then the adversarial fixture with a hot cell
+    of HOT_ROWS rows, where the kernel is timed again."""
+    import sitewhere_tpu_torch.analytics.windows as windows_mod
+    from sitewhere_tpu_torch.analytics.windows import (
+        event_type_histogram, windowed_stats)
+
+    out = {}
+    for name, fn, (args, kw) in (("windowed_stats", windowed_stats,
+                                  calls["windowed_stats"]),
+                                 ("event_type_histogram",
+                                  event_type_histogram,
+                                  calls["event_type_histogram"])):
+        got = fn(*args, **kw)
+        t0 = time.perf_counter()
+        ref = fn(*(a.cpu() for a in args), **{**kw, "device": "cpu"})
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        if name == "windowed_stats":
+            bad = stats_mismatches(got, ref)
+            cells = got.count.numel()
+        else:
+            bad = {"count": int((got.cpu() != ref).sum())}
+            cells = got.numel()
+        if any(bad.values()):
+            raise AssertionError(f"{name} on the card differs from the CPU "
+                                 f"at the query's shapes: {bad}")
+        rows = args[0].numel()
+        in_bytes = sum(a.element_size() for a in args) * rows
+        out_bytes = cells * (20 if name == "windowed_stats" else 4)
+        ms = time_cuda(lambda: fn(*args, **kw), reps=10, warmup=2)
+        bound_ms = (in_bytes + out_bytes) / H100_HBM_BYTES_S * 1e3
+        out[name] = {"rows": rows, "cells": cells, "ms": ms,
+                     "cpu_ms": cpu_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "bound_share": bound_ms / ms,
+                     "bytes": in_bytes + out_bytes, "library_ms": None,
+                     "mismatches": sum(bad.values())}
+    keys, ts, value, valid = adversarial_window_rows(
+        SEED + 90, ADVERSARIAL_ROWS, ADVERSARIAL_KEYS, READ_WINDOWS,
+        READ_WINDOW_MS, hot_rows=HOT_ROWS)
+    kw = dict(window_ms=READ_WINDOW_MS, num_keys=ADVERSARIAL_KEYS,
+              n_windows=READ_WINDOWS)
+    dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (keys, ts.astype(np.int32), value, valid)]
+    t0 = time.perf_counter()
+    with _Wrapped(windows_mod, ("segment_row_sum",)) as kernels:
+        got = windowed_stats(*dev_args, device=dev, **kw)
+        torch.cuda.synchronize()
+        adv_ms = (time.perf_counter() - t0) * 1e3
+        hot_call = kernels.first["segment_row_sum"]
+    ref = windowed_stats(keys, ts, value, valid, device="cpu", **kw)
+    bad = stats_mismatches(got, ref)
+    hist_kw = dict(window_ms=READ_WINDOW_MS, n_types=8,
+                   n_windows=READ_WINDOWS)
+    hbad = int((event_type_histogram(dev_args[0], dev_args[1], dev_args[3],
+                                     device=dev, **hist_kw).cpu()
+                != event_type_histogram(keys, ts, valid, device="cpu",
+                                        **hist_kw)).sum())
+    hot = int(ref.count.max())
+    if any(bad.values()) or hbad or hot < HOT_ROWS:
+        raise AssertionError(f"adversarial fixture: card != CPU {bad}, "
+                             f"histogram {hbad}, hot cell {hot} rows")
+    out["segment_row_sum"] = segsum_vs_plain(dev, calls["segment_row_sum"])
+    # the plain version takes one step per row of the hot cell: timed once
+    hot_kernel = segsum_vs_plain(dev, hot_call, plain_reps=1, plain_warmup=0)
+    if out["segment_row_sum"]["mismatches"] or hot_kernel["mismatches"]:
+        raise AssertionError(f"segment-sum kernel != its plain version: "
+                             f"{out['segment_row_sum']}, hot {hot_kernel}")
+    out["adversarial"] = {"rows": len(keys), "hot_cell_rows": hot,
+                          "nan_sums": int(torch.isnan(ref.sum).sum()),
+                          "card_ms_host_clock": adv_ms,
+                          "segment_row_sum": hot_kernel,
+                          "mismatches": 0}
+    log(f"[read] (a) device ops on the card == the CPU, every cell's bits "
+        f"(sum and mean by the row-order fold: route 'bits'): "
+        f"{json.dumps(out)} on {card}")
+    return out
+
+
+class _Wrapped:
+    """While installed, module functions (by name) record their summed host
+    seconds (`seconds`) and their first call's arguments (`first`)."""
+
+    def __init__(self, module, names):
+        self.module = module
+        self.fns = {n: getattr(module, n) for n in names}
+        self.seconds = {n: 0.0 for n in names}
+        self.first = {}
+
+    def __enter__(self):
+        for name, fn in self.fns.items():
+            def wrapper(*args, _fn=fn, _name=name, **kw):
+                self.first.setdefault(_name, (args, kw))
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+
+            setattr(self.module, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.fns.items():
+            setattr(self.module, name, fn)
+        self.first.clear()
+
+
+def monolithic_query(dev, rlog, card):
+    """(b): measurement_windows with the histogram over the whole log on a
+    card engine (2 timed runs after one) and a CPU engine; every output
+    bit-equal. Returns the card report, the ops' captured calls and the
+    readings."""
+    import sitewhere_tpu_torch.analytics.engine as engine_mod
+    import sitewhere_tpu_torch.analytics.windows as windows_mod
+    from sitewhere_tpu_torch.analytics import WindowedAnalyticsEngine
+
+    kw = dict(window_ms=READ_WINDOW_MS, with_type_histogram=True)
+    card_engine = WindowedAnalyticsEngine(rlog.log, device=dev)
+    with _Wrapped(engine_mod, ("windowed_stats", "event_type_histogram")) \
+            as ops, _Wrapped(windows_mod, ("segment_row_sum",)) as kernels:
+        card_engine.measurement_windows(READ_TENANT, **kw)
+        calls = {**ops.first, **kernels.first}
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        report = card_engine.measurement_windows(READ_TENANT, **kw)
+        runs.append({"wall_s": time.perf_counter() - t0,
+                     **{k + "_s": v for k, v in report.timings.items()}})
+    t0 = time.perf_counter()
+    ref = WindowedAnalyticsEngine(rlog.log, device="cpu") \
+        .measurement_windows(READ_TENANT, **kw)
+    cpu = {"wall_s": time.perf_counter() - t0,
+           **{k + "_s": v for k, v in ref.timings.items()}}
+    assert_reports_bits_equal(report, ref, "monolithic query card vs CPU")
+    totals = report.totals()
+    if totals["events"] != rlog.cum[-1] or \
+            report.num_keys != int(rlog.devices.sum()):
+        raise AssertionError(f"monolithic query: {totals['events']} events "
+                             f"over {report.num_keys} keys; expected "
+                             f"{rlog.cum[-1]} over {int(rlog.devices.sum())}")
+    readings = {"rows": rlog.rows, "measurements": rlog.cum[-1],
+                "keys": report.num_keys, "K": report.stats.num_keys,
+                "W": report.stats.num_windows,
+                "n_windows": report.n_windows, "card_runs": runs,
+                "cpu_run": cpu,
+                "hist_rows": int(report.type_counts.sum())}
+    log(f"[read] (b) monolithic query, card == CPU (keys, tokens, every "
+        f"grid's bits, histogram): {json.dumps(readings)} on {card}")
+    return report, calls, readings
+
+
+class _SnapshotView:
+    """A tenant log frozen at a watermark: the first `w` sealed segments,
+    and the tail a reader saw (or none)."""
+
+    def __init__(self, epoch, segments, pending):
+        self.snap = (epoch, segments, pending)
+
+    def sealed_snapshot(self):
+        return self.snap
+
+
+def run_clients(ex, query, n_clients, min_queries, rlog=None, queries=None,
+                hold=None):
+    """`n_clients` synchronous clients sending `query` (client c sends
+    queries[c % len(queries)] when given) until every client has finished
+    `min_queries` queries (and `hold` is set, when given), while a writer
+    seals a chunk every READ_WRITER_PERIOD_S when `rlog` is given. Queries
+    in flight when the last client reaches its count finish and count.
+    Returns per-client samples (latency, route, cache hit, watermark,
+    measurements), sheds, the chunks sealed, client 0's last result, and
+    the wall from the first send to the last completion."""
+    from sitewhere_tpu_torch.serving.executor import QueryShedError
+
+    stop = threading.Event()
+    errors, sheds, sealed = [], [0], []
+    samples = [[] for _ in range(n_clients)]
+    keep = {}
+    short = [n_clients]
+    lock = threading.Lock()
+    ends = []
+
+    def client(c):
+        q = queries[c % len(queries)] if queries else query
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    out = ex.query(q, timeout=600.0)
+                except QueryShedError:
+                    sheds[0] += 1
+                    continue
+                done = time.perf_counter()
+                info = out["info"]
+                total = int(out["report"].stats.count.sum())
+                samples[c].append((done - t0, out["span"]["route"],
+                                   bool(info.get("cache_hit")),
+                                   info.get("watermark"), total))
+                if c == 0 and rlog is not None:
+                    keep["last"] = (info["watermark"], total, out["report"])
+                out = None
+                with lock:
+                    ends.append(done)
+                    if len(samples[c]) == min_queries:
+                        short[0] -= 1
+                        if short[0] == 0:
+                            everyone.set()
+        except Exception as exc:
+            errors.append(exc)
+            everyone.set()
+
+    def writer():
+        try:
+            while not stop.wait(READ_WRITER_PERIOD_S):
+                sealed.append(rlog.seal_next())
+        except Exception as exc:
+            errors.append(exc)
+            everyone.set()
+
+    everyone = threading.Event()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(n_clients)]
+    if rlog is not None:
+        threads.append(threading.Thread(target=writer, daemon=True))
+    t_first = time.perf_counter()
+    for t in threads:
+        t.start()
+    everyone.wait(900.0)
+    if hold is not None:
+        hold.wait(600.0)
+    stop.set()
+    for t in threads:
+        t.join(900.0)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a serving client or the writer did not stop")
+    if errors:
+        raise errors[0]
+    if not everyone.is_set():
+        raise AssertionError(f"{n_clients} clients: {short[0]} did not "
+                             f"finish {min_queries} queries")
+    return samples, sheds[0], sealed, keep, max(ends) - t_first
+
+
+def check_no_tears(rlog, samples):
+    """Per client: watermarks never go down, and every result holds whole
+    chunks: the measurements of its first `w` sealed chunks, or of those
+    and the chunk a writer had appended but not yet sealed."""
+    for obs in samples:
+        marks = [s[3] for s in obs]
+        if marks != sorted(marks):
+            raise AssertionError("a client's watermark went down")
+        for *_, w, total in obs:
+            if total not in (rlog.cum[w], rlog.cum[min(w + 1,
+                                                        len(rlog.cum) - 1)]):
+                raise AssertionError(f"torn read: {total} measurements at "
+                                     f"watermark {w}")
+
+
+def serving_tier(dev, rlog, card):
+    """(c): the executor, planner and cache over the log: cold, warm and a
+    one-segment delta, each against the monolithic engine under the
+    reference's tolerance; then READ_CLIENTS clients against a sealing
+    writer, with spot checks of results against a cold query at their
+    watermark."""
+    from sitewhere_tpu_torch.analytics import WindowedAnalyticsEngine
+    from sitewhere_tpu_torch.serving import (
+        QueryExecutor, QueryPlanner, WindowGridCache, WindowQuery)
+    from sitewhere_tpu_torch.serving import wincache
+
+    epoch = rlog.packer.epoch_base_ms
+    lo, hi = epoch, epoch + READ_WINDOWS * READ_WINDOW_MS - 1
+    query = WindowQuery(tenant=READ_TENANT, window_ms=READ_WINDOW_MS,
+                        start_ms=lo, end_ms=hi)
+    planner = QueryPlanner(rlog.log)
+    cache = WindowGridCache(max_bytes=READ_CACHE_BYTES)
+    engine = WindowedAnalyticsEngine(rlog.log, planner=planner, device=dev)
+    ex = QueryExecutor(engine, planner, cache, workers=READ_WORKERS,
+                       queue_depth_budget=READ_DEPTH)
+    readings = {}
+
+    def mono():
+        return engine.measurement_windows(
+            READ_TENANT, window_ms=READ_WINDOW_MS, start_ms=lo, end_ms=hi)
+
+    try:
+        oracle = mono()
+        for step in ("cold", "warm", "delta"):
+            if step == "cold":
+                cache.invalidate()
+            if step == "delta":
+                rlog.seal_next()
+                oracle = mono()
+            with _Wrapped(wincache, ("_gather", "_fold_rows", "_merge",
+                                     "_finalize")) as parts:
+                t0 = time.perf_counter()
+                out = ex.query(query)
+                wall = time.perf_counter() - t0
+            bits, ulps = assert_matches_oracle(out["report"], oracle,
+                                               f"{step} query")
+            readings[step] = {"wall_s": wall, "route": out["span"]["route"],
+                              "parts_s": parts.seconds,
+                              "sum_cells_not_bit_equal": bits,
+                              "sum_max_ulps": ulps, **out["info"]}
+        if (readings["cold"]["cache_hit"], readings["warm"]["cache_hit"],
+                readings["delta"]["cache_hit"]) != (False, True, True) or \
+                readings["delta"]["delta_segments"] != 1 or \
+                readings["delta"]["delta_rows"] != \
+                rlog.cum[-1] - rlog.cum[-2]:
+            raise AssertionError(f"cache steps: {readings}")
+        log(f"[read] (c) serving, each == the monolithic query (rtol=1e-6, "
+            f"atol=1e-6): {json.dumps(readings)} on {card}")
+
+        load = {}
+        spot = []
+        for n_clients in READ_CLIENTS:
+            shed0 = ex.shed_counter.value
+            samples, sheds, sealed, keep, wall = run_clients(
+                ex, query, n_clients, READ_MIN_QUERIES, rlog=rlog)
+            check_no_tears(rlog, samples)
+            lat = [s[0] for obs in samples for s in obs]
+            load[n_clients] = {
+                "queries": len(lat),
+                "least_per_client": min(len(obs) for obs in samples),
+                "wall_s": wall, "qps": len(lat) / wall,
+                "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                "p99_of_samples": len(lat),
+                "cache_hit_pct": 100.0 * sum(s[2] for obs in samples
+                                             for s in obs) / len(lat),
+                "sheds": sheds, "shed_counter": ex.shed_counter.value - shed0,
+                "chunks_sealed": len(sealed)}
+            log(f"[read] (c) {n_clients} clients: "
+                f"{json.dumps(load[n_clients])} on {card}")
+            spot.append(keep["last"])
+        segments = rlog.segments()
+        for w, total, report in spot:
+            pending = segments[w] if total != rlog.cum[w] else None
+            cold = WindowGridCache().query(
+                _SnapshotView(0, segments[:w], pending), tenant=READ_TENANT,
+                flt=query.filter(), window_ms=READ_WINDOW_MS, start_ms=lo,
+                end_ms=hi, max_windows=query.max_windows, device=dev)[0]
+            assert_matches_oracle(report, cold, f"result at watermark {w}")
+        log(f"[read] (c) clients against a writer sealing a chunk every "
+            f"{READ_WRITER_PERIOD_S} s, each client at least "
+            f"{READ_MIN_QUERIES} queries, qps over the wall from the first "
+            f"send to the last completion: no torn read, watermarks "
+            f"monotonic, {len(spot)} spot results == a cold query at their "
+            f"watermark: {json.dumps(load)} on {card}")
+        readings["clients"] = load
+        readings["cache"] = ex.report()["cache"]
+        return ex, query, readings
+    except Exception:
+        ex.stop()
+        raise
+
+
+def reads_beside_the_step(dev, ex, query, main_ref, card):
+    """(d): while READ_BESIDE_CLIENTS clients query (half the dashboard
+    query, half an open-range query that runs the device ops on the card),
+    a fresh phase 3 engine runs phase 3's first READ_BESIDE_STEPS batches:
+    its first steps capture its graph. Its alerts equal phase 3's, its
+    canonical state that of phase 3's world run alone on the same batches;
+    one capture, B1 once per step, and its graph's pool as large as the
+    alone engine's."""
+    from sitewhere_tpu_torch.runtime import hbmledger
+    from sitewhere_tpu_torch.serving import WindowQuery
+
+    batches = main_ref["batches"][:READ_BESIDE_STEPS]
+    alone = build_world(dev, "auto", main_ref["epoch_base_ms"])
+    t0 = time.perf_counter()
+    run_trace(alone, batches)
+    alone_wall_s = time.perf_counter() - t0
+    pool_alone = hbmledger.table_bytes(alone)["step_graphs"]
+    state_alone = alone.canonical_state()
+    del alone
+    open_range = WindowQuery(tenant=READ_TENANT, window_ms=READ_WINDOW_MS)
+    box, done = {}, threading.Event()
+
+    def step_side():
+        try:
+            engine = build_world(dev, "auto", main_ref["epoch_base_ms"])
+            reset_launch_counts(engine)
+            t0 = time.perf_counter()
+            _, alerts = run_trace(engine, batches)
+            box.update(engine=engine, alerts=alerts,
+                       wall_s=time.perf_counter() - t0,
+                       launches=launch_counts(engine)["points_in_zones"])
+        except Exception as exc:
+            box["error"] = exc
+        finally:
+            done.set()
+
+    # the world build takes seconds: the clients are querying by the time
+    # the engine's first steps run and capture
+    stepper = threading.Thread(target=step_side, daemon=True)
+    ex_queries0 = ex.report()["queries"]
+    stepper.start()
+    samples, sheds, _, _, _ = run_clients(
+        ex, query, READ_BESIDE_CLIENTS, 1, queries=[query, open_range],
+        hold=done)
+    stepper.join(600.0)
+    if "error" in box:
+        raise box["error"]
+    if stepper.is_alive() or "engine" not in box:
+        raise AssertionError("the stepping engine did not finish")
+    engine = box["engine"]
+    if box["alerts"] != main_ref["alerts"][:len(batches)]:
+        raise AssertionError("alerts differ from phase 3's beside reads")
+    assert_tree_bits_equal(state_alone, engine.canonical_state(),
+                           "state beside reads")
+    pool = hbmledger.table_bytes(engine)["step_graphs"]
+    readings = {
+        "graph_captures": engine.graph_captures,
+        "b1_launches": box["launches"], "steps": len(batches),
+        "step_wall_s": box["wall_s"], "step_wall_alone_s": alone_wall_s,
+        "graph_pool_bytes": pool,
+        "graph_pool_bytes_alone": pool_alone,
+        "queries_during": ex.report()["queries"] - ex_queries0,
+        "open_range_queries": sum(len(obs) for obs in samples[1::2]),
+        "sheds": sheds}
+    if engine.graph_captures != 1 or box["launches"] != len(batches) or \
+            pool != pool_alone or not readings["open_range_queries"]:
+        raise AssertionError(f"reads beside the step: {readings}")
+    log(f"[read] (d) a fresh engine captured and stepped beside "
+        f"{READ_BESIDE_CLIENTS} querying clients: alerts and state == "
+        f"phase 3's: {json.dumps(readings)} on {card}")
+    return readings
+
+
+def _replay_loop_oracle(bus, naming, tenant, group_id, device):
+    """bench.py's `_replay_loop_oracle` on the port: unpack_enriched per
+    record, per-row dict interning and list appends, then the same
+    `_build_report`."""
+    from sitewhere_tpu_torch.analytics.engine import WindowedAnalyticsEngine
+    from sitewhere_tpu_torch.model.event import DeviceEventType
+    from sitewhere_tpu_torch.pipeline.enrichment import unpack_enriched
+
+    consumer = bus.consumer(naming.inbound_enriched_events(tenant), group_id)
+    consumer.seek_to_beginning()
+    key_of, keys, dates, values = {}, [], [], []
+    while True:
+        batch = consumer.poll(8192)
+        if not batch:
+            break
+        for record in batch:
+            try:
+                _, event = unpack_enriched(record.value)
+            except Exception:
+                continue
+            if event.event_type != DeviceEventType.MEASUREMENT:
+                continue
+            token = event.device_id or ""
+            keys.append(key_of.setdefault(token, len(key_of)))
+            dates.append(event.event_date)
+            values.append(getattr(event, "value", 0.0) or 0.0)
+    return WindowedAnalyticsEngine._build_report(
+        np.asarray(keys, np.int64), np.asarray(dates, np.int64),
+        np.asarray(values, np.float32), window_ms=60_000, start_ms=None,
+        end_ms=None, max_windows=4096, device=device, tokens=list(key_of))
+
+
+def bus_replay(dev, epoch, card):
+    """(e): REPLAY_RECORDS enriched measurements of REPLAY_DEVICES devices
+    on a 2-partition bus (bench.py _build_serving) replayed on the card ==
+    on the CPU, and its totals and tokens == the per-record loop's."""
+    from sitewhere_tpu_torch.analytics import BusReplayAnalytics
+    from sitewhere_tpu_torch.model.event import (
+        DeviceEventContext, DeviceMeasurement)
+    from sitewhere_tpu_torch.pipeline.enrichment import pack_enriched
+    from sitewhere_tpu_torch.runtime.bus import EventBus, TopicNaming
+
+    bus, naming = EventBus(partitions=2), TopicNaming()
+    topic = naming.inbound_enriched_events(READ_TENANT)
+    values = np.random.default_rng(77).uniform(0, 100, REPLAY_RECORDS)
+    context = DeviceEventContext(device_id="d", device_token="d",
+                                 tenant_id=READ_TENANT)
+    for i in range(REPLAY_RECORDS):
+        token = f"dev-{i % REPLAY_DEVICES}"
+        bus.publish(topic, token.encode(), pack_enriched(
+            context, DeviceMeasurement(name="m1", value=float(values[i]),
+                                       device_id=token, event_date=epoch + i)))
+    replay = BusReplayAnalytics(bus, naming, device=dev)
+    replay.replay_measurements(READ_TENANT, group_id="warm")
+    t0 = time.perf_counter()
+    got = replay.replay_measurements(READ_TENANT, group_id="card")
+    card_s = time.perf_counter() - t0
+    ref = BusReplayAnalytics(bus, naming, device="cpu").replay_measurements(
+        READ_TENANT, group_id="cpu")
+    assert_reports_bits_equal(got, ref, "bus replay card vs CPU")
+    t0 = time.perf_counter()
+    oracle = _replay_loop_oracle(bus, naming, READ_TENANT, "oracle", dev)
+    loop_s = time.perf_counter() - t0
+    if got.totals() != oracle.totals() or \
+            got.key_tokens != oracle.key_tokens or \
+            got.totals()["events"] != REPLAY_RECORDS:
+        raise AssertionError("bus replay differs from the per-record loop")
+    readings = {"records": REPLAY_RECORDS, "keys": got.num_keys,
+                "replay_s": card_s, "events_per_s": REPLAY_RECORDS / card_s,
+                "loop_oracle_s": loop_s,
+                "loop_events_per_s": REPLAY_RECORDS / loop_s}
+    log(f"[read] (e) bus replay on the card == on the CPU, totals and tokens "
+        f"== the per-record loop: {json.dumps(readings)} on {card}")
+    return readings
+
+
+def widerow_query(dev, rlog, card):
+    """(f): a tenant on WideRowEventStore (sqlite in a temp directory): one
+    batch through append_batch, then measurement_windows on the card ==
+    on the CPU."""
+    import os
+
+    from sitewhere_tpu_torch.analytics import WindowedAnalyticsEngine
+    from sitewhere_tpu_torch.persist.widerow import WideRowEventStore
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = WideRowEventStore(db_path=os.path.join(tmp, "events.db"))
+        try:
+            t0 = time.perf_counter()
+            n = store.append_batch(READ_TENANT, rlog.chunk(0), rlog.packer)
+            append_s = time.perf_counter() - t0
+            kw = dict(window_ms=READ_WINDOW_MS, with_type_histogram=True)
+            WindowedAnalyticsEngine(store, device=dev).measurement_windows(
+                READ_TENANT, **kw)
+            t0 = time.perf_counter()
+            got = WindowedAnalyticsEngine(store, device=dev) \
+                .measurement_windows(READ_TENANT, **kw)
+            query_s = time.perf_counter() - t0
+            ref = WindowedAnalyticsEngine(store, device="cpu") \
+                .measurement_windows(READ_TENANT, **kw)
+        finally:
+            store.stop()
+    assert_reports_bits_equal(got, ref, "wide-row query card vs CPU")
+    if n != BATCH or got.totals()["events"] != rlog.cum[1]:
+        raise AssertionError(f"wide-row store: {n} rows appended, "
+                             f"{got.totals()['events']} measurements read")
+    readings = {"rows": n, "append_s": append_s, "query_s": query_s,
+                "keys": got.num_keys, **{k + "_s": v for k, v in
+                                         got.timings.items()}}
+    log(f"[read] (f) wide-row tenant, card == CPU: {json.dumps(readings)} "
+        f"on {card}")
+    return readings
+
+
+def chatty_query(dev, rlog, card):
+    """An hourly dashboard over chatty devices: CHATTY_CHUNKS of phase 3's
+    batches, each chunk's device indices folded onto 1..CHATTY_DEVICES and
+    the chunks spread over one hour, queried in hourly windows, so that a
+    cell holds thousands of rows. measurement_windows on the card == on
+    the CPU (every grid's bits); walls and the longest cell."""
+    from sitewhere_tpu_torch.analytics import WindowedAnalyticsEngine
+    from sitewhere_tpu_torch.persist.eventlog import ColumnarEventLog
+
+    chatty = ColumnarEventLog(segment_rows=READ_SEGMENT_ROWS)
+    for i in range(CHATTY_CHUNKS):
+        b = rlog.batches[i % len(rlog.batches)]
+        chatty.append_batch(CHATTY_TENANT, dataclasses.replace(
+            b, device_idx=torch.where(
+                b.device_idx > 0, (b.device_idx - 1) % CHATTY_DEVICES + 1,
+                b.device_idx),
+            ts=b.ts + i * (HOUR_MS // CHATTY_CHUNKS)), rlog.packer)
+        chatty.flush_tenant(CHATTY_TENANT)
+    kw = dict(window_ms=HOUR_MS, with_type_histogram=True)
+    engine = WindowedAnalyticsEngine(chatty, device=dev)
+    engine.measurement_windows(CHATTY_TENANT, **kw)
+    t0 = time.perf_counter()
+    got = engine.measurement_windows(CHATTY_TENANT, **kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = WindowedAnalyticsEngine(chatty, device="cpu").measurement_windows(
+        CHATTY_TENANT, **kw)
+    cpu_s = time.perf_counter() - t0
+    assert_reports_bits_equal(got, ref, "hourly chatty query card vs CPU")
+    longest = int(got.stats.count.max())
+    if got.num_keys != CHATTY_DEVICES or got.n_windows != 1:
+        raise AssertionError(f"chatty query: {got.num_keys} keys, longest "
+                             f"cell {longest} rows")
+    readings = {"measurements": got.totals()["events"],
+                "keys": got.num_keys, "n_windows": got.n_windows,
+                "longest_cell_rows": longest, "card_wall_s": card_s,
+                "cpu_wall_s": cpu_s,
+                **{k + "_s": v for k, v in got.timings.items()}}
+    log(f"[read] hourly windows over {CHATTY_DEVICES} chatty devices, card "
+        f"== CPU: {json.dumps(readings)} on {card}")
+    return readings
+
+
+def phase_read_side(dev, card, main_ref):
+    """The read side at full size. Its main path is the monolithic query
+    (b) and the serving tier (c), driven with the segment-sum kernel's
+    count set to 0 just before and read just after; then the device ops
+    and the kernel against their plain versions (a), reads beside a
+    capturing engine (d), the bus replay (e), a wide-row tenant (f) and an
+    hourly query over chatty devices."""
+    from sitewhere_tpu_torch.ops.segsum import segment_row_sum
+
+    t_phase = time.perf_counter()
+    rlog = ReadLog(main_ref["batches"],
+                   read_side_packer(main_ref["epoch_base_ms"]))
+    while rlog.rows < READ_ROWS:
+        rlog.seal_next()
+    cols = rlog.log.query_columns(READ_TENANT, _event_filter(),
+                                  ["device_idx", "device_token"])
+    if any(t != f"dev-{i}" for i, t in zip(cols["device_idx"][:1000],
+                                          cols["device_token"][:1000])):
+        raise AssertionError("the log's tokens are not phase 3's")
+    log(f"[read] log: {len(rlog.cum) - 1} chunks sealed, {rlog.rows} rows, "
+        f"{rlog.cum[-1]} measurements, in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    readings = {}
+    segment_row_sum.launches = 0
+    _, calls, readings["monolithic"] = monolithic_query(dev, rlog, card)
+    ex, query, readings["serving"] = serving_tier(dev, rlog, card)
+    readings["segment_row_sum_launches"] = segment_row_sum.launches
+    if not segment_row_sum.launches:
+        ex.stop()
+        raise AssertionError("the read side's main path never launched the "
+                             "segment-sum kernel")
+    try:
+        readings["ops"] = window_ops_vs_plain(dev, calls, card)
+        readings["beside_step"] = reads_beside_the_step(dev, ex, query,
+                                                        main_ref, card)
+    finally:
+        ex.stop()
+    readings["bus_replay"] = bus_replay(dev, main_ref["epoch_base_ms"], card)
+    readings["widerow"] = widerow_query(dev, rlog, card)
+    readings["chatty"] = chatty_query(dev, rlog, card)
+    readings["phase_s"] = time.perf_counter() - t_phase
+    log(f"[read] phase took {readings['phase_s']:.1f} s")
+    return readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
@@ -2058,6 +2933,7 @@ def main() -> int:
         _, durable_launches = phase_durable(dev, card, main_ref,
                                             stateful_ref)
         _, ingest_launches = phase_ingest(dev, card, main_ref)
+        read = phase_read_side(dev, card, main_ref)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2085,6 +2961,21 @@ def main() -> int:
         "library_ms": None,
         "shapes": shapes,
     }]
+    segsum = read["ops"]["segment_row_sum"]
+    kernels.append({
+        "name": "segment_row_sum",
+        "route": "cuda",
+        "source": "sitewhere_tpu_torch/csrc/segsum.cu",
+        "replaces": "sitewhere_tpu/analytics/windows.py:63",
+        "launches": read["segment_row_sum_launches"],
+        **{k: segsum[k] for k in ("mismatches", "max_abs_err", "ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "rows", "segments",
+                                  "longest_segment")},
+        "hot_cell": {k: read["ops"]["adversarial"]["segment_row_sum"][k]
+                     for k in ("ms", "plain_ms", "bound_ms",
+                               "longest_segment")},
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ card can never silently measure the CPU instead. Tests pass "cpu".
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+import threading
+from typing import Iterator, Union
 
 import torch
 
@@ -24,3 +26,26 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             f"device {str(device)!r} requested but no CUDA device is "
             f"available; pass device='cpu' explicitly to run on the CPU")
     return dev
+
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def own_stream(device: torch.device) -> Iterator[None]:
+    """Run the enclosed work on the calling thread's own CUDA stream of
+    `device` (made at first use; a no-op off the card). PyTorch's streams do
+    not synchronise with the legacy default stream, so work and waits in
+    here (a query's copies and syncs) neither wait for nor hold up the work
+    other threads queue on their streams, the engine's step included."""
+    if device.type != "cuda":
+        yield
+        return
+    streams = _local.__dict__.setdefault("streams", {})
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = streams.get(index)
+    if stream is None:
+        stream = streams[index] = torch.cuda.Stream(index)
+    with torch.cuda.stream(stream):
+        yield

@@ -60,7 +60,15 @@ def test_importing_every_module_loads_no_jax():
             "persist.worker", "persist.event_management",
             "persist.datastore", "registry.store", "pipeline.inbound",
             "pipeline.enrichment", "model.common", "model.device",
-            "model.area", "model.asset", "model.batch", "model.schedule")}
+            "model.area", "model.asset", "model.batch", "model.schedule")} | {
+        # the read side of the event log
+        f"sitewhere_tpu_torch.{m}" for m in (
+            "persist.widerow", "ops.segsum", "analytics",
+            "analytics.windows",
+            "analytics.engine", "analytics.receiver", "serving",
+            "serving.planner", "serving.wincache", "serving.executor",
+            "streams", "streams.manager", "search", "search.providers",
+            "search.external")}
     assert runtime <= set(info["modules"]) <= set(info["loaded"]) | \
         set(info["preloaded"])
     assert not [m for m in info["preloaded"] if _forbidden(m)]
