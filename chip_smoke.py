@@ -27,11 +27,19 @@ Phases (any failure prints its error and exits non-zero, with no result):
      width 8, 8 actuation policies, a 64-slot command lane), rule programs
      that run every ProgramOp, MLP and autoencoder models and two
      actuation policies, under traffic whose measurements spread over m1
-     and m2; B1 launches counted, CUDA-event spans of the stateful stages
-     and a profile. The first STATEFUL_CPU_STEPS batches then run through
-     the same engine built on the CPU: alerts, command fires, every state
-     group (f32 as bit patterns) and every counter must be identical, the
-     per-row anomaly scores within rtol=1e-4, atol=1e-5;
+     and m2; both kernels' launches counted (B1 and the rule-program
+     kernel once per step, counted per replay, one capture), CUDA-event
+     spans of the stateful stages and a profile. The first
+     STATEFUL_CPU_STEPS batches then run through the same engine built on
+     the CPU: alerts, command fires, every state group (f32 as bit
+     patterns) and every counter must be identical, the per-row anomaly
+     scores within rtol=1e-4, atol=1e-5. Then the rule-program kernel
+     (csrc/rule_programs.cu) against its plain version on the card: a
+     fresh engine over the same steps beside an eager twin that runs the
+     plain version (every slab lane, counter and program output, each
+     step), the adversarial RULE_WORLDS, and the kernel alone at the last
+     step's rows, timed beside its plain version and the bound of the
+     attach rows' bytes;
   6. the host runtime: the pipelined feeder against serial submission on
      both worlds, a seeded h2d/dispatch/lane-fetch fault drill, the flight
      rollups and the device-memory ledger;
@@ -90,7 +98,9 @@ Phases (any failure prints its error and exits non-zero, with no result):
      device ops at that query's own inputs on the card against the CPU
      (every cell's bits), timed with CUDA events beside the bound of their
      bytes, the segment-sum kernel against its plain version, then the
-     adversarial fixture with a hot cell of HOT_ROWS rows. (d) a fresh
+     adversarial fixture with a hot cell of HOT_ROWS rows, where the
+     kernel's time stands beside the floor of its chain of dependent adds
+     (rows x FADD_LATENCY_CYCLES at the card's highest SM clock). (d) a fresh
      phase 3 engine captures and steps beside querying clients: alerts and
      state equal, one capture, its graph pool unchanged, its wall beside
      its wall alone. (e) bus replay on the card equals the CPU and the
@@ -177,6 +187,13 @@ ADVERSARIAL_ROWS, ADVERSARIAL_KEYS, HOT_ROWS = 1_000_000, 1024, 100_000
 CHATTY_TENANT, CHATTY_DEVICES, CHATTY_CHUNKS = "tenant-chatty", 256, 12
 HOUR_MS = 3_600_000
 H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
+# the latency of one dependent f32 add on the H100's SMs, in SM clock cycles
+# (the floor of a bit-equal row-order fold: one add after the other)
+FADD_LATENCY_CYCLES = 4
+# operations one node of a rule program takes on one (row, program): loads
+# of its table fields and row values, the compare or combinator, the state
+# read and write (a count for the bound, not a measurement)
+RULE_NODE_OPS = 10
 H100_HBM_BYTES_S = 3.35e12    # NVIDIA H100 SXM data sheet, HBM3
 # phase 2's worlds of B=BATCH points: (name, seed, Z, V, zone radius)
 KERNEL_WORLDS = [
@@ -341,6 +358,164 @@ def adversarial_window_rows(seed, n, num_keys, n_windows, window_ms,
     return keys, ts.astype(np.int64), value, valid
 
 
+_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+# f32 bit patterns of the rule worlds' value, aux and constant draws: signed
+# zeros, NaNs with payloads and signs, infinities, denormals, the smallest
+# normals, and values near the programs' thresholds
+RULE_SPECIALS = np.array(
+    [0.0, -0.0, np.nan, np.inf, -np.inf, 1e-45, -1e-45, 3e-39, -5e-39,
+     1.1754944e-38, -1.1754944e-38, 3e38, -3e38, 50.0, 50.000004, 49.999996,
+     1000.0, -1000.0]
+    + [_f32(b) for b in (0x7FC00001, 0xFFC00002, 0x7F800001, 0x00800001)],
+    np.float32)
+# the rule-program worlds of phase 5 and tests/test_torch_rule_kernel.py:
+# (name, seed, B rows, D devices, P programs, N nodes, S slots, M slots,
+#  node_limit, one attach row with a device index >= D)
+RULE_WORLDS = [
+    ("mixed", 7, 512, 96, 32, 16, 8, 8, 0, False),
+    ("p256", 8, 256, 48, 256, 12, 8, 6, 0, True),
+    ("n40", 9, 384, 80, 32, 40, 8, 8, 0, False),
+    ("n40_limit23", 10, 384, 80, 32, 40, 8, 8, 23, True),
+    ("n80_wide_bits", 11, 256, 64, 8, 80, 4, 8, 0, False),
+    ("odd_p7_s3", 12, 200, 40, 7, 12, 3, 5, 0, True),
+    ("records_in_global", 13, 96, 12, 256, 6, 64, 4, 0, False),
+]
+RULE_WORLD_STEPS = 3
+
+
+def _rule_floats(rng, shape, special=0.35, scale=100.0):
+    vals = rng.uniform(-scale, scale, shape).astype(np.float32)
+    pick = rng.random(shape) < special
+    vals[pick] = rng.choice(RULE_SPECIALS, int(pick.sum()))
+    return vals
+
+
+def adversarial_rule_world(seed, B, D, P, N, S, M, node_limit=0,
+                           attach_over_d=False, steps=RULE_WORLD_STEPS):
+    """A seeded rule-program world for `eval_rule_programs`, as numpy: the
+    program table (every opcode, unknown opcodes and compare ops,
+    out-of-range mm/lhs/rhs/root slots that clamp, children at lower and
+    higher slots, NaN/inf/-0.0/denormal constants and alphas, iparams at
+    the int32 ends and at the debounce cap), the state (value and aux bits
+    from RULE_SPECIALS, ts at NEG, NEG+1 and INT32_MAX, counters at 0, 1,
+    2^30 - 1, 2^30, INT32_MAX and INT32_MIN, flags not 0/1, generations
+    that lag, match or lead the epochs, counters whose generation moved)
+    and `steps` batches of device-sorted rows (device indices >= D that
+    read row D-1, one attach row per ticking device, timestamps near NEG
+    that wrap, NaN/denormal measurements). Between steps some programs'
+    epochs move. With `attach_over_d`, one row of a device index >= D is an
+    attach row (and device D-1 has none), so it ticks without writing."""
+    rng = np.random.default_rng(seed)
+    L = 4 * S + 2
+    ops = np.arange(-1, 12)          # -1, 0 (NOP), 1..9, 10, 11 unknown
+    weights = np.array([1, 3] + [6] * 9 + [1, 1], float)
+    opcode = rng.choice(ops, (P, N), p=weights / weights.sum())
+    lhs = np.empty((P, N), np.int64)
+    rhs = np.empty((P, N), np.int64)
+    for j in range(N):
+        lo = rng.integers(0, max(j, 1), (P, 2))
+        wild = rng.integers(-2, N + 3, (P, 2))
+        pick = rng.random((P, 2)) < 0.15
+        both = np.where(pick, wild, lo)
+        lhs[:, j], rhs[:, j] = both[:, 0], both[:, 1]
+    iparam_pool = np.array([-3, 0, 1, 2, 3, 5, 40, 500, 2 ** 30 - 1,
+                            2 ** 30, _I32_MAX, _I32_MIN], np.int64)
+    n_eff = min(N, node_limit) if node_limit else N
+    table = {
+        "active": rng.random(P) < 0.9,
+        "tenant_idx": rng.choice([0, 0, 1, 2], P).astype(np.int32),
+        "device_type_idx": rng.choice([0, 0, 0, 1, 2], P).astype(np.int32),
+        "alert_level": rng.integers(-3, 16, P).astype(np.int32),
+        "alert_type_idx": rng.integers(0, 9, P).astype(np.int32),
+        "root": np.where(rng.random(P) < 0.8, rng.integers(
+            max(n_eff - 4, 0), n_eff, P), rng.integers(-1, N + 2, P))
+        .astype(np.int32),
+        "epoch": rng.integers(1, 6, P).astype(np.int32),
+        "opcode": opcode.astype(np.int32),
+        "mm_idx": np.where(rng.random((P, N)) < 0.1,
+                           rng.integers(-2, M + 3, (P, N)),
+                           rng.integers(0, M, (P, N))).astype(np.int32),
+        "lhs": lhs.astype(np.int32), "rhs": rhs.astype(np.int32),
+        "cmp_op": rng.integers(0, 8, (P, N)).astype(np.int32),
+        "fconst": _rule_floats(rng, (P, N)),
+        "falpha": np.where(rng.random((P, N)) < 0.7,
+                           rng.choice(np.array([0.3, 0.7, 0.05, 1.0, 0.0],
+                                               np.float32), (P, N)),
+                           _rule_floats(rng, (P, N), 0.6, 1.0))
+        .astype(np.float32),
+        "iparam": np.where(rng.random((P, N)) < 0.5,
+                           rng.choice(iparam_pool, (P, N)),
+                           rng.integers(-2, 6, (P, N))).astype(np.int32),
+        "state_slot": rng.integers(0, S, (P, N)).astype(np.int32),
+    }
+    slab = np.empty((D, P, L), np.int32)
+    slab[:, :, 0:2 * S] = _rule_floats(rng, (D, P, 2 * S), 0.5).view(np.int32)
+    ts_pool = np.array([_I32_MIN, _I32_MIN + 1, _I32_MIN + 7, _I32_MAX,
+                        _I32_MAX - 3, -5, 0, 990, 1000, 1010], np.int64)
+    slab[:, :, 2 * S:3 * S] = rng.choice(ts_pool, (D, P, S))
+    ctr_pool = np.array([0, 0, 1, 2, 3, 2 ** 30 - 1, 2 ** 30, _I32_MAX,
+                         _I32_MIN, -1], np.int64)
+    slab[:, :, 3 * S:4 * S] = rng.choice(ctr_pool, (D, P, S))
+    slab[:, :, 4 * S] = rng.choice([0, 1, 1, 7, -1], (D, P))
+    slab[:, :, 4 * S + 1] = table["epoch"][None, :] + rng.choice(
+        [0, 0, 0, -1, 1, 100], (D, P))
+    state = {"slab": slab,
+             "gen": table["epoch"] + rng.choice([0, 0, 1], P).astype(
+                 np.int32),
+             "fire_count": rng.integers(0, 50, P).astype(np.int32),
+             "suppress_count": rng.integers(0, 50, P).astype(np.int32)}
+
+    batches = []
+    for step in range(steps):
+        devs, counts = [], []
+        while sum(counts) < B:
+            devs.append(int(rng.integers(0, D + 6)))
+            counts.append(int(rng.integers(1, 5)))
+        devs = np.asarray(devs)
+        order = np.argsort(devs, kind="stable")
+        dev = np.repeat(devs[order], np.asarray(counts)[order])[:B]
+        attach = np.zeros(B, bool)
+        uniq = np.unique(dev[dev < D])
+        last = {d: np.nonzero(dev == d)[0][-1] for d in uniq}
+        for d, row in last.items():
+            attach[row] = rng.random() < 0.75
+        if attach_over_d and (dev >= D).any():
+            attach[dev == D - 1] = False
+            attach[np.nonzero(dev >= D)[0][0]] = True
+        base = int(rng.choice([1000, _I32_MIN + 20, _I32_MAX - 20]))
+        now_d = (base + rng.integers(-15, 15, D + 6)).astype(np.int64)
+        now_d[rng.random(D + 6) < 0.1] = _I32_MIN
+        now_row = ((now_d[dev] + 2 ** 31) % 2 ** 32 - 2 ** 31)
+        lmts = now_row[:, None] + rng.integers(-30, 30, (B, M))
+        lmts[rng.random((B, M)) < 0.2] = _I32_MIN
+        lmts = (lmts + 2 ** 31) % 2 ** 32 - 2 ** 31
+        batches.append({
+            "dev": dev.astype(np.int32), "attach": attach,
+            "obs_row": rng.random((B, M)) < 0.6,
+            "now_row": now_row.astype(np.int32),
+            "lm_row": _rule_floats(rng, (B, M)),
+            "lmts_row": lmts.astype(np.int32),
+            "tenant_row": rng.integers(0, 3, B).astype(np.int32),
+            "dtype_row": rng.integers(0, 3, B).astype(np.int32),
+            "epoch": (table["epoch"] + step * (rng.random(P) < 0.2))
+            .astype(np.int32)})
+    return {"table": table, "state": state, "batches": batches,
+            "node_limit": node_limit}
+
+
+def rule_world_tensors(world, device, table_cls, state_cls):
+    """A world's table (`table_cls`), state (`state_cls`) and batches as
+    tensors on `device`; each batch's "epoch" is the table's epoch column
+    for that step."""
+    table = table_cls(**{k: torch.from_numpy(np.array(v)).to(device)
+                         for k, v in world["table"].items()})
+    state = state_cls(**{k: torch.from_numpy(np.array(v)).to(device)
+                         for k, v in world["state"].items()})
+    batches = [{k: torch.from_numpy(np.array(v)).to(device)
+                for k, v in b.items()} for b in world["batches"]]
+    return table, state, batches
+
+
 # -- measurement helpers --------------------------------------------------------
 
 def log(msg):
@@ -353,6 +528,15 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz():
+    """The card's highest SM clock in MHz (`nvidia-smi` clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return int(out.stdout.strip().splitlines()[0])
 
 
 def time_cuda(fn, reps=TIMED_REPS, warmup=3):
@@ -423,7 +607,7 @@ def phase_card():
     card = card_line()
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | device {name} x{torch.cuda.device_count()}")
-    sources = ["geofence", "segsum"]
+    sources = ["geofence", "segsum", "rule_programs"]
     fresh = [s for s in sources if not cuda_build.library_path(s).exists()]
     t0 = time.perf_counter()
     cuda_build.build(sources)
@@ -969,14 +1153,53 @@ def stateful_snapshot(engine):
                          engine.actuation_policy_counters())}
 
 
-def run_stateful_trace(engine, batches, n_check):
+class PlainRuleTwin(EagerTwin):
+    """The engine's step run eagerly on copies of its groups (EagerTwin),
+    with the rule-program stage's plain torch version in place of its
+    kernel: after each engine step, `check` holds the engine's rule state
+    (every slab lane, the generation, both counters) and the step's program
+    outputs to the twin's, bit for bit. The twin's own geofence launches
+    are not the main path's: `check` leaves every launch count as it found
+    it."""
+
+    def check(self, engine, batch, out):
+        import sitewhere_tpu_torch.pipeline.step as step_mod
+        from sitewhere_tpu_torch.ops.stateful import eval_rule_programs_plain
+        from sitewhere_tpu_torch.pipeline.graph import STEP_KERNELS
+
+        counts = {n: w.launches for n, w in STEP_KERNELS.items()}
+        kernel = step_mod.eval_rule_programs
+        step_mod.eval_rule_programs = eval_rule_programs_plain
+        try:
+            ref = self.step(batch)
+        finally:
+            step_mod.eval_rule_programs = kernel
+            for n, w in STEP_KERNELS.items():
+                w.launches = counts[n]
+        bad = {name: int((_bits(getattr(ref, name))
+                          != _bits(getattr(out, name))).sum())
+               for name in ("program_fired", "program_first_rule",
+                            "program_alert_level")}
+        mine, theirs = self.groups[1], engine._rule_state
+        for name in ("slab", "gen", "fire_count", "suppress_count"):
+            bad[name] = int((getattr(mine, name)
+                             != getattr(theirs, name)).sum())
+        fired = int(ref.program_fired.sum())
+        return bad, fired
+
+
+def run_stateful_trace(engine, batches, n_check, rule_twin=None):
     """submit + materialize_alerts + take_command_fires over `batches`.
     Returns per-step walls and materialized-alert counts, then for the
     first `n_check` steps the alert keys, command fires and per-row anomaly
     scores, the snapshot after step `n_check`, and the per-family
     fired-row counts of all steps (on the device, summed after each step's
-    wall)."""
+    wall). With `rule_twin` (a PlainRuleTwin of the engine as it was before
+    the first batch), each step is then held against the twin outside its
+    wall, the card idle again before the next step; the mismatches per
+    step come last."""
     walls, counts, alerts, fires, scores, snap = [], [], [], [], [], None
+    checks = []
     families = torch.zeros(4, dtype=torch.int64, device=engine.device)
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
@@ -984,6 +1207,9 @@ def run_stateful_trace(engine, batches, n_check):
         got = engine.materialize_alerts(batch, out)
         fired = engine.take_command_fires()
         walls.append(time.perf_counter() - t0)
+        if rule_twin is not None:
+            checks.append(rule_twin.check(engine, batch, out))
+            torch.cuda.synchronize()
         counts.append(len(got))
         families += torch.stack([out.threshold_fired.sum(),
                                  out.geofence_fired.sum(),
@@ -996,7 +1222,7 @@ def run_stateful_trace(engine, batches, n_check):
         if i + 1 == n_check:
             snap = stateful_snapshot(engine)
     return (walls, counts, alerts, fires, scores, snap,
-            families.cpu().tolist())
+            families.cpu().tolist(), checks)
 
 
 def compare_snapshots(card, cpu):
@@ -1075,6 +1301,136 @@ def stateful_spans(engine, batch, card, reps=10):
     return spans
 
 
+def rule_step_rows(engine, batch):
+    """The rule-program stage's inputs at one step of `engine` on `batch`
+    (its current params and device state), as the step computes them:
+    (table, row keywords with now_row, node_limit)."""
+    from sitewhere_tpu_torch.ops.pack import batch_to_blob, blob_to_batch
+    from sitewhere_tpu_torch.pipeline.step import (
+        fold_device_state, stateful_rows, validate_batch)
+
+    params, state = engine._ensure_params(), engine.state
+    blob = torch.from_numpy(batch_to_blob(batch)).to(engine.device)
+    b, _, _ = validate_batch(params, blob_to_batch(blob), state.num_devices)
+    rows, now_row, _ = stateful_rows(params, fold_device_state(state, b), b)
+    return (params.programs, dict(rows, now_row=now_row),
+            engine._step_flags["program_node_limit"])
+
+
+def rule_bound_ms(table, rows, node_limit, S):
+    """(bound_ms, bound_by, bytes, operations, attach rows): the least time
+    of the rule-program pass on these rows. Bytes: every row's attach flag
+    (1 B) and outputs (9 B); each attach row's device index, newest ts,
+    tenant and type (16 B), its P records read and written once
+    (2 * P * (4S+2) * 4 B) and, for each measurement slot the table's
+    VALUE/EWMA/RATE nodes read, its value, ts and observed flag (9 B); the
+    table once. Operations: RULE_NODE_OPS for each (attach row, program,
+    node slot in use), at the f32 peak."""
+    B = rows["dev"].shape[0]
+    P, N = table.num_programs, table.num_nodes
+    n_eff = min(N, node_limit) if node_limit else N
+    attach = int(rows["attach"].sum())
+    ops = table.opcode[:, :n_eff]
+    reads_m = (ops >= 1) & (ops <= 3)
+    m_used = int(torch.unique(table.mm_idx[:, :n_eff][reads_m]).numel())
+    moved = (B * 10 + attach * (16 + 2 * P * (4 * S + 2) * 4 + m_used * 9)
+             + P * n_eff * 9 * 4 + P * 6 * 4)
+    operations = RULE_NODE_OPS * attach * P * n_eff
+    bytes_ms = moved / H100_HBM_BYTES_S * 1e3
+    ops_ms = operations / H100_F32_FLOPS * 1e3
+    if ops_ms > bytes_ms:
+        return ops_ms, "operations", moved, operations, attach
+    return bytes_ms, "bytes", moved, operations, attach
+
+
+def rule_worlds_on_the_card(dev):
+    """The kernel against the plain version on the card on RULE_WORLDS
+    (RULE_WORLD_STEPS steps each): mismatching elements per world over
+    every slab lane, the generation, both counters and the row outputs."""
+    from sitewhere_tpu_torch.ops.stateful import (
+        RuleStateTensors, eval_rule_programs, eval_rule_programs_plain)
+    from sitewhere_tpu_torch.rules.compiler import RuleProgramTable
+
+    out = {}
+    for name, seed, B, D, P, N, S, M, limit, over in RULE_WORLDS:
+        world = adversarial_rule_world(seed, B, D, P, N, S, M,
+                                       node_limit=limit, attach_over_d=over)
+        runs = []
+        for fn in (eval_rule_programs, eval_rule_programs_plain):
+            table, state, steps = rule_world_tensors(
+                world, dev, RuleProgramTable, RuleStateTensors)
+            trace = []
+            for rows in steps:
+                rows = dict(rows)
+                table = dataclasses.replace(table, epoch=rows.pop("epoch"))
+                state, res = fn(table, state, node_limit=limit, **rows)
+                trace.append([_bits(state.slab).clone(), state.gen,
+                              state.fire_count, state.suppress_count,
+                              res["fired"], res["first_rule"],
+                              res["alert_level"]])
+            runs.append(trace)
+        out[name] = sum(int((a != b).sum())
+                        for ka, kb in zip(*runs) for a, b in zip(ka, kb))
+    return out
+
+
+def rule_kernel_vs_plain(dev, engine, batches, card):
+    """The rule-program kernel on the card: (i) a fresh engine over phase
+    5's batches beside a PlainRuleTwin, every step's rule state and
+    program outputs bit-equal; (ii) the adversarial RULE_WORLDS, kernel
+    against plain; (iii) the kernel alone at the last batch's rows of the
+    timed engine, timed between CUDA events (a call, and queued), beside
+    its plain version and the bound of these rows' attach records."""
+    from sitewhere_tpu_torch.ops import cuda_build
+    from sitewhere_tpu_torch.ops.stateful import (
+        eval_rule_programs, eval_rule_programs_plain, rule_programs_plan)
+    from sitewhere_tpu_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    checked = build_stateful_world(dev, engine.packer.epoch_base_ms)
+    twin = PlainRuleTwin(checked)
+    reset_launch_counts(checked)
+    checks = run_stateful_trace(checked, batches, 0, rule_twin=twin)[-1]
+    step_bad = {k: sum(c[0][k] for c in checks) for k in checks[0][0]}
+    fired = sum(c[1] for c in checks)
+    path = launch_counts(checked)["eval_rule_programs"]
+    del twin, checked
+    worlds = rule_worlds_on_the_card(dev)
+    mismatches = sum(step_bad.values()) + sum(worlds.values())
+    if mismatches or not fired or path != len(batches):
+        raise AssertionError(f"rule-program kernel != its plain version: "
+                             f"per field over {len(batches)} steps "
+                             f"{step_bad} (program fires {fired}, launches "
+                             f"{path}); worlds {worlds}")
+
+    table, rows, limit = rule_step_rows(engine, batches[-1])
+    S = engine._rule_state.num_state_slots
+    rs = tree_map(torch.clone, engine._rule_state)
+    call = lambda fn: fn(table, rs, node_limit=limit, **rows)  # noqa: E731
+    bound_ms, bound_by, moved, operations, attach = rule_bound_ms(
+        table, rows, limit, S)
+    B, P = rows["dev"].shape[0], table.num_programs
+    n_eff = min(table.num_nodes, limit) if limit else table.num_nodes
+    res = {
+        "rows": B, "attach_rows": attach, "programs": P, "nodes": n_eff,
+        "state_slots": S, "mismatches": mismatches, "max_abs_err": 0.0,
+        "steps_checked": len(batches), "program_fires_checked": fired,
+        "step_mismatches": step_bad, "world_mismatches": worlds,
+        "ms": time_cuda(lambda: call(eval_rule_programs)),
+        "queued_ms": time_cuda_queued(lambda: call(eval_rule_programs)),
+        "plain_ms": time_cuda(lambda: call(eval_rule_programs_plain),
+                              reps=5),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+        "operations": operations, "library_ms": None,
+        "plan": rule_programs_plan(B, P, n_eff, S, dev.index or 0),
+        "ptxas": [line.strip() for line in
+                  cuda_build.build_log("rule_programs").splitlines()
+                  if "registers" in line or "spill" in line],
+        "seconds": time.perf_counter() - t0}
+    log(f"[stateful] rule-program kernel: {json.dumps(res)} on {card}")
+    return res
+
+
 def phase_stateful(dev, card, main_summary):
     t_phase = time.perf_counter()
     engine = build_stateful_world(dev)
@@ -1091,14 +1447,16 @@ def phase_stateful(dev, card, main_summary):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts(engine)
-    walls, counts, alerts, fires, scores, snap, families = \
+    walls, counts, alerts, fires, scores, snap, families, _ = \
         run_stateful_trace(engine, batches, STATEFUL_CPU_STEPS)
-    launches = launch_counts(engine)["points_in_zones"]
+    path_launches = launch_counts(engine)
+    launches = path_launches["points_in_zones"]
     peak = torch.cuda.max_memory_allocated()
-    if launches != len(batches):
-        raise AssertionError(f"geofence kernel launched {launches} times "
-                             f"over {len(batches)} stateful steps; "
-                             f"expected one per step")
+    for name, n in path_launches.items():
+        if n != len(batches):
+            raise AssertionError(f"kernel {name} launched {n} times over "
+                                 f"{len(batches)} stateful steps; expected "
+                                 f"one per step")
     if engine.graph_captures != 1:
         raise AssertionError(f"{engine.graph_captures} captures of one "
                              f"static configuration")
@@ -1122,6 +1480,7 @@ def phase_stateful(dev, card, main_summary):
         "commands_debounced": engine.commands_debounced,
         "commands_dropped": engine.commands_dropped,
         "kernel_launches": launches,
+        "rule_kernel_launches": path_launches["eval_rule_programs"],
         "graph_captures": engine.graph_captures,
     }
     log(f"[stateful] {json.dumps(summary)} on {card}")
@@ -1133,7 +1492,7 @@ def phase_stateful(dev, card, main_summary):
     t_cpu = time.perf_counter()
     cpu = build_stateful_world(torch.device("cpu"),
                                engine.packer.epoch_base_ms)
-    _, _, c_alerts, c_fires, c_scores, c_snap, _ = run_stateful_trace(
+    _, _, c_alerts, c_fires, c_scores, c_snap, _, _ = run_stateful_trace(
         cpu, batches[:STATEFUL_CPU_STEPS], STATEFUL_CPU_STEPS)
     cpu_s = time.perf_counter() - t_cpu
     if c_alerts != alerts:
@@ -1154,6 +1513,7 @@ def phase_stateful(dev, card, main_summary):
         f"anomaly scores max |diff| {worst:.3g}; CPU run {cpu_s:.1f} s")
     del cpu
 
+    summary["rule_kernel"] = rule_kernel_vs_plain(dev, engine, batches, card)
     spans = stateful_spans(engine, batches[-1], card)
     prof = profile_engine(engine, batches)
     log(f"[stateful] profiler: {json.dumps(prof)} on {card}")
@@ -2256,14 +2616,21 @@ def segsum_vs_plain(dev, call, plain_reps=5, plain_warmup=3):
     mism = int(differ.sum())
     err = float((got - ref)[differ].abs().max()) if mism else 0.0
     S, n = offsets.numel() - 1, values.numel()
-    seg = torch.repeat_interleave(torch.arange(S, device=dev),
-                                  offsets[1:] - offsets[:-1], output_size=n)
-    moved = n * 4 + (S + 1) * 8 + S * 4
+    counts = (offsets[1:] - offsets[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(S, device=dev), counts,
+                                  output_size=n)
+    moved = n * 4 + (S + 1) * offsets.element_size() + S * 4
     bytes_ms = moved / H100_HBM_BYTES_S * 1e3
     ops_ms = n / H100_F32_FLOPS * 1e3
+    longest = int(counts.max())
+    clock_mhz = sm_clock_mhz()
     return {
-        "rows": n, "segments": S,
-        "longest_segment": int((offsets[1:] - offsets[:-1]).max()),
+        "rows": n, "segments": S, "offset_bytes": offsets.element_size(),
+        "longest_segment": longest,
+        # a bit-equal fold adds a segment's rows one after another
+        "chain_floor_ms": longest * FADD_LATENCY_CYCLES / clock_mhz / 1e3,
+        "chain_floor_basis": f"{longest} adds x {FADD_LATENCY_CYCLES} "
+                             f"cycles at {clock_mhz} MHz (clocks.max.sm)",
         "mismatches": mism, "max_abs_err": err,
         "ms": time_cuda(lambda: segment_row_sum(values, offsets)),
         "plain_ms": time_cuda(lambda: segment_row_sum_plain(values, offsets),
@@ -2973,8 +3340,22 @@ def main() -> int:
                                   "library_ms", "rows", "segments",
                                   "longest_segment")},
         "hot_cell": {k: read["ops"]["adversarial"]["segment_row_sum"][k]
-                     for k in ("ms", "plain_ms", "bound_ms",
+                     for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                               "chain_floor_ms", "chain_floor_basis",
                                "longest_segment")},
+    })
+    rule = stateful["rule_kernel"]
+    kernels.append({
+        "name": "eval_rule_programs",
+        "route": "cuda",
+        "source": "sitewhere_tpu_torch/csrc/rule_programs.cu",
+        "replaces": "sitewhere_tpu/ops/stateful.py:148",
+        "launches": stateful["rule_kernel_launches"],
+        **{k: rule[k] for k in ("mismatches", "max_abs_err", "ms",
+                                "queued_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "rows",
+                                "attach_rows", "programs", "nodes",
+                                "state_slots", "steps_checked")},
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -143,9 +143,10 @@ def _row_order_sums(seg: torch.Tensor, val: torch.Tensor,
     per segment): the rows sorted stably by segment, then one fold per
     segment (ops/segsum.py; the hand kernel on the card)."""
     order = torch.sort(seg, stable=True).indices
-    offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64,
-                          device=val.device)
-    torch.cumsum(counts, 0, out=offsets[1:])
+    # int32 offsets where the rows fit: half the kernel's offset bytes
+    dtype = torch.int32 if val.numel() < 2 ** 31 else torch.int64
+    offsets = torch.zeros(counts.numel() + 1, dtype=dtype, device=val.device)
+    torch.cumsum(counts, 0, dtype=dtype, out=offsets[1:])
     return segment_row_sum(val[order], offsets)
 
 

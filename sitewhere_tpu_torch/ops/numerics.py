@@ -29,6 +29,70 @@ def flush_denormals(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
 
 
+# The exact result below which XLA's CPU code flushes: FLT_MIN * (1 - 2^-25).
+# x86 detects tininess AFTER rounding (to 24 bits, exponent unbounded), so a
+# result whose exact value lies in [FLT_MIN * (1 - 2^-24), this) becomes a
+# signed zero there, though rounding it with gradual underflow gives FLT_MIN.
+TINY_AFTER_ROUNDING = FLT_MIN * (1.0 - 2.0 ** -25)
+_QUIET_BIT = 0x00400000
+
+
+def nan_first(result: torch.Tensor, *operands: torch.Tensor) -> torch.Tensor:
+    """`result`, or where an operand is NaN, the first NaN operand with its
+    quiet bit set: the NaN an x86 SSE/AVX/FMA instruction returns, and so
+    XLA's CPU code (probed: a - b, a * b, a / b and the contracted
+    a * b + c all return the first NaN operand, signalling or not). torch's
+    own ops can return another operand's NaN (its CPU subtraction returns
+    a signalling NaN operand before a quiet one; the card returns a
+    canonical NaN), so the rule-program arithmetic states the rule."""
+    out = result
+    for x in reversed(operands):
+        quiet = (x.view(torch.int32) | _QUIET_BIT).view(torch.float32)
+        out = torch.where(torch.isnan(x), quiet, out)
+    return out
+
+
+def _flush_by_exact(r: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
+    """f32 `r` as a zero of its sign where the f64 `exact` (the exact
+    result, or one no rounding can move across TINY_AFTER_ROUNDING) is
+    tiny after rounding."""
+    return torch.where(exact.abs() < TINY_AFTER_ROUNDING, r * 0.0, r)
+
+
+def _like(a: torch.Tensor, b) -> torch.Tensor:
+    """`b` as a tensor of `a`'s shape, dtype and device (a Python number
+    is filled in on the device, which a CUDA graph can capture)."""
+    return b if isinstance(b, torch.Tensor) else torch.full_like(a, b)
+
+
+def sub_f32(a: torch.Tensor, b) -> torch.Tensor:
+    """f32 a - b as XLA's CPU code computes it: operands flushed, IEEE
+    difference, denormal results flushed (an exact difference below FLT_MIN
+    is a denormal, so no rounding hides one), the first NaN operand."""
+    a, b = flush_denormals(a), flush_denormals(_like(a, b))
+    return nan_first(flush_denormals(a - b), a, b)
+
+
+def mul_f32(a: torch.Tensor, b) -> torch.Tensor:
+    """f32 a * b as XLA's CPU code computes it: operands flushed, IEEE
+    product, flushed where the exact product (exact in f64) is tiny after
+    rounding, the first NaN operand."""
+    a, b = flush_denormals(a), flush_denormals(_like(a, b))
+    r = _flush_by_exact(a * b, a.double() * b.double())
+    return nan_first(r, a, b)
+
+
+def div_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 a / b as XLA's CPU code computes it: operands flushed, IEEE
+    quotient, flushed where the quotient is tiny after rounding (decided on
+    the f64 quotient: an f32 quotient that is not a 25-bit number lies
+    further than 2^-49 of its size from every such number, beyond where f64
+    rounding could move it across the bound), the first NaN operand."""
+    a, b = flush_denormals(a), flush_denormals(b)
+    r = _flush_by_exact(a / b, a.double() / b.double())
+    return nan_first(r, a, b)
+
+
 def fma_f32(a: torch.Tensor, b: torch.Tensor,
             c: torch.Tensor) -> torch.Tensor:
     """f32 fused multiply-add: a*b + c rounded once, with the reference's
@@ -47,20 +111,25 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
     error of the f64 sum; where that error is finite and nonzero and the
     sum's last bit is even, the sum steps to its neighbour toward the error
     (round to odd). Rounding that to f32 is then the correctly rounded
-    fma, since 53 >= 2*24 + 2 bits. inf and NaN pass through unchanged.
-    This reproduced XLA's jitted `a*b + c` in 2,097,152 of 2,097,152 seeded
-    cases (wide exponents, heavy cancellation)."""
-    a, b, c = (flush_denormals(x).double() for x in (a, b, c))
-    p = a * b
-    s = p + c
+    fma, since 53 >= 2*24 + 2 bits. The result flushes where the exact sum
+    is tiny after rounding (round to odd never lands on the bound, an even
+    f64 number, so the rounded-to-odd sum decides it), and a NaN operand
+    gives the first NaN operand, quieted (`nan_first`). This reproduced
+    XLA's jitted `a*b + c` in 2,097,152 of 2,097,152 seeded cases (wide
+    exponents, heavy cancellation)."""
+    a, b, c = (flush_denormals(x) for x in (a, b, c))
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
     # TwoSum: err = (p + c) - s exactly
     bv = s - p
-    err = (p - (s - bv)) + (c - bv)
+    err = (p - (s - bv)) + (cd - bv)
     even = (s.view(torch.int64) & 1) == 0
     step = torch.isfinite(err) & (err != 0) & even
     toward = torch.where(err > 0, float("inf"), float("-inf"))
     s = torch.where(step, torch.nextafter(s, toward), s)
-    return flush_denormals(s.float())
+    r = _flush_by_exact(flush_denormals(s.float()), s)
+    return nan_first(r, a, b, c)
 
 
 # -- tanh and exp whose bits do not depend on the CPU's thread split ----------

@@ -11,9 +11,14 @@ compute exactly that, from the rows sorted stably by segment:
     writes. One step per rank: its cost grows with the longest segment.
     The CPU path and the semantics the kernel is held to.
   - `segment_row_sum`: on CUDA tensors, the hand-written kernel
-    `csrc/segsum.cu` (one thread folds one segment in order; built at first
-    use, see ops/cuda_build.py), launched once on the current stream without
-    synchronising, or raises; on CPU tensors, the plain version.
+    `csrc/segsum.cu` (a segment of up to 256 rows folded in order by one
+    thread; a longer one, in a second pass, by a warp of its own that
+    stages its rows through shared memory while one lane folds them; built
+    at first use, see ops/cuda_build.py), launched on the current stream
+    without synchronising (a 4-byte memset, then the two passes), or
+    raises; on CPU tensors, the plain version.
+
+Offsets are int32 or int64 (int32 halves their bytes where the rows fit).
 
 `segment_row_sum.launches` counts kernel launches.
 """
@@ -38,9 +43,10 @@ _TINY = 2.0 ** -102
 def segment_row_sum_plain(values: torch.Tensor,
                           offsets: torch.Tensor) -> torch.Tensor:
     """f32 [S] sums of `values` (f32 [n], flushed, sorted stably by
-    segment) over the segments `offsets` (int64 [S + 1], ascending) bound,
-    each folded in row order from +0.0; the steps that reach a segment
-    holding a tiny nonzero input flush their results."""
+    segment) over the segments `offsets` (int32 or int64 [S + 1],
+    ascending) bound, each folded in row order from +0.0; the steps that
+    reach a segment holding a tiny nonzero input flush their results."""
+    offsets = offsets.long()
     S = offsets.numel() - 1
     n = values.numel()
     acc = torch.zeros(S, dtype=torch.float32, device=values.device)
@@ -75,9 +81,12 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load(KERNEL_SOURCE)
     fn = lib.swt_segment_row_sum
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                               ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.swt_segsum_scratch_bytes.argtypes = [ctypes.c_longlong]
+        lib.swt_segsum_scratch_bytes.restype = ctypes.c_longlong
         lib.swt_segsum_error_string.argtypes = [ctypes.c_int]
         lib.swt_segsum_error_string.restype = ctypes.c_char_p
     return lib
@@ -92,9 +101,10 @@ def segment_row_sum(values: torch.Tensor,
     if values.device.type != "cuda" or offsets.device != values.device:
         raise ValueError(f"no segment-sum kernel for values on "
                          f"{values.device} and offsets on {offsets.device}")
-    if values.dtype != torch.float32 or offsets.dtype != torch.int64:
-        raise TypeError(f"values must be float32 and offsets int64, got "
-                        f"{values.dtype} and {offsets.dtype}")
+    if values.dtype != torch.float32 or offsets.dtype not in (torch.int32,
+                                                              torch.int64):
+        raise TypeError(f"values must be float32 and offsets int32 or "
+                        f"int64, got {values.dtype} and {offsets.dtype}")
     if values.dim() != 1 or offsets.dim() != 1 or offsets.numel() < 1:
         raise ValueError("values must be [n] and offsets [S + 1]")
     values, offsets = values.contiguous(), offsets.contiguous()
@@ -103,9 +113,12 @@ def segment_row_sum(values: torch.Tensor,
     if S == 0:
         return out
     lib = _library()
+    n = values.numel()
+    scratch = torch.empty(lib.swt_segsum_scratch_bytes(n), dtype=torch.uint8,
+                          device=values.device)
     rc = lib.swt_segment_row_sum(
         values.data_ptr(), offsets.data_ptr(), out.data_ptr(), S,
-        values.device.index,
+        offsets.element_size(), n, scratch.data_ptr(), values.device.index,
         torch.cuda.current_stream(values.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

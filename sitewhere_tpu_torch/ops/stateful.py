@@ -31,10 +31,20 @@ zero without a sweep over the device capacity.
 Arithmetic follows the reference's compiled f32 exactly: denormal operands
 and results flush (ops/numerics.py), and the EWMA update is the fused
 multiply-add XLA contracts it into (`fma_f32`).
+
+Two implementations of the same function:
+  - `eval_rule_programs_plain`: plain torch, every opcode evaluated for
+    every node over [B, P] and selected. The CPU path, and the semantics
+    the kernel is held to;
+  - `eval_rule_programs`: on CPU tensors the plain version; on CUDA
+    tensors the hand kernel `csrc/rule_programs.cu` in one launch (a warp
+    per 32 rows, a lane per program, only attach rows read and write the
+    slab), or it raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Dict, Tuple
 
@@ -42,7 +52,9 @@ import torch
 
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.model.event import DeviceEventType
-from sitewhere_tpu_torch.ops.numerics import flush_denormals, fma_f32
+from sitewhere_tpu_torch.ops import cuda_build
+from sitewhere_tpu_torch.ops.numerics import (
+    div_f32, fma_f32, mul_f32, sub_f32)
 from sitewhere_tpu_torch.ops.segments import count_by_key, scatter_max_by_key
 from sitewhere_tpu_torch.ops.slab import _slab_f32, _slab_i32, state_slab_lanes
 from sitewhere_tpu_torch.ops.threshold import _compare
@@ -138,7 +150,7 @@ def write_attach_rows(slab: torch.Tensor, gdev: torch.Tensor,
     slab.index_put_((gdev.long(),), out)
 
 
-def eval_rule_programs(
+def eval_rule_programs_plain(
         table: RuleProgramTable,
         state: RuleStateTensors,
         *,
@@ -229,8 +241,7 @@ def eval_rule_programs(
         out_value = known & _compare(v, cmp_op, fconst)
 
         alpha = table.falpha[None, :, j]
-        decay = flush_denormals(flush_denormals(1.0 - alpha)
-                                * flush_denormals(sv))
+        decay = mul_f32(sub_f32(torch.ones_like(alpha), alpha), sv)
         ewma = torch.where(sc > 0, fma_f32(alpha, v, decay), v)
         new_sv_ewma = torch.where(observed, ewma, sv)
         obs_inc = observed.to(i32)
@@ -238,8 +249,7 @@ def eval_rule_programs(
                                                    fconst)
 
         dt = torch.clamp(cur_ts - st, min=1).float()
-        diff = flush_denormals(flush_denormals(v) - flush_denormals(sv))
-        rate = flush_denormals(flush_denormals(diff * 1000.0) / dt)
+        rate = div_f32(mul_f32(sub_f32(v, sv), 1000.0), dt)
         upd_rate = observed & (sc > 0)
         new_sa_rate = torch.where(upd_rate, rate, sa)
         out_rate = ((sc + obs_inc) > 1) & _compare(new_sa_rate, cmp_op,
@@ -307,6 +317,212 @@ def eval_rule_programs(
         + suppressed.sum(dim=0, dtype=i32),
     )
     return new_state, first_fired(fired, table.alert_level)
+
+
+# -- the hand kernel (csrc/rule_programs.cu) -------------------------------------
+
+KERNEL_SOURCE = "rule_programs"
+
+# the table's fields and the rows' keywords, in `_RuleArgs` order, with the
+# dtype each must have
+_TABLE_FIELDS = (
+    ("active", torch.bool), ("tenant_idx", torch.int32),
+    ("device_type_idx", torch.int32), ("alert_level", torch.int32),
+    ("root", torch.int32), ("epoch", torch.int32), ("opcode", torch.int32),
+    ("mm_idx", torch.int32), ("lhs", torch.int32), ("rhs", torch.int32),
+    ("cmp_op", torch.int32), ("fconst", torch.float32),
+    ("falpha", torch.float32), ("iparam", torch.int32),
+    ("state_slot", torch.int32))
+_ROW_FIELDS = (
+    ("dev", torch.int32), ("attach", torch.bool), ("obs_row", torch.bool),
+    ("now_row", torch.int32), ("lm_row", torch.float32),
+    ("lmts_row", torch.int32), ("tenant_row", torch.int32),
+    ("dtype_row", torch.int32))
+_OUT_FIELDS = ("fired", "first_rule", "level", "fire_count",
+               "suppress_count", "scratch")
+
+
+class _RuleArgs(ctypes.Structure):
+    """`RuleArgs` of csrc/rule_programs.cu, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name, _ in _TABLE_FIELDS]
+                + [("slab", ctypes.c_void_p)]
+                + [(name, ctypes.c_void_p) for name, _ in _ROW_FIELDS]
+                + [(name, ctypes.c_void_p) for name in _OUT_FIELDS]
+                + [("B", ctypes.c_longlong)]
+                + [(name, ctypes.c_int) for name in
+                   ("D", "P", "node_stride", "N", "M", "S")]
+                + [("scratch_words", ctypes.c_longlong),
+                   ("table_words", ctypes.c_longlong)])   # set in C
+
+
+def _rule_library() -> ctypes.CDLL:
+    return bind_rule_library(cuda_build.load(KERNEL_SOURCE))
+
+
+def bind_rule_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of csrc/rule_programs.cu) with its C entries typed."""
+    if lib.swt_rule_programs.argtypes is None:
+        lib.swt_rule_programs.argtypes = [ctypes.POINTER(_RuleArgs),
+                                          ctypes.c_int, ctypes.c_void_p]
+        lib.swt_rule_programs.restype = ctypes.c_int
+        lib.swt_rule_programs_plan.argtypes = [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        lib.swt_rule_programs_plan.restype = ctypes.c_int
+        lib.swt_rule_programs_error_string.argtypes = [ctypes.c_int]
+        lib.swt_rule_programs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rule_inputs(table: RuleProgramTable, state: RuleStateTensors,
+                       rows: Dict[str, torch.Tensor]) -> None:
+    """Raise unless every tensor lies on `dev`'s device with the dtype and
+    shape the stage takes."""
+    where = rows["dev"].device
+    B = rows["dev"].shape[0]
+    P, N = table.num_programs, table.num_nodes
+    M = rows["lm_row"].shape[-1]
+    named = ([(f"table.{n}", getattr(table, n), dt, (P, N) if n in (
+        "opcode", "mm_idx", "lhs", "rhs", "cmp_op", "fconst", "falpha",
+        "iparam", "state_slot") else (P,)) for n, dt in _TABLE_FIELDS]
+        + [("state.slab", state.slab, torch.int32, None)]
+        + [(f"state.{n}", getattr(state, n), torch.int32, (P,))
+           for n in ("gen", "fire_count", "suppress_count")]
+        + [(n, rows[n], dt, (B, M) if n in ("obs_row", "lm_row", "lmts_row")
+            else (B,)) for n, dt in _ROW_FIELDS])
+    for name, t, dtype, shape in named:
+        if t.device != where:
+            raise ValueError(f"eval_rule_programs: {name} is on {t.device}, "
+                             f"dev on {where}")
+        if t.dtype != dtype:
+            raise TypeError(f"eval_rule_programs: {name} must be {dtype}, "
+                            f"got {t.dtype}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"eval_rule_programs: {name} must be {shape}, "
+                             f"got {tuple(t.shape)}")
+    slab = state.slab
+    if slab.dim() != 3 or slab.shape[1] != P or (slab.shape[2] - 2) % 4 \
+            or slab.shape[2] < 6:
+        raise ValueError(f"eval_rule_programs: state.slab must be "
+                         f"[D, {P}, 4S+2], got {tuple(slab.shape)}")
+
+
+def rule_programs_plan(B: int, P: int, N: int, S: int,
+                       device: int = 0) -> Dict[str, int]:
+    """How the kernel launches for B rows, P programs, N node slots (after
+    node_limit) and S state slots on CUDA card `device`: grid, threads per
+    block, dynamic shared bytes, blocks per SM, scratch (i32 words), and
+    where the records, the node bits and the node columns live. For
+    reports and the wrapper's scratch; launches nothing."""
+    lib = _rule_library()
+    plan = (ctypes.c_longlong * 8)()
+    rc = lib.swt_rule_programs_plan(B, P, N, S, device, plan)
+    if rc != 0:
+        raise RuntimeError(
+            f"rule-program kernel plan failed: "
+            f"{lib.swt_rule_programs_error_string(rc).decode()}")
+    out = dict(zip(("grid", "threads", "shared_bytes", "blocks_per_sm",
+                    "scratch_words"), plan[:5]))
+    out["records"] = "shared" if plan[5] else "global"
+    out["node_bits"] = "global" if plan[6] else "registers"
+    out["node_columns"] = "shared" if plan[7] else "global"
+    return out
+
+
+def _eval_rule_programs_kernel(table, state, rows, node_limit):
+    B = rows["dev"].shape[0]
+    D, P, N = state.slab.shape[0], table.num_programs, table.num_nodes
+    N = min(N, node_limit) if node_limit else N
+    S, M = state.num_state_slots, rows["lm_row"].shape[1]
+    where = rows["dev"].device
+    i32 = torch.int32
+    if not state.slab.is_contiguous():
+        raise ValueError("eval_rule_programs: state.slab must be contiguous "
+                         "(the kernel updates it in place)")
+    # per-program counters reset where their slot's epoch moved; the kernel
+    # adds this step's fires and suppressions
+    moved = state.gen != table.epoch
+    fire_count = torch.where(moved, 0, state.fire_count)
+    suppress_count = torch.where(moved, 0, state.suppress_count)
+    fired = torch.empty(B, dtype=torch.bool, device=where)
+    first = torch.empty(B, dtype=i32, device=where)
+    level = torch.empty(B, dtype=i32, device=where)
+    new_state = RuleStateTensors(slab=state.slab, gen=table.epoch.clone(),
+                                 fire_count=fire_count,
+                                 suppress_count=suppress_count)
+    outs = {"fired": fired, "first_rule": first, "alert_level": level}
+    if B == 0:
+        return new_state, outs
+    lib = _rule_library()
+    plan = rule_programs_plan(B, P, N, S, where.index)
+    scratch = (torch.empty(plan["scratch_words"], dtype=i32, device=where)
+               if plan["scratch_words"] else None)
+    keep = {n: getattr(table, n).contiguous() for n, _ in _TABLE_FIELDS}
+    keep.update({n: rows[n].contiguous() for n, _ in _ROW_FIELDS})
+    args = _RuleArgs(
+        **{n: t.data_ptr() for n, t in keep.items()},
+        slab=state.slab.data_ptr(), fired=fired.data_ptr(),
+        first_rule=first.data_ptr(), level=level.data_ptr(),
+        fire_count=fire_count.data_ptr(),
+        suppress_count=suppress_count.data_ptr(),
+        scratch=scratch.data_ptr() if scratch is not None else None,
+        B=B, D=D, P=P, node_stride=table.num_nodes, N=N, M=M, S=S,
+        scratch_words=plan["scratch_words"])
+    rc = lib.swt_rule_programs(
+        ctypes.byref(args), where.index,
+        torch.cuda.current_stream(where).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"rule-program kernel launch failed: "
+            f"{lib.swt_rule_programs_error_string(rc).decode()} "
+            f"(cudaError {rc})")
+    if torch.cuda.is_current_stream_capturing():
+        eval_rule_programs.captures += 1
+    else:
+        eval_rule_programs.launches += 1
+    return new_state, outs
+
+
+def eval_rule_programs(
+        table: RuleProgramTable,
+        state: RuleStateTensors,
+        *,
+        dev: torch.Tensor,          # i32 [B] row device index
+        attach: torch.Tensor,       # bool [B] device's last tracked row
+        obs_row: torch.Tensor,      # bool [B, M] device observed slot m
+        now_row: torch.Tensor,      # i32 [B] device's newest ts this step
+        lm_row: torch.Tensor,       # f32 [B, M] POST-fold last values
+        lmts_row: torch.Tensor,     # i32 [B, M] POST-fold last ts
+        tenant_row: torch.Tensor,   # i32 [B] registry mirror per row
+        dtype_row: torch.Tensor,    # i32 [B] registry mirror per row
+        node_limit: int = 0,        # node slots actually in use
+) -> Tuple[RuleStateTensors, Dict[str, torch.Tensor]]:
+    """One step's advance: what `eval_rule_programs_plain` computes, bit for
+    bit. On CPU tensors it IS the plain version; on CUDA tensors it launches
+    the kernel of csrc/rule_programs.cu once (built at first use, see
+    ops/cuda_build.py) on the current stream, without synchronising, beside
+    a few [P] torch ops for the counters, or raises. Every tensor must lie
+    on `dev`'s device with the stage's dtypes and shapes (else ValueError
+    or TypeError). The kernel takes rows with at most one attach row per
+    clamped device index, as `observations_of_batch` gives them.
+    `eval_rule_programs.launches` counts kernel launches; a launch recorded
+    into a CUDA graph under capture counts on `.captures` instead (each
+    replay launches it again, see pipeline/graph.py)."""
+    rows = dict(dev=dev, attach=attach, obs_row=obs_row, now_row=now_row,
+                lm_row=lm_row, lmts_row=lmts_row, tenant_row=tenant_row,
+                dtype_row=dtype_row)
+    _check_rule_inputs(table, state, rows)
+    if dev.device.type == "cpu":
+        return eval_rule_programs_plain(table, state, node_limit=node_limit,
+                                        **rows)
+    if dev.device.type != "cuda":
+        raise ValueError(f"no rule-program kernel for device {dev.device}")
+    return _eval_rule_programs_kernel(table, state, rows, node_limit)
+
+
+eval_rule_programs.launches = 0
+eval_rule_programs.captures = 0
 
 
 def first_fired(fired: torch.Tensor, alert_level: torch.Tensor,

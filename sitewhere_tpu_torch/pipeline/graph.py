@@ -39,12 +39,14 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from sitewhere_tpu_torch.ops.geofence_kernel import points_in_zones_kernel
+from sitewhere_tpu_torch.ops.stateful import eval_rule_programs
 from sitewhere_tpu_torch.pipeline.step import ProcessOutputs
 from sitewhere_tpu_torch.tree import tree_leaves
 
 # the hand-written kernels a step can launch: name -> wrapper (each counts
 # its own launches and its captures)
-STEP_KERNELS = {"points_in_zones": points_in_zones_kernel}
+STEP_KERNELS = {"points_in_zones": points_in_zones_kernel,
+                "eval_rule_programs": eval_rule_programs}
 _ALIGN = 16
 
 
