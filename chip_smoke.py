@@ -107,6 +107,26 @@ Phases (any failure prints its error and exits non-zero, with no result):
      per-record loop. (f) a wide-row tenant's query on the card equals the
      CPU. Last, hourly windows over CHATTY_DEVICES chatty devices (thousands
      of rows a cell), card equal to CPU.
+ 10. the instance behind `serve`, built by the CLI's config builder with
+     the default configuration (capacity 131072, 256 zones x 32 vertices,
+     batch 8192, 8 slots, 16 tenants) and a data dir: (a) 100,000 devices
+     registered through the tenant's DeviceManagement, 64 more and an area
+     of 256 zones, 16 threshold and 64 geofence rules, 32 rule programs, 8
+     models and 8 policies over REST, on the card instance and on a CPU
+     instance (no data dir), each with an MQTT command destination; (b)
+     INSTANCE_PAYLOADS wire payloads of phase 3's traffic published over
+     the in-process MQTT broker to an event source, back to back, the
+     inbound consumer polling all along as under `serve`: the first
+     INSTANCE_POLLED beside INSTANCE_CLIENTS REST pollers, the last ones
+     under the profiler (launch counts from 0, one capture per static
+     configuration); the CPU instance processes the card's decoded records
+     in the card's step groups and must equal it (counts, alerts, counters,
+     state and groups bit for bit; the same commands delivered, none
+     parked); (c) a checkpoint, one payload past it,
+     a restart on the data dir that restores and replays it: bit-equal, no
+     duplicate rows; (d) `check` and `serve --port 0` in subprocesses as a
+     user runs them. `python3 chip_smoke.py --instance-only` runs phase 10
+     alone (no result line).
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -1004,18 +1024,12 @@ def phase_breakdown(engine, batches, card, reps=10):
     return host_ms, spans, prof_out
 
 
-def profile_engine(engine, batches, n_prof=5):
-    """The profiler over `n_prof` engine steps (submit + materialize): the
-    device's busy time against the wall, its idle share, the device events
-    (kernels, copies, memsets) launched, and the ops that take the device
-    time, per step. Busy time sums the device events once each. The
-    profiler also books each kernel's time under the op that launched it,
-    so a sum over all events counts it twice; earlier versions of this
-    script reported that sum as busy time, and it is printed beside as
-    `all_events_sum_ms_per_step` for comparison with their records. Under
-    the captured step the launching op is the graph replay, so the device
-    kernels are also listed by their own names, and the geofence kernel's
-    device events are counted (`b1_device_events_per_step`)."""
+def device_profile(fn):
+    """Run fn() under the profiler, the card synchronized before and after:
+    (wall ms, the profiler's key averages, those of device events, device
+    busy ms, idle share). Busy time sums the device events (kernels,
+    copies, memsets) once each; without device events busy and idle are
+    "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1023,23 +1037,45 @@ def profile_engine(engine, batches, n_prof=5):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch in batches[:n_prof]:
-            engine.materialize_alerts(batch, engine.submit(batch))
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
-    engine.take_command_fires()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in on_device)
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    if not busy_ms:
+        return wall_ms, events, on_device, "not measured", "not measured"
+    return wall_ms, events, on_device, busy_ms, 1 - busy_ms / wall_ms
+
+
+def profile_engine(engine, batches, n_prof=5):
+    """The profiler over `n_prof` engine steps (submit + materialize): the
+    device's busy time against the wall, its idle share, the device events
+    (kernels, copies, memsets) launched, and the ops that take the device
+    time, per step. The profiler also books each kernel's time under the
+    op that launched it, so a sum over all events counts it twice; earlier
+    versions of this script reported that sum as busy time, and it is
+    printed beside as `all_events_sum_ms_per_step` for comparison with
+    their records. Under the captured step the launching op is the graph
+    replay, so the device kernels are also listed by their own names, and
+    the geofence kernel's device events are counted
+    (`b1_device_events_per_step`)."""
+    from torch.autograd import DeviceType
+
+    def steps():
+        for batch in batches[:n_prof]:
+            engine.materialize_alerts(batch, engine.submit(batch))
+
+    wall_ms, events, on_device, busy_ms, idle = device_profile(steps)
+    engine.take_command_fires()
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
     kernels = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
     return {
-        "steps": n_prof, "wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": (device_us / 1e3 / n_prof
-                                    if device_us else "not measured"),
-        "device_idle_share": (1 - device_us / 1e3 / n_prof / wall_ms
-                              if device_us else "not measured"),
+        "steps": n_prof, "wall_ms_per_step": wall_ms / n_prof,
+        "device_busy_ms_per_step": (busy_ms / n_prof
+                                    if busy_ms != "not measured" else busy_ms),
+        "device_idle_share": idle,
         "device_events_per_step": sum(e.count for e in on_device) / n_prof,
         "all_events_sum_ms_per_step": sum(
             e.self_device_time_total for e in events) / 1e3 / n_prof,
@@ -3276,11 +3312,711 @@ def phase_read_side(dev, card, main_ref):
     return readings
 
 
+# -- phase 10: the instance behind `serve` -----------------------------------------
+
+INSTANCE_REST_DEVICES = 64
+# 40 payloads of 4,096 events: 163,840 events, 20 batches of the default
+# configuration, sent back to back to the running instance as a gateway
+# sends them
+INSTANCE_PAYLOADS = 40
+INSTANCE_PAYLOAD_EVENTS = 4096        # events a wire payload
+INSTANCE_POLLED = 4                   # payloads sent beside the REST pollers
+INSTANCE_CLIENTS = 8                  # REST pollers beside the ingest
+# each poller's pause between requests, a dashboard's refresh: pollers in
+# a tight loop hold the interpreter lock so much that the inbound consumer
+# all but stops
+INSTANCE_POLL_PERIOD_S = 0.25
+INSTANCE_SAMPLE_DEVICES = 256         # devices the pollers read
+INSTANCE_PROFILED = 3                 # payloads under the profiler
+INSTANCE_AFTER_SAVE = 1               # payloads past the checkpoint
+INSTANCE_STREAM_TIMEOUT_S = 300.0     # a window's payloads must be in by then
+INSTANCE_PROGRAMS, INSTANCE_MODELS, INSTANCE_POLICIES = 32, 8, 8
+INSTANCE_ZONE_VERTS = 16
+INSTANCE_COMMANDS = ("bench-cmd", "inspect")
+
+
+def instance_config(data_dir, device):
+    """The default configuration (runtime/config.py DEFAULTS) as `serve`
+    builds it, with a data directory and the engine's device."""
+    from sitewhere_tpu_torch.__main__ import _build_config
+
+    cfg = _build_config(None)
+    cfg.set("persist.data_dir", data_dir)
+    cfg.set("pipeline.device", device)
+    return cfg
+
+
+def boot_instance(cfg, epoch_base_ms):
+    """`serve`'s instance and REST gateway (port 0); boot wall seconds."""
+    from sitewhere_tpu_torch.__main__ import _build_instance
+    from sitewhere_tpu_torch.web.server import RestServer
+
+    t0 = time.perf_counter()
+    inst = _build_instance(cfg)
+    inst.pipeline_engine.packer.epoch_base_ms = epoch_base_ms
+    inst.start()
+    rest = RestServer(inst, port=0)
+    rest.start()
+    return inst, rest, time.perf_counter() - t0
+
+
+class _OneTransaction:
+    """A sqlite connection whose commits wait for the caller's one commit
+    (every other attribute is the connection's)."""
+
+    def __init__(self, conn):
+        self._conn = conn
+
+    def __getattr__(self, name):
+        return getattr(self._conn, name)
+
+    def commit(self):
+        pass
+
+
+def register_devices(inst, n):
+    """`n` devices with assignments in tenant default through the tenant
+    engine's DeviceManagement, as the device controller creates them. The
+    store commits each entity; a fleet registered here is set-up, not a
+    measured path, so a sqlite store takes it in one transaction."""
+    from sitewhere_tpu_torch.model import (
+        Area, Device, DeviceAssignment, DeviceType)
+
+    dm = inst.get_tenant_engine("default").registry
+    conn = getattr(dm.store, "_conn", None)
+    if conn is not None:
+        dm.store._conn = _OneTransaction(conn)
+    try:
+        dtype = dm.create_device_type(DeviceType(token="sensor",
+                                                 name="sensor"))
+        area = dm.create_area(Area(token="area-1", name="area-1"))
+        for i in range(1, n + 1):
+            d = dm.create_device(Device(token=f"dev-{i}",
+                                        device_type_id=dtype.id))
+            dm.create_device_assignment(DeviceAssignment(
+                token=f"as-dev-{i}", device_id=d.id, area_id=area.id))
+    finally:
+        if conn is not None:
+            dm.store._conn = conn
+            with dm.store._lock:
+                conn.commit()
+
+
+def instance_specs():
+    """Phase 5's programs, models and policies, cloned to fill the default
+    buckets (32 programs, 8 models, 8 policies)."""
+    def fill(specs, n):
+        return [dict(specs[i % len(specs)],
+                     token=f"{specs[i % len(specs)]['token']}-{i}")
+                for i in range(n)]
+    return (fill(STATEFUL_PROGRAMS, INSTANCE_PROGRAMS),
+            fill(STATEFUL_MODELS, INSTANCE_MODELS),
+            fill(STATEFUL_POLICIES, INSTANCE_POLICIES))
+
+
+def provision_over_rest(rest, zones):
+    """The operator's REST script: 64 devices, an area with the zones, 16
+    threshold and 64 geofence rules, the stateful families."""
+    for command in INSTANCE_COMMANDS:
+        rest.ok("POST", "/api/devicetypes/sensor/commands",
+                {"token": command, "name": command})
+    for i in range(INSTANCE_REST_DEVICES):
+        rest.ok("POST", "/api/devices", {"token": f"rest-{i}",
+                                         "device_type_token": "sensor"})
+        rest.ok("POST", "/api/assignments", {"token": f"as-rest-{i}",
+                                             "device_token": f"rest-{i}"})
+    rest.ok("POST", "/api/areas", {"token": "zones", "name": "zones"})
+    for z, verts in enumerate(zones):
+        rest.ok("POST", "/api/areas/zones/zones", {
+            "token": f"zone-{z}", "name": f"zone-{z}",
+            "bounds": [{"latitude": float(v[0]), "longitude": float(v[1])}
+                       for v in verts]})
+    for i in range(N_THRESHOLD):
+        rest.ok("POST", "/api/rules", {
+            "type": "threshold", "token": f"thr-{i}",
+            "measurement_name": "m1", "operator": ">",
+            "threshold": 95.0 + i, "alert_level": "WARNING"})
+    order = np.random.default_rng(SEED).permutation(len(zones))
+    for g in range(N_GEOFENCE):
+        rest.ok("POST", "/api/rules", {
+            "type": "geofence", "token": f"fence-{g}",
+            "zone_token": f"zone-{int(order[g])}",
+            "condition": "inside" if g % 2 == 0 else "outside",
+            "alert_level": ("INFO", "WARNING", "ERROR", "CRITICAL")[g % 4]})
+    programs, models, policies = instance_specs()
+    for path, specs in (("ruleprograms", programs), ("models", models),
+                        ("actuations", policies)):
+        for spec in specs:
+            rest.ok("POST", f"/api/tenants/default/{path}", spec)
+
+
+def instance_payloads(epoch_ms, tokens, seed=SEED + 10):
+    """INSTANCE_PAYLOADS wire payloads of phase 3's traffic,
+    INSTANCE_PAYLOAD_EVENTS frames each: the 60/30/10
+    measurement/location/alert mix, measurements over m1 and m2, values
+    U(0, 100), lat/lon in the box, each payload 200 ms after the last.
+    Returns [(payload bytes, events, distinct devices)]."""
+    from sitewhere_tpu_torch.transport.wire import (
+        MessageType, WireCodec, encode_frame)
+
+    rng = np.random.default_rng(seed)
+    n = INSTANCE_PAYLOADS
+    M, L, A = MessageType.MEASUREMENT, MessageType.LOCATION, MessageType.ALERT
+    out = []
+    for k in range(n):
+        m = INSTANCE_PAYLOAD_EVENTS
+        kind = rng.choice(3, size=m, p=[0.6, 0.3, 0.1])
+        dev = rng.integers(0, len(tokens), m)
+        ts = epoch_ms + 200 * k + np.sort(rng.integers(0, 200, m))
+        value = rng.uniform(0, 100, m)
+        mm = rng.integers(1, 3, m)
+        lat = rng.uniform(*LAT_LON_BOX, m)
+        lon = rng.uniform(*LAT_LON_BOX, m)
+        level = rng.integers(0, 4, m)
+        frames = []
+        for i in range(m):
+            token = tokens[int(dev[i])]
+            if kind[i] == 0:
+                frames.append(encode_frame(M, WireCodec.encode_measurement(
+                    token, int(ts[i]), f"m{int(mm[i])}", float(value[i]))))
+            elif kind[i] == 1:
+                frames.append(encode_frame(L, WireCodec.encode_location(
+                    token, int(ts[i]), float(lat[i]), float(lon[i]))))
+            else:
+                frames.append(encode_frame(A, WireCodec.encode_alert(
+                    token, int(ts[i]), "overheat", int(level[i]), "hot")))
+        out.append((b"".join(frames), m, len(set(dev.tolist()))))
+    return out
+
+
+def attach_command_destination(inst, port, loop):
+    """An MQTT command destination on tenant default, as an operator
+    configures one beside actuation policies: the policies' commands go
+    out to the devices' command topics on the broker at `port`. Without
+    one, every fire is retried and then dead-lettered."""
+    from sitewhere_tpu_torch.commands import (
+        CommandDestination, MqttDeliveryProvider)
+
+    destination = CommandDestination("mqtt", MqttDeliveryProvider(
+        "127.0.0.1", port, loop_thread=loop))
+    inst.get_tenant_engine("default").command_delivery.add_destination(
+        destination)
+    destination.start()
+
+
+def command_counts(inst):
+    """(delivered, parked, retries) of the instance's command fan-out."""
+    fanout = inst.pipeline_engine.command_dispatcher
+    return (fanout.delivered_count, fanout.parked_count, fanout.retry_count)
+
+
+class StepGroups:
+    """Records the decoded records each call of a tenant's inbound handler
+    took (one poll of its consumer, packed into the steps of that call),
+    and the seconds each call took, so that a second instance can process
+    the same records in the same groups: the alert lanes hold at most 128
+    alerts a step and the rule programs tick once a step, so what is
+    persisted depends on which rows share a step, and a consumer's polls
+    cut a stream where its timing falls."""
+
+    def __init__(self, inst):
+        inbound = inst.get_tenant_engine("default").inbound
+        self.host = inbound._host
+        self.handler = self.host._handler
+        self.groups = []
+        self.seconds = []
+        self.host._handler = self._record
+
+    def _record(self, records):
+        t0 = time.perf_counter()
+        self.handler(records)
+        self.seconds.append(time.perf_counter() - t0)
+        self.groups.append(list(records))
+
+    def sizes(self, first=0):
+        return [len(g) for g in self.groups[first:]]
+
+    def replay_into(self, inst):
+        """Process every recorded group, in order, through `inst`'s
+        inbound handler (its own consumer stopped)."""
+        inbound = inst.get_tenant_engine("default").inbound
+        inbound.stop()
+        for records in self.groups:
+            inbound.process(records)
+
+
+def _decoded_topic(inst):
+    return inst.bus.topic(inst.naming.event_source_decoded_events("default"))
+
+
+def stream(inst, send, payloads, groups, what,
+           timeout_s=INSTANCE_STREAM_TIMEOUT_S):
+    """Send `payloads` back to back to the running instance, as a gateway
+    does, its inbound consumer polling all along as under `serve`, and
+    wait until the consumer has committed every decoded request: (seconds
+    from the first send to the last committed request, events). Logs the
+    backlog and the consumer's polls every 10 s."""
+    topic = _decoded_topic(inst)
+    expected = sum(topic.end_offsets()) + sum(p[2] for p in payloads)
+    first = len(groups.groups)
+    t0 = time.perf_counter()
+    for payload, _, _ in payloads:
+        send(payload)
+    sent_s = time.perf_counter() - t0
+    deadline, report = t0 + timeout_s, t0 + 10.0
+    while sum(topic.end_offsets()) < expected or inst._ingest_backlog() > 0:
+        now = time.perf_counter()
+        if now > deadline or now > report:
+            sizes = groups.sizes(first)
+            state = (f"{what}: {now - t0:.0f} s, sent in {sent_s:.1f} s, "
+                     f"{sum(topic.end_offsets())} of {expected} requests "
+                     f"on the bus, backlog {inst._ingest_backlog()}, "
+                     f"{len(sizes)} polls, last sizes {sizes[-8:]}")
+            if now > deadline:
+                raise RuntimeError(f"not ingested in {timeout_s} s: {state}")
+            log(f"[instance] {state}")
+            report = now + 10.0
+        time.sleep(0.005)
+    return time.perf_counter() - t0, sum(p[1] for p in payloads)
+
+
+def paced(inst, send, payload, n_requests, timeout_s=120.0):
+    """One payload taken by the inbound consumer in one poll: the consumer
+    is stopped while the payload's decoded requests go onto the bus, then
+    started. Only for the payload past the checkpoint: a restart replays
+    it in one poll, so the instance must have taken it in one step before
+    it stopped as well."""
+    topic = _decoded_topic(inst)
+    inbound = inst.get_tenant_engine("default").inbound
+    expected = sum(topic.end_offsets()) + n_requests
+    inbound.stop()
+    send(payload)
+    deadline = time.time() + timeout_s
+    while sum(topic.end_offsets()) < expected:
+        if time.time() > deadline:
+            raise RuntimeError(f"payload not decoded in {timeout_s} s")
+        time.sleep(0.001)
+    inbound.start()
+    while inst._ingest_backlog() > 0:
+        if time.time() > deadline:
+            raise RuntimeError(f"payload not ingested in {timeout_s} s")
+        time.sleep(0.001)
+
+
+def instance_observation(inst):
+    """What the card and CPU instances must agree on: persisted event
+    counts by type, the alerts (ids and wall stamps left out), every
+    family's counters, the canonical state and state groups."""
+    from sitewhere_tpu_torch.model.event import DeviceEventType
+    from sitewhere_tpu_torch.persist.eventlog import EventFilter
+
+    inst.event_log.flush()
+    names = ["event_type", "device_token", "alert_source", "alert_level",
+             "alert_type", "event_date", "alert_message"]
+    cols = inst.event_log.query_columns("default", EventFilter(), names)
+    types, counts = np.unique(cols["event_type"], return_counts=True)
+    is_alert = cols["event_type"] == int(DeviceEventType.ALERT)
+    alerts = sorted(zip(*(cols[n][is_alert].tolist() for n in names[1:])))
+    engine = inst.pipeline_engine
+    return {
+        "rows": int(len(cols["event_type"])),
+        "events": dict(zip(types.tolist(), counts.tolist())),
+        "alerts": alerts,
+        "counters": (engine.rule_program_counters(),
+                     engine.anomaly_model_counters(),
+                     engine.actuation_policy_counters()),
+        "state": engine.canonical_state(),
+        "groups": (engine.canonical_rule_state(),
+                   engine.canonical_model_state(),
+                   engine.canonical_actuation_state()),
+    }
+
+
+def assert_observations_equal(ref, got, what):
+    assert got["events"] == ref["events"], \
+        f"{what}: event counts {got['events']} != {ref['events']}"
+    assert got["alerts"] == ref["alerts"], \
+        f"{what}: {len(got['alerts'])} alerts != {len(ref['alerts'])}"
+    assert got["counters"] == ref["counters"], f"{what}: counters differ"
+    assert_tree_bits_equal(ref["state"], got["state"], f"{what} state")
+    for name, r, g in zip(("rule", "model", "actuation"), ref["groups"],
+                          got["groups"]):
+        assert_tree_bits_equal(r, g, f"{what} {name} group")
+
+
+def rest_pollers(rest, tokens, stop):
+    """INSTANCE_CLIENTS threads polling the read routes until `stop`, each
+    pausing INSTANCE_POLL_PERIOD_S between requests; returns the threads
+    and {route class: [ms]}."""
+    samples = {k: [] for k in ("events", "devicestate", "topology", "flight",
+                               "metrics", "windows")}
+    errors = []
+    lock = threading.Lock()
+
+    def client(i):
+        rng = np.random.default_rng(SEED + 100 + i)
+        classes = list(samples)
+        while not stop.is_set():
+            kind = classes[int(rng.integers(0, len(classes)))]
+            token = tokens[int(rng.integers(0, len(tokens)))]
+            path, query = {
+                "events": (f"/api/assignments/as-{token}/events",
+                           {"pageSize": 20}),
+                "devicestate": (f"/api/devicestates/{token}", None),
+                "topology": ("/api/instance/topology", None),
+                "flight": ("/api/instance/flight", {"last": 16}),
+                "metrics": ("/metrics", None),
+                "windows": ("/api/analytics/windows",
+                            {"window_ms": 1000, "keys": 16}),
+            }[kind]
+            t0 = time.perf_counter()
+            try:
+                status, body = rest.call("GET", path, query=query)
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(f"{kind}: {exc!r}")
+                continue
+            ms = (time.perf_counter() - t0) * 1e3
+            if status not in (200, 404):   # a device not seen yet: 404
+                errors.append(f"{kind}: HTTP {status} {str(body)[:500]}")
+            with lock:
+                samples[kind].append(ms)
+            stop.wait(INSTANCE_POLL_PERIOD_S)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(INSTANCE_CLIENTS)]
+    for t in threads:
+        t.start()
+    return threads, samples, errors
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else "not measured"
+
+
+def cli_as_a_user(card_name, data_dir):
+    """`check` exits 0 naming the card; `serve --port 0` answers
+    /api/system/version and /api/instance/topology (which names the CUDA
+    device) and exits 0 on SIGTERM."""
+    import os
+    import re
+    import signal
+
+    from sitewhere_tpu_torch.__main__ import RestCalls
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    chk = subprocess.run([sys.executable, "-m", "sitewhere_tpu_torch",
+                          "check"], capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert chk.returncode == 0, chk.stdout + chk.stderr
+    assert card_name in chk.stdout, chk.stdout
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sitewhere_tpu_torch", "serve", "--port", "0",
+         "--data-dir", data_dir], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        t0, url, lines = time.perf_counter(), None, []
+        while url is None and time.perf_counter() - t0 < 300:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            m = re.search(r"REST gateway : (http://\S+)", line)
+            url = m.group(1) if m else None
+        assert url, "serve did not come up:\n" + "".join(lines)
+        boot_s = time.perf_counter() - t0
+        rest = RestCalls(url)
+        version = rest.ok("GET", "/api/system/version")
+        topology = rest.ok("GET", "/api/instance/topology")
+        assert topology["device"]["type"] == "cuda", topology.get("device")
+        assert topology["device"]["name"] == card_name
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        assert rc == 0, f"serve exited {rc}:\n{proc.stdout.read()}"
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return {"serve_boot_s": boot_s, "version": version["version"],
+            "check_lines": [ln for ln in chk.stdout.splitlines()
+                            if ln.startswith(("cuda", "kernel", "nvcc"))]}
+
+
+def phase_instance(dev, card, name):
+    """Phase 10: the default-configuration instance behind `serve`, on the
+    card, against the same instance on the CPU. Returns the readings and
+    the instance path's launches."""
+    from sitewhere_tpu_torch.__main__ import RestCalls
+    from sitewhere_tpu_torch.ops import segsum
+    from sitewhere_tpu_torch.sources import InboundEventSource, WireDecoder
+    from sitewhere_tpu_torch.sources.receivers import (
+        EventLoopThread, MqttEventReceiver)
+    from sitewhere_tpu_torch.transport.mqtt import MqttBroker, MqttClient
+
+    import logging
+
+    # the instance sends its logs to its bus; a failing REST call's
+    # traceback goes to stderr as well
+    errlog = logging.StreamHandler(sys.stderr)
+    errlog.setLevel(logging.ERROR)
+    logging.getLogger("sitewhere").addHandler(errlog)
+    out = {}
+    # `serve` runs in a process of its own: start from a card whose
+    # caching allocator holds none of the earlier phases' blocks
+    reserved = torch.cuda.memory_reserved(dev)
+    torch.cuda.empty_cache()
+    log(f"[instance] earlier phases' cached blocks released: "
+        f"{reserved} -> {torch.cuda.memory_reserved(dev)} B reserved")
+    epoch = int(time.time() * 1000) - EPOCH_LAG_MS
+    tmp = tempfile.TemporaryDirectory(prefix="swt-instance-")
+    data_dir = f"{tmp.name}/card"
+    loop = EventLoopThread.shared()
+    broker = MqttBroker()
+    loop.run(broker.start())
+    insts = []
+    try:
+        # (a) boot: the card instance with its data dir, the CPU twin
+        # without one; 100,000 devices registered in both at once
+        card_inst, card_rest, out["boot_wall_s"] = boot_instance(
+            instance_config(data_dir, str(dev)), epoch)
+        insts.append((card_inst, card_rest))
+        cpu_inst, cpu_rest, out["cpu_boot_wall_s"] = boot_instance(
+            instance_config(None, "cpu"), epoch)
+        insts.append((cpu_inst, cpu_rest))
+        engine = card_inst.pipeline_engine
+        assert engine.device == dev and \
+            cpu_inst.pipeline_engine.device.type == "cpu"
+        t0 = time.perf_counter()
+        failed = []
+
+        def register(inst):
+            try:
+                register_devices(inst, N_REGISTERED)
+            except Exception as exc:  # noqa: BLE001 - raised below
+                failed.append(exc)
+
+        threads = [threading.Thread(target=register, args=(inst,))
+                   for inst in (card_inst, cpu_inst)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if failed:
+            raise failed[0]
+        out["register_wall_s"] = time.perf_counter() - t0
+        _, _, zones = random_world(SEED, 1, N_ZONES, INSTANCE_ZONE_VERTS,
+                                   box=LAT_LON_BOX, radius=ZONE_RADIUS)
+        rests = [RestCalls(card_rest.base_url), RestCalls(cpu_rest.base_url)]
+        t0 = time.perf_counter()
+        for rest in rests:
+            provision_over_rest(rest, zones)
+        out["provision_wall_s"] = (time.perf_counter() - t0) / 2
+        for inst in (card_inst, cpu_inst):
+            # params built before the first step: rule alert types are
+            # interned then, a device alert's type when it is packed, and
+            # the state keeps interner indices
+            inst.pipeline_engine._ensure_params()
+        reg = card_inst.registry_tensors
+        assert reg.devices.lookup("dev-1") > 0 and \
+            reg.devices.lookup(f"rest-{INSTANCE_REST_DEVICES - 1}") > 0
+        log(f"[instance] booted in {out['boot_wall_s']:.2f} s (CPU twin "
+            f"{out['cpu_boot_wall_s']:.2f} s); {N_REGISTERED} devices "
+            f"registered in both in {out['register_wall_s']:.1f} s; REST "
+            f"provisioning {out['provision_wall_s']:.1f} s an instance")
+
+        tokens = [f"dev-{i}" for i in range(1, N_REGISTERED + 1)] + \
+            [f"rest-{i}" for i in range(INSTANCE_REST_DEVICES)]
+        payloads = instance_payloads(epoch, tokens)
+        n_total = sum(p[1] for p in payloads)
+        polled = payloads[:INSTANCE_POLLED]
+        alone = payloads[INSTANCE_POLLED:-INSTANCE_PROFILED
+                         - INSTANCE_AFTER_SAVE]
+        profiled = payloads[-INSTANCE_PROFILED - INSTANCE_AFTER_SAVE:
+                            -INSTANCE_AFTER_SAVE]
+
+        # (b) a gateway publishes wire payloads to the in-process broker,
+        # back to back; the card instance's event source subscribes and its
+        # inbound consumer polls all along, as under `serve`
+        tenant = card_inst.get_tenant_engine("default")
+        source = InboundEventSource(
+            "mqtt-wire", WireDecoder(),
+            [MqttEventReceiver("127.0.0.1", broker.port, topic="SW/+/input",
+                               qos=0, loop_thread=loop)],
+            tenant.bus, tenant.naming)
+        tenant.event_sources.add_source(source)
+        source.start()
+        publisher = MqttClient("127.0.0.1", broker.port,
+                               client_id="smoke-gateway")
+        loop.run(publisher.connect())
+
+        def send(payload):
+            loop.run(publisher.publish("SW/gateway/input", payload),
+                     timeout_s=60.0)
+
+        for inst in (card_inst, cpu_inst):
+            attach_command_destination(inst, broker.port, loop)
+        groups = StepGroups(card_inst)
+        # the flight recorder is process-wide: earlier phases' steps are in
+        # it too, so the spans read are those after this sequence number
+        last = engine.flight.export(last_n=1)["records"]
+        seq0 = last[-1]["seq"] if last else -1
+        reset_launch_counts(engine)
+        segsum.segment_row_sum.launches = 0
+        stop = threading.Event()
+        pollers, samples, errors = rest_pollers(
+            rests[0], [tokens[i] for i in np.random.default_rng(SEED).choice(
+                len(tokens), INSTANCE_SAMPLE_DEVICES, replace=False)], stop)
+        time.sleep(0.5)                      # pollers up before the ingest
+        polled_s, polled_events = stream(card_inst, send, polled, groups,
+                                         "beside the pollers")
+        stop.set()
+        for t in pollers:
+            t.join(timeout=120)
+        assert not errors, errors[:5]
+        n_polled = len(groups.groups)
+        log(f"[instance] {polled_events} events over MQTT beside "
+            f"{INSTANCE_CLIENTS} REST pollers in {polled_s:.2f} s = "
+            f"{polled_events / polled_s:.1f} events/s, "
+            f"{n_polled} polls")
+        alone_s, alone_events = stream(card_inst, send, alone, groups,
+                                       "alone")
+        last = engine.flight.export(last_n=1)["records"]
+        seq1 = last[-1]["seq"] if last else -1
+        # the profiler over the next payloads (it records every op of
+        # every thread: the pollers stay off)
+        wall_ms, _, _, busy_ms, idle = device_profile(lambda: stream(
+            card_inst, send, profiled, groups, "profiled"))
+        launches = launch_counts(engine)
+        launches["segment_row_sum"] = segsum.segment_row_sum.launches
+        keys, captures = len(engine._graphs), engine.graph_captures
+        steps = engine.batches_processed
+        assert launches["points_in_zones"] > 0 and \
+            launches["eval_rule_programs"] > 0, launches
+        assert launches["segment_row_sum"] > 0, launches
+        assert keys >= 1 and captures == keys, (captures, keys)
+        # step spans of the unprofiled windows
+        records = engine.flight.export(last_n=256)["records"]
+        spans = [r["span_ms"] for r in records if seq0 < r["seq"] <= seq1]
+        sizes = groups.sizes()
+        events = polled_events + alone_events
+        out.update({
+            "ingest_events_per_s": events / (polled_s + alone_s),
+            "ingest_events_per_s_beside_pollers": polled_events / polled_s,
+            "ingest_events_per_s_alone": alone_events / alone_s,
+            "events_timed": events,
+            "ingest_wall_s": {"beside_pollers": polled_s, "alone": alone_s},
+            "polls": {"n": len(sizes), "beside_pollers": n_polled,
+                      "requests_p50": _pct(sizes, 50),
+                      "requests_min": min(sizes), "requests_max": max(sizes),
+                      "handler_s_p50": _pct(groups.seconds, 50)},
+            "steps": steps, "captures": captures,
+            "static_configurations": keys,
+            "launches_instance_path": launches,
+            "profiled": {"payloads": INSTANCE_PROFILED, "wall_ms": wall_ms,
+                         "device_busy_ms": busy_ms,
+                         "device_idle_share": idle},
+            "step_span_ms": {"p50": _pct(spans, 50), "p90": _pct(spans, 90),
+                             "p99": _pct(spans, 99),
+                             "max": max(spans) if spans else "not measured",
+                             "n": len(spans)},
+            "rest_ms": {k: {"p50": _pct(v, 50), "p99": _pct(v, 99),
+                            "n": len(v)} for k, v in samples.items()},
+        })
+        log(f"[instance] {alone_events} events over MQTT alone in "
+            f"{alone_s:.2f} s = {out['ingest_events_per_s_alone']:.1f} "
+            f"events/s; all {events} timed events, first publish to last "
+            f"committed row, {out['ingest_events_per_s']:.1f} events/s; "
+            f"{len(sizes)} polls of {out['polls']['requests_p50']} requests "
+            f"(p50; {min(sizes)}..{max(sizes)}), {steps} steps, "
+            f"{captures} captures for {keys} static configurations; "
+            f"launches {launches}")
+        out["commands_card"] = command_counts(card_inst)
+        log(f"[instance] step span ms {out['step_span_ms']}; device idle "
+            f"share {idle} over {INSTANCE_PROFILED} profiled payloads")
+        log("[instance] REST ms " + json.dumps(out["rest_ms"]))
+
+        # (c) a checkpoint, one payload past it
+        t0 = time.perf_counter()
+        rests[0].ok("POST", "/api/instance/checkpoint")
+        out["checkpoint_save_s"] = time.perf_counter() - t0
+        for payload, _, requests in payloads[-INSTANCE_AFTER_SAVE:]:
+            paced(card_inst, send, payload, requests)
+        loop.run(publisher.disconnect())
+        card_ref = instance_observation(card_inst)
+        assert card_ref["rows"] >= n_total, (card_ref["rows"], n_total)
+
+        # the CPU instance: the card's decoded records in its step groups
+        t0 = time.perf_counter()
+        groups.replay_into(cpu_inst)
+        out["cpu_ingest_wall_s"] = time.perf_counter() - t0
+        assert_observations_equal(card_ref, instance_observation(cpu_inst),
+                                  "CPU instance vs card instance")
+        # every policy fire went out to the broker, the same on both
+        delivered, parked, _ = command_counts(card_inst)
+        assert delivered > 0 and parked == 0, command_counts(card_inst)
+        assert command_counts(cpu_inst)[:2] == (delivered, parked), \
+            (command_counts(cpu_inst), command_counts(card_inst))
+        log(f"[instance] card instance == CPU instance over "
+            f"{len(groups.groups)} step groups: {card_ref['rows']} rows, "
+            f"{len(card_ref['alerts'])} alerts, event counts "
+            f"{card_ref['events']}, state and groups bit-equal (CPU "
+            f"{out['cpu_ingest_wall_s']:.1f} s); {delivered} commands "
+            f"delivered by each, none parked")
+        cpu_rest.stop()
+        cpu_inst.stop()
+        insts.remove((cpu_inst, cpu_rest))
+
+        # stop, boot again on the data dir: restore, replay the payload
+        # past the checkpoint
+        card_rest.stop()
+        card_inst.stop()
+        insts.remove((card_inst, card_rest))
+        t0 = time.perf_counter()
+        card_inst, card_rest, _ = boot_instance(
+            instance_config(data_dir, str(dev)), epoch)
+        out["restore_boot_s"] = time.perf_counter() - t0
+        insts.append((card_inst, card_rest))
+        assert card_inst.checkpoint_manager.last_restore_offsets
+        deadline = time.time() + 300
+        while card_inst._ingest_backlog() > 0:
+            assert time.time() < deadline, "replay did not finish"
+            time.sleep(0.001)
+        out["replay_s"] = time.perf_counter() - t0 - out["restore_boot_s"]
+        restored = instance_observation(card_inst)
+        assert restored["rows"] == card_ref["rows"], \
+            f"replay added rows: {restored['rows']} != {card_ref['rows']}"
+        assert_observations_equal(card_ref, restored, "restored instance")
+        log(f"[instance] checkpoint save {out['checkpoint_save_s']:.3f} s; "
+            f"boot with restore {out['restore_boot_s']:.3f} s, replay of "
+            f"{INSTANCE_AFTER_SAVE} payload {out['replay_s']:.3f} s: state "
+            f"bit-equal, no duplicate rows")
+    finally:
+        for inst, rest in reversed(insts):
+            rest.stop()
+            inst.stop()
+        loop.run(broker.stop())
+        logging.getLogger("sitewhere").removeHandler(errlog)
+    # (d) the CLI as a user runs it
+    out["cli"] = cli_as_a_user(name, f"{tmp.name}/serve")
+    log(f"[instance] CLI: check ok, serve up in {out['cli']['serve_boot_s']:.2f}"
+        f" s, answered and exited 0 on SIGTERM")
+    tmp.cleanup()
+    out["card"] = card
+    log("[instance] " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
               "the card and does not run on the CPU", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--instance-only"]:
+        # phase 10 alone, for debugging it (prints no result line)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        card, name = phase_card()
+        phase_instance(dev, card, name)
+        return 0
     try:
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
@@ -3301,11 +4037,13 @@ def main() -> int:
                                             stateful_ref)
         _, ingest_launches = phase_ingest(dev, card, main_ref)
         read = phase_read_side(dev, card, main_ref)
+        instance = phase_instance(dev, card, name)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     main_shape = next(r for r in shapes if r["world"] == "main_z256")
+    instance_launches = instance["launches_instance_path"]
     kernels = [{
         "name": "points_in_zones",
         "route": "cuda",
@@ -3315,6 +4053,7 @@ def main() -> int:
         "launches_stateful_path": stateful_launches,
         "launches_durable_path": durable_launches,
         "launches_ingest_path": ingest_launches,
+        "launches_instance_path": instance_launches["points_in_zones"],
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],
@@ -3335,6 +4074,7 @@ def main() -> int:
         "source": "sitewhere_tpu_torch/csrc/segsum.cu",
         "replaces": "sitewhere_tpu/analytics/windows.py:63",
         "launches": read["segment_row_sum_launches"],
+        "launches_instance_path": instance_launches["segment_row_sum"],
         **{k: segsum[k] for k in ("mismatches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "rows", "segments",
@@ -3351,6 +4091,7 @@ def main() -> int:
         "source": "sitewhere_tpu_torch/csrc/rule_programs.cu",
         "replaces": "sitewhere_tpu/ops/stateful.py:148",
         "launches": stateful["rule_kernel_launches"],
+        "launches_instance_path": instance_launches["eval_rule_programs"],
         **{k: rule[k] for k in ("mismatches", "max_abs_err", "ms",
                                 "queued_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "rows",

@@ -19,4 +19,6 @@ back to the CPU on their own.
 
 from sitewhere_tpu_torch.device import resolve_device
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]

@@ -37,7 +37,10 @@ def own_stream(device: torch.device) -> Iterator[None]:
     `device` (made at first use; a no-op off the card). PyTorch's streams do
     not synchronise with the legacy default stream, so work and waits in
     here (a query's copies and syncs) neither wait for nor hold up the work
-    other threads queue on their streams, the engine's step included."""
+    other threads queue on their streams, the engine's step included.
+    The stream comes from PyTorch's pool (32 a priority, round robin), so
+    past 32 threads two may share one; captures record on a stream of
+    their own (pipeline/graph.py `capture_stream`)."""
     if device.type != "cuda":
         yield
         return

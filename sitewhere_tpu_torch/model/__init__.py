@@ -61,6 +61,8 @@ from sitewhere_tpu_torch.model.event import (
     DeviceRegistrationRequest,
 )
 from sitewhere_tpu_torch.model.state import DeviceState, PresenceState
+from sitewhere_tpu_torch.model.tenant import Tenant
+from sitewhere_tpu_torch.model.user import User, GrantedAuthority, ACCOUNT_STATUS
 from sitewhere_tpu_torch.model.asset import Asset, AssetType, AssetCategory
 from sitewhere_tpu_torch.model.batch import (
     BatchOperation,

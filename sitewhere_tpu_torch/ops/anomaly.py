@@ -44,7 +44,7 @@ from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.ml.compiler import (
     AnomalyModelTable, FeatureKind, ModelKind)
 from sitewhere_tpu_torch.ops.numerics import (
-    exp_f32, flush_denormals, fma_f32, tanh_f32)
+    div_f32, exp_f32, flush_denormals, fma_f32, mul_f32, sub_f32, tanh_f32)
 from sitewhere_tpu_torch.ops.slab import _slab_f32, _slab_i32, state_slab_lanes
 from sitewhere_tpu_torch.ops.stateful import first_fired, write_attach_rows
 
@@ -151,15 +151,19 @@ def eval_anomaly_models(
     is_ewma = fk == FeatureKind.EWMA
     is_rate = fk == FeatureKind.RATE
 
+    # the f32 arithmetic is XLA's CPU code's (ops/numerics.py): flushed
+    # where the exact result is tiny after rounding, the first NaN operand.
+    # The jitted reference's contracted `alpha * v + decay` returns v's NaN
+    # before alpha's (probed: tests/test_torch_anomaly_worlds.py), so v
+    # goes first into the fma. The per-table constants (1 - alpha, mean,
+    # scale) are computed once at [1, P, F] and broadcast over the rows.
     alpha = table.feat_alpha[None, :, :]
-    decay = flush_denormals(flush_denormals(1.0 - alpha)
-                            * flush_denormals(value_s))
-    ewma = torch.where(ctr_s > 0, fma_f32(alpha, v, decay), v)
+    decay = mul_f32(sub_f32(torch.ones_like(alpha), alpha), value_s)
+    ewma = torch.where(ctr_s > 0, fma_f32(v, alpha, decay), v)
     new_sv_ewma = torch.where(observed, ewma, value_s)
 
     dt = torch.clamp(cur_ts - ts_s, min=1).float()
-    diff = flush_denormals(flush_denormals(v) - flush_denormals(value_s))
-    rate = flush_denormals(flush_denormals(diff * 1000.0) / dt)
+    rate = div_f32(mul_f32(sub_f32(v, value_s), 1000.0), dt)
     new_sa_rate = torch.where(observed & (ctr_s > 0), rate, aux_s)
 
     x = torch.where(is_ewma, new_sv_ewma,
@@ -169,9 +173,7 @@ def eval_anomaly_models(
         torch.where(is_rate, (ctr_s + obs_inc) > 1, known))
     ready = ready | ~used[None]                            # pads never block
 
-    centred = flush_denormals(flush_denormals(x)
-                              - flush_denormals(table.feat_mean[None]))
-    xn = flush_denormals(centred * flush_denormals(table.feat_scale[None]))
+    xn = mul_f32(sub_f32(x, table.feat_mean[None]), table.feat_scale[None])
     xn = torch.where(used[None], xn, 0.0)
     nan_any = (torch.isnan(xn) & used[None]).any(dim=-1)   # [B, P]
     ready_all = ready.all(dim=-1)

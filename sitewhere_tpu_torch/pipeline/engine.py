@@ -24,8 +24,11 @@ Around it (own modules): the checkpointer (persist/checkpoint.py), which
 reads the state groups off the card and copies restored ones back into the
 resident buffers; the command fan-out (actuation/dispatcher.py, attached as
 `command_dispatcher`); the drift refitter (actuation/refit.py); the
-presence manager (pipeline/presence.py). Not in this slice: the feeder
-fleet and the sharded engine — see ROADMAP.md.
+presence manager (pipeline/presence.py); the instance
+(sitewhere_tpu_torch/instance.py), whose inbound consumers step it. On
+demand, `start_device_trace` / `stop_device_trace` record a torch.profiler
+Chrome trace of the card's work. Not in this slice: the feeder fleet and
+the sharded engine — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -1608,3 +1611,40 @@ class PipelineEngine(LifecycleComponent):
             "tenant_alert_count": tenant_alerts,
             "scope": "global",  # single device: totals are global
         }
+
+    # -- on-demand device profiling -------------------------------------------
+    def start_device_trace(self, log_dir: str) -> None:
+        """Begin a `torch.profiler` capture (host ops, and the card's
+        kernels and copies when the engine runs on CUDA); the trace goes to
+        `log_dir` as a Chrome trace when it stops (view in Perfetto or
+        chrome://tracing). Idempotent: a second call while tracing is a
+        no-op."""
+        if getattr(self, "_tracing", None) is not None:
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+        self._tracing = (profiler, log_dir)
+
+    def stop_device_trace(self) -> Optional[str]:
+        """End the capture and write it; returns the trace file's path
+        (None when no capture was open)."""
+        tracing = getattr(self, "_tracing", None)
+        if tracing is None:
+            return None
+        self._tracing = None
+        profiler, log_dir = tracing
+        profiler.__exit__(None, None, None)
+        import os
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(
+            log_dir, f"{self.name}-{time.strftime('%Y%m%d-%H%M%S')}"
+            f"-{os.getpid()}.trace.json")
+        profiler.export_chrome_trace(path)
+        return path
+
+    def on_stop(self, monitor) -> None:
+        # never leave a profiler capture open past the engine
+        self.stop_device_trace()

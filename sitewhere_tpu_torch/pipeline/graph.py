@@ -34,6 +34,7 @@ but capture each key `h2d_buffer_depth` times.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -132,6 +133,29 @@ class CapturedStep:
                    tuple(self.pool_handle))
 
 
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+_CAPTURE_STREAMS_LOCK = threading.Lock()
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream this card's captures record on: one per card, from
+    PyTorch's high-priority stream pool, which nothing else in the package
+    draws from. PyTorch hands its pooled streams out round robin, 32 per
+    priority, so once 32 threads have made their `device.own_stream`, the
+    default capture stream (from the normal pool) is also some thread's
+    own stream: that thread's queries would then land in the capture, and
+    its stream sync fail (cudaErrorStreamCaptureUnsupported) and
+    invalidate the capture."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _CAPTURE_STREAMS_LOCK:
+        stream = _CAPTURE_STREAMS.get(index)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(
+                index, priority=-1)
+        return stream
+
+
 def capture_step(step_fn: Callable[[torch.Tensor], ProcessOutputs],
                  blob_like: torch.Tensor, outputs_like: ProcessOutputs
                  ) -> CapturedStep:
@@ -148,7 +172,8 @@ def capture_step(step_fn: Callable[[torch.Tensor], ProcessOutputs],
                                device=device)
         before = {name: w.captures for name, w in STEP_KERNELS.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, stream=capture_stream(device),
+                              capture_error_mode="thread_local"):
             arena.store(out_flat, step_fn(static_blob))
     launches = {name: w.captures - before[name]
                 for name, w in STEP_KERNELS.items()}

@@ -54,17 +54,24 @@ class InboundProcessingService(LifecycleComponent):
 
     `engine` is a PipelineEngine; `events` is the tenant's
     DeviceEventManagement. Either may be None for partial wiring (e.g.
-    persist-only during replay). The reference's multi-host hooks
-    (ownership routing, lockstep feeding) and its latency-tier batcher come
-    with the sharded path and the instance (ROADMAP A6, A4).
+    persist-only during replay). `batcher` is the latency tier's shared
+    AdaptiveBatcher (pipeline/feed.py). The reference's multi-host hooks
+    (`cluster`: ownership routing, lockstep feeding) come with the sharded
+    path (ROADMAP A6); passing them raises.
     """
 
     def __init__(self, bus: EventBus, registry, events=None, engine=None,
                  tenant: str = "default",
                  naming: Optional[TopicNaming] = None,
+                 cluster=None,
+                 batcher=None,
                  persist_rule_alerts: bool = True,
                  metrics: Optional[MetricsRegistry] = None):
         super().__init__(f"inbound-processing:{tenant}")
+        if cluster is not None:
+            raise NotImplementedError(
+                "multi-host inbound hooks (ownership routing, lockstep "
+                "feeding) come with the sharded path: ROADMAP A6")
         self.bus = bus
         self.registry = registry
         self.events = events
@@ -72,6 +79,11 @@ class InboundProcessingService(LifecycleComponent):
         self.tenant = tenant
         self.naming = naming or TopicNaming()
         self.persist_rule_alerts = persist_rule_alerts
+        # latency tier (pipeline.mode="latency"): hot events route through
+        # the shared AdaptiveBatcher (pipeline/feed.py) instead of packing
+        # a per-consumer-poll batch — offers coalesce across tenants and
+        # flush on fill or linger, bounding ingest->alert wall time
+        self.batcher = batcher
         m = (metrics or MetricsRegistry()).scoped("inbound")
         self.processed_meter = m.meter("processed")
         self.unregistered_counter = m.counter("unregistered")
@@ -224,8 +236,15 @@ class InboundProcessingService(LifecycleComponent):
         is skipped for an all-replay batch."""
         events = [e for e, _ in hot]
         tokens = [t for _, t in hot]
-        pairs = (self.engine.submit_routed(batch)
-                 for batch in self.engine.packer.pack_events(events, tokens))
+        if self.batcher is not None:
+            # latency tier: coalesce into the shared adaptive batcher and
+            # wait for the flush (so consumer commit still means "reached
+            # device state", the same contract as the direct path)
+            pairs = self.batcher.offer(events, tokens).result(timeout=60.0)
+        else:
+            pairs = (self.engine.submit_routed(batch)
+                     for batch in self.engine.packer.pack_events(events,
+                                                                 tokens))
         for batch, outputs in pairs:
             if not self.persist_rule_alerts or self.events is None \
                     or suppress_effects:

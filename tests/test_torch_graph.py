@@ -17,12 +17,14 @@ On the card (marked `cuda`; skipped elsewhere — run with
 `python -m pytest --noconftest -m cuda tests/test_torch_graph.py`): the same
 world with real graphs, bit-equal to eager `process_batch` (chip_smoke's
 EagerTwin), the geofence kernel counted once per replay, one capture per
-key, and pipelined feeding equal to serial submits.
+key, pipelined feeding equal to serial submits, and a capture beside more
+threads querying on their own streams than PyTorch's stream pool holds.
 This file imports no JAX: the world comes from chip_smoke.py at a small
 size. Tolerance: none.
 """
 
 import dataclasses
+import threading
 
 import pytest
 import torch
@@ -255,3 +257,51 @@ def test_failed_capture_raises_on_card(card, monkeypatch):
     assert engine.health.state == FAILED
     with pytest.raises(RuntimeError, match="failed to capture"):
         engine.submit(small_batches(engine, 1, seed=3)[0])
+
+
+@pytest.mark.cuda
+def test_capture_beside_threads_on_their_own_streams_on_card(card):
+    """40 threads, more than PyTorch's pool of 32 streams a priority, work
+    and sync on their own streams (device.own_stream) while the engine's
+    first step is captured: the capture's stream is none of theirs, the
+    capture succeeds and the graph steps as the eager engine does."""
+    from sitewhere_tpu_torch.device import own_stream
+    from sitewhere_tpu_torch.pipeline.graph import capture_stream
+
+    streams, errors = set(), []
+    lock, stop = threading.Lock(), threading.Event()
+    ready = threading.Barrier(41, timeout=60)
+
+    def query():
+        try:
+            with own_stream(card):
+                stream = torch.cuda.current_stream(card)
+                with lock:
+                    streams.add(stream.cuda_stream)
+                x = torch.ones(4096, device=card)
+                ready.wait()
+                while not stop.is_set():
+                    (x * 2.0).sum()
+                    stream.synchronize()
+        except Exception as exc:  # noqa: BLE001 - asserted below
+            errors.append(exc)
+
+    engine = build_world(card, "auto", **SMALL)
+    twin = EagerTwin(engine)
+    batches = small_batches(engine, 3)
+    threads = [threading.Thread(target=query) for _ in range(40)]
+    for t in threads:
+        t.start()
+    try:
+        ready.wait()
+        _, _, outs = drive(engine, batches)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    assert not errors, errors[:3]
+    assert engine.graph_captures == 1
+    assert capture_stream(card).cuda_stream not in streams
+    for batch, out in zip(batches, outs):
+        assert_tree_bits_equal(twin.step(batch), out, "outputs")
+    twin.assert_state_equal(engine)

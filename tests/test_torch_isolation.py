@@ -68,7 +68,28 @@ def test_importing_every_module_loads_no_jax():
             "analytics.engine", "analytics.receiver", "serving",
             "serving.planner", "serving.wincache", "serving.executor",
             "streams", "streams.manager", "search", "search.providers",
-            "search.external")}
+            "search.external")} | {
+        # the instance and its REST gateway
+        f"sitewhere_tpu_torch.{m}" for m in (
+            "__main__", "instance", "assets", "assets.manager", "batch",
+            "batch.manager", "commands", "commands.delivery",
+            "commands.destinations", "commands.encoding", "commands.routing",
+            "connectors", "connectors.base", "connectors.filters",
+            "connectors.host", "connectors.sinks", "labels",
+            "labels.manager", "labels.png", "labels.qr", "model.tenant",
+            "model.user", "multitenant", "multitenant.engine",
+            "multitenant.instance", "multitenant.replication",
+            "multitenant.tenants", "registration", "registration.manager",
+            "rules.processor", "runtime.config", "runtime.config_model",
+            "runtime.logs", "runtime.scripts", "schedule", "schedule.cron",
+            "schedule.manager", "security", "security.auth",
+            "security.tokens", "security.users", "sources.decoders",
+            "sources.dedup", "sources.manager", "sources.receivers",
+            "sources.receivers_ext", "transport.coap", "transport.mqtt",
+            "transport.protobuf_compat", "transport.servers",
+            "transport.stomp", "web", "web.admin", "web.controllers",
+            "web.explorer", "web.marshal", "web.openapi", "web.pagejs",
+            "web.router", "web.server")}
     assert runtime <= set(info["modules"]) <= set(info["loaded"]) | \
         set(info["preloaded"])
     assert not [m for m in info["preloaded"] if _forbidden(m)]

@@ -1,0 +1,88 @@
+"""The reference's own scenario files, run on the port's classes.
+
+`load_reference(namespace, "test_web")` reads tests/test_web.py, renames its
+`sitewhere_tpu` imports to `sitewhere_tpu_torch` (the HTTP client stays the
+reference's: it is plain HTTP, and the port's client is a later slice), and
+executes it into the calling test module's namespace, so pytest collects
+every reference test and fixture there as a test of the port. The port's
+instance runs where it is told to: `SiteWhereInstance` is rebound to a
+subclass whose device defaults to the CPU, the way the port's tests ask for
+it. Where the port deliberately differs, the calling module lists the
+test in its `DIVERGES` and replaces it with one that asserts the port's
+behaviour.
+"""
+
+import pathlib
+import re
+
+import torch
+
+from sitewhere_tpu_torch.instance import SiteWhereInstance as _PortInstance
+
+TESTS = pathlib.Path(__file__).resolve().parent
+
+# imports that stay the reference's: the REST client (plain HTTP)
+_KEEP = ("sitewhere_tpu_torch.client",)
+
+
+class CPUInstance(_PortInstance):
+    """The port's instance, on the CPU unless a device is named."""
+
+    def __init__(self, *args, device="cpu", **kwargs):
+        super().__init__(*args, device=device, **kwargs)
+
+
+def port_source(name: str, replacements=()) -> str:
+    """tests/<name>.py with the package renamed; `replacements` are extra
+    (old, new) text edits, each of which must apply."""
+    src = (TESTS / f"{name}.py").read_text()
+    src = re.sub(r"\bsitewhere_tpu\b", "sitewhere_tpu_torch", src)
+    # an instance built inside a test body runs on the CPU too
+    src = src.replace("from sitewhere_tpu_torch.instance import "
+                      "SiteWhereInstance",
+                      "from test_torch_scenarios import "
+                      "CPUInstance as SiteWhereInstance")
+    for keep in _KEEP:
+        src = src.replace(keep, keep.replace("sitewhere_tpu_torch",
+                                             "sitewhere_tpu"))
+    for old, new in replacements:
+        assert old in src, f"{name}: {old!r} not in the reference"
+        src = src.replace(old, new)
+    return src
+
+
+def load_reference(namespace: dict, name: str, replacements=(),
+                   diverges=()) -> list:
+    """Execute the renamed reference file into `namespace`; returns the
+    names of its tests. Tests named in `diverges` are dropped (the caller
+    defines their port versions)."""
+    # tracebacks point at the reference's lines (edits keep line counts)
+    code = compile(port_source(name, replacements), str(TESTS / f"{name}.py"),
+                   "exec")
+    exec(code, namespace)
+    if "SiteWhereInstance" in namespace:
+        namespace["SiteWhereInstance"] = CPUInstance
+    tests = sorted(
+        [k for k in namespace if k.startswith("test_")]
+        + [f"{k}.{m}" for k in namespace if k.startswith("Test")
+           for m in dir(namespace[k]) if m.startswith("test_")])
+    for test in diverges:
+        assert test in namespace, f"{name}: no test {test!r} to replace"
+        del namespace[test]
+    return tests
+
+
+def test_renaming_keeps_the_client_and_the_cpu_default():
+    src = port_source("test_web")
+    assert "from sitewhere_tpu.client import" in src
+    assert "from test_torch_scenarios import CPUInstance as " \
+        "SiteWhereInstance" in src
+    assert "from sitewhere_tpu_torch.web import RestServer" in src
+    assert "sitewhere_tpu." not in src.replace("sitewhere_tpu.client", "")
+    if not torch.cuda.is_available():
+        try:
+            _PortInstance(instance_id="no-cuda-default")
+        except RuntimeError as exc:
+            assert "CUDA" in str(exc)
+        else:
+            raise AssertionError("the port's instance fell back to the CPU")
