@@ -127,6 +127,31 @@ Phases (any failure prints its error and exits non-zero, with no result):
      duplicate rows; (d) `check` and `serve --port 0` in subprocesses as a
      user runs them. `python3 chip_smoke.py --instance-only` runs phase 10
      alone (no result line).
+ 11. the feeder fleet landing on the card and the control-plane cluster:
+     FEEDER_RECORDS records of wire frames, one full batch of phase 3's
+     traffic each (record r holds only devices of class r % FEEDER_CLASSES,
+     so every device's events keep their order in any partitioning), on
+     fresh phase 3 engines: (a) inline FastWireIngest + submit; (b) 1, 2
+     and 4 FeederWorker threads over a busnet loopback into a
+     FeederService (the first beside threads syncing their own streams,
+     then FEEDER_PROFILED more blobs under the profiler); (c) two
+     `python -m sitewhere_tpu_torch serve --feeder` processes; (d) a worker
+     that dies between a blob's ack and its commit, and a successor at a
+     higher epoch that replays the partition. Every landing: each record
+     stepped exactly once with the inline run's blob and alerts
+     (materialized in an on_outputs hook), one capture, B1 launched once a
+     blob (counts set to 0 before each run and read after), flight records
+     of h2d/dispatch/stage_wait/guard only, canonical state and presence
+     transitions equal the inline run's; (d) counts replayed blobs dropped
+     and a takeover. events/s, mesh_host_cpu_ms_per_step,
+     step_ms_per_blob and handoff_ms_per_blob (bench.py's names) and the
+     walls are printed. Then three `serve --cluster-peers ... --supervise`
+     processes, each with its engine on the card in the default
+     configuration, through tests/test_provisioning_cluster.py's drill,
+     and host 0's cluster telemetry; boot walls, convergence times, the
+     restart wall and the card's compute processes are printed.
+     `python3 chip_smoke.py --feeders-only` runs phase 11 alone (no result
+     line).
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -1989,18 +2014,24 @@ def phase_durable(dev, card, main_ref, stateful_ref):
 
 # -- phase 8: the ingest host tier --------------------------------------------
 
-def encode_delivery(rng, epoch, n_registered, batch, n_control):
+def encode_delivery(rng, epoch, n_registered, batch, n_control,
+                    device_class=None):
     """One delivery's wire bytes: `batch` hot frames of the headline traffic
     (the 60/30/10 mix, values U(0,100), lat/lon in the box, ts within 1 s
     of the epoch, INGEST_UNKNOWN of them from tokens the registry does not
-    hold) and `n_control` REGISTER frames spread among them. Returns
-    (frame byte lengths in order, the bytes, the unknown tokens in order,
-    the REGISTER frames)."""
+    hold) and `n_control` REGISTER frames spread among them. With
+    `device_class` c, every device index is moved to its neighbour that is
+    c modulo FEEDER_CLASSES (phase 11). Returns (frame byte lengths in
+    order, the bytes, the unknown tokens in order, the REGISTER frames)."""
     from sitewhere_tpu_torch.transport.wire import (
         MessageType, WireCodec, encode_frame)
 
     kind = rng.choice(3, size=batch, p=[0.6, 0.3, 0.1])
     dev = rng.integers(1, n_registered + 1, batch)
+    if device_class is not None:
+        dev = dev - dev % FEEDER_CLASSES + device_class
+        dev[dev < 1] += FEEDER_CLASSES
+        dev[dev > n_registered] -= FEEDER_CLASSES
     unknown = rng.random(batch) < INGEST_UNKNOWN
     ts = epoch + rng.integers(0, 1000, batch)
     value = rng.uniform(0, 100, batch)
@@ -3315,12 +3346,13 @@ def phase_read_side(dev, card, main_ref):
 # -- phase 10: the instance behind `serve` -----------------------------------------
 
 INSTANCE_REST_DEVICES = 64
-# 40 payloads of 4,096 events: 163,840 events, 20 batches of the default
+# 24 payloads of 4,096 events: 98,304 events, 12 batches of the default
 # configuration, sent back to back to the running instance as a gateway
-# sends them
-INSTANCE_PAYLOADS = 40
+# sends them (cut from 40 and 4 beside the pollers: on a slow host the
+# phase alone took ~500 s of the script's 1,200 s limit)
+INSTANCE_PAYLOADS = 24
 INSTANCE_PAYLOAD_EVENTS = 4096        # events a wire payload
-INSTANCE_POLLED = 4                   # payloads sent beside the REST pollers
+INSTANCE_POLLED = 2                   # payloads sent beside the REST pollers
 INSTANCE_CLIENTS = 8                  # REST pollers beside the ingest
 # each poller's pause between requests, a dashboard's refresh: pollers in
 # a tight loop hold the interpreter lock so much that the inbound consumer
@@ -3418,27 +3450,27 @@ def provision_over_rest(rest, zones):
     """The operator's REST script: 64 devices, an area with the zones, 16
     threshold and 64 geofence rules, the stateful families."""
     for command in INSTANCE_COMMANDS:
-        rest.ok("POST", "/api/devicetypes/sensor/commands",
-                {"token": command, "name": command})
+        rest.post("/api/devicetypes/sensor/commands",
+                  {"token": command, "name": command})
     for i in range(INSTANCE_REST_DEVICES):
-        rest.ok("POST", "/api/devices", {"token": f"rest-{i}",
-                                         "device_type_token": "sensor"})
-        rest.ok("POST", "/api/assignments", {"token": f"as-rest-{i}",
-                                             "device_token": f"rest-{i}"})
-    rest.ok("POST", "/api/areas", {"token": "zones", "name": "zones"})
+        rest.post("/api/devices", {"token": f"rest-{i}",
+                                   "device_type_token": "sensor"})
+        rest.post("/api/assignments", {"token": f"as-rest-{i}",
+                                       "device_token": f"rest-{i}"})
+    rest.post("/api/areas", {"token": "zones", "name": "zones"})
     for z, verts in enumerate(zones):
-        rest.ok("POST", "/api/areas/zones/zones", {
+        rest.post("/api/areas/zones/zones", {
             "token": f"zone-{z}", "name": f"zone-{z}",
             "bounds": [{"latitude": float(v[0]), "longitude": float(v[1])}
                        for v in verts]})
     for i in range(N_THRESHOLD):
-        rest.ok("POST", "/api/rules", {
+        rest.post("/api/rules", {
             "type": "threshold", "token": f"thr-{i}",
             "measurement_name": "m1", "operator": ">",
             "threshold": 95.0 + i, "alert_level": "WARNING"})
     order = np.random.default_rng(SEED).permutation(len(zones))
     for g in range(N_GEOFENCE):
-        rest.ok("POST", "/api/rules", {
+        rest.post("/api/rules", {
             "type": "geofence", "token": f"fence-{g}",
             "zone_token": f"zone-{int(order[g])}",
             "condition": "inside" if g % 2 == 0 else "outside",
@@ -3447,7 +3479,7 @@ def provision_over_rest(rest, zones):
     for path, specs in (("ruleprograms", programs), ("models", models),
                         ("actuations", policies)):
         for spec in specs:
-            rest.ok("POST", f"/api/tenants/default/{path}", spec)
+            rest.post(f"/api/tenants/default/{path}", spec)
 
 
 def instance_payloads(epoch_ms, tokens, seed=SEED + 10):
@@ -3648,6 +3680,8 @@ def rest_pollers(rest, tokens, stop):
     """INSTANCE_CLIENTS threads polling the read routes until `stop`, each
     pausing INSTANCE_POLL_PERIOD_S between requests; returns the threads
     and {route class: [ms]}."""
+    from sitewhere_tpu_torch.client import SiteWhereClientError
+
     samples = {k: [] for k in ("events", "devicestate", "topology", "flight",
                                "metrics", "windows")}
     errors = []
@@ -3671,13 +3705,15 @@ def rest_pollers(rest, tokens, stop):
             }[kind]
             t0 = time.perf_counter()
             try:
-                status, body = rest.call("GET", path, query=query)
+                rest.get(path, **(query or {}))
+            except SiteWhereClientError as exc:
+                if exc.status != 404:   # a device not seen yet: 404
+                    errors.append(f"{kind}: HTTP {exc.status} "
+                                  f"{str(exc.payload)[:500]}")
             except Exception as exc:  # noqa: BLE001 - reported below
                 errors.append(f"{kind}: {exc!r}")
                 continue
             ms = (time.perf_counter() - t0) * 1e3
-            if status not in (200, 404):   # a device not seen yet: 404
-                errors.append(f"{kind}: HTTP {status} {str(body)[:500]}")
             with lock:
                 samples[kind].append(ms)
             stop.wait(INSTANCE_POLL_PERIOD_S)
@@ -3687,6 +3723,16 @@ def rest_pollers(rest, tokens, stop):
     for t in threads:
         t.start()
     return threads, samples, errors
+
+
+def rest_client(base_url):
+    """The port's REST client with a JWT for admin:password (a window
+    query beside the ingest may take seconds)."""
+    from sitewhere_tpu_torch.client import SiteWhereClient
+
+    client = SiteWhereClient(base_url, timeout=120.0)
+    client.authenticate("admin", "password")
+    return client
 
 
 def _pct(xs, q):
@@ -3700,8 +3746,6 @@ def cli_as_a_user(card_name, data_dir):
     import os
     import re
     import signal
-
-    from sitewhere_tpu_torch.__main__ import RestCalls
 
     env = dict(os.environ, PYTHONUNBUFFERED="1")
     chk = subprocess.run([sys.executable, "-m", "sitewhere_tpu_torch",
@@ -3724,9 +3768,9 @@ def cli_as_a_user(card_name, data_dir):
             url = m.group(1) if m else None
         assert url, "serve did not come up:\n" + "".join(lines)
         boot_s = time.perf_counter() - t0
-        rest = RestCalls(url)
-        version = rest.ok("GET", "/api/system/version")
-        topology = rest.ok("GET", "/api/instance/topology")
+        rest = rest_client(url)
+        version = rest.get("/api/system/version")
+        topology = rest.get("/api/instance/topology")
         assert topology["device"]["type"] == "cuda", topology.get("device")
         assert topology["device"]["name"] == card_name
         proc.send_signal(signal.SIGTERM)
@@ -3745,7 +3789,6 @@ def phase_instance(dev, card, name):
     """Phase 10: the default-configuration instance behind `serve`, on the
     card, against the same instance on the CPU. Returns the readings and
     the instance path's launches."""
-    from sitewhere_tpu_torch.__main__ import RestCalls
     from sitewhere_tpu_torch.ops import segsum
     from sitewhere_tpu_torch.sources import InboundEventSource, WireDecoder
     from sitewhere_tpu_torch.sources.receivers import (
@@ -3805,7 +3848,8 @@ def phase_instance(dev, card, name):
         out["register_wall_s"] = time.perf_counter() - t0
         _, _, zones = random_world(SEED, 1, N_ZONES, INSTANCE_ZONE_VERTS,
                                    box=LAT_LON_BOX, radius=ZONE_RADIUS)
-        rests = [RestCalls(card_rest.base_url), RestCalls(cpu_rest.base_url)]
+        rests = [rest_client(card_rest.base_url),
+                 rest_client(cpu_rest.base_url)]
         t0 = time.perf_counter()
         for rest in rests:
             provision_over_rest(rest, zones)
@@ -3936,7 +3980,7 @@ def phase_instance(dev, card, name):
 
         # (c) a checkpoint, one payload past it
         t0 = time.perf_counter()
-        rests[0].ok("POST", "/api/instance/checkpoint")
+        rests[0].post("/api/instance/checkpoint")
         out["checkpoint_save_s"] = time.perf_counter() - t0
         for payload, _, requests in payloads[-INSTANCE_AFTER_SAVE:]:
             paced(card_inst, send, payload, requests)
@@ -4005,6 +4049,773 @@ def phase_instance(dev, card, name):
     return out
 
 
+# -- phase 11: the feeder fleet on the card, the control-plane cluster -----------
+
+# wire-frame records of one full batch each (BATCH events); record r holds
+# only devices of class r % FEEDER_CLASSES, so every device's events sit in
+# one partition, in order, for 1, 2 and 4 partitions alike
+FEEDER_RECORDS = 8
+FEEDER_CLASSES = 4
+FEEDER_THREADS = (1, 2, 4)     # run (b): in-process workers over busnet
+FEEDER_PROCESSES = 2           # run (c): `serve --feeder` subprocesses
+FEEDER_DEATH_AFTER = 2         # run (d): the worker dies after this many acks
+FEEDER_PROFILED = 3            # records landed under the profiler
+FEEDER_QUERY_THREADS = 8       # window-query threads beside run (b)
+FEEDER_QUERY_ROWS = 4096       # rows a window query folds
+FEEDER_TIMEOUT_S = 300.0
+FEEDER_TOPIC = "feeder-frames"
+# the landing's flight records carry only these segments
+LANDING_SEGMENTS = {"h2d", "dispatch", "stage_wait", "guard"}
+CLUSTER_HOSTS = 3
+CLUSTER_WAIT_S = 240.0
+# `python -m sitewhere_tpu_torch` subprocesses run from the checkout
+REPO_ROOT = str(__import__("pathlib").Path(__file__).resolve().parent)
+
+
+def feeder_engine(dev, epoch):
+    """Phase 3's world on `dev`, its params built before any traffic (rule
+    alert types are interned then; a device alert's type when packed)."""
+    from sitewhere_tpu_torch.runtime.flight import FlightRecorder
+
+    engine = build_world(dev, "auto", epoch)
+    engine.flight = FlightRecorder(capacity=64)
+    engine._ensure_params()
+    return engine
+
+
+def _blob_key(blob):
+    import hashlib
+
+    return hashlib.sha1(np.ascontiguousarray(blob).tobytes()).hexdigest()
+
+
+def inline_feeder_run(dev, epoch, records, card):
+    """Run (a): the records through FastWireIngest + submit +
+    materialize_alerts on one card engine: each record's packed blob (its
+    key), its alerts, the canonical state before the sweep, the sweep's
+    transitions, and the inline readings."""
+    from sitewhere_tpu_torch.ops.pack import batch_to_blob
+    from sitewhere_tpu_torch.sources.fastlane import FastWireIngest
+
+    engine = feeder_engine(dev, epoch)
+    ingest = FastWireIngest(engine.packer)
+    alerts, keys, walls, cpus = {}, [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for data in records:
+        ts, c0 = time.perf_counter(), time.thread_time()
+        res = ingest.ingest(data)
+        if len(res.batches) != 1 or res.n_events != BATCH:
+            raise AssertionError("a record is not one full batch")
+        batch = res.batches[0]
+        key = _blob_key(batch_to_blob(batch))
+        got = engine.materialize_alerts(batch, engine.submit(batch))
+        alerts[key] = _alert_keys(got)
+        keys.append(key)
+        walls.append(time.perf_counter() - ts)
+        cpus.append(time.thread_time() - c0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(set(keys)) != len(keys):
+        raise AssertionError("two records packed the same blob")
+    ref = {"alerts": alerts, "keys": keys,
+           "state": engine.canonical_state(),
+           "captures": engine.graph_captures}
+    ref["missing"] = engine.presence_sweep()
+    ref["present"] = engine.state.present.clone()
+    # per record after the first (which steps eagerly and captures)
+    readings = {"wall_s": wall,
+                "events_per_s": len(records) * BATCH / wall,
+                "events_per_s_after_first":
+                    (len(records) - 1) * BATCH / sum(walls[1:]),
+                "first_record_ms": walls[0] * 1e3,
+                "mesh_host_cpu_ms_per_step": statistics.mean(cpus[1:]) * 1e3,
+                "record_ms_p50": statistics.median(walls[1:]) * 1e3,
+                "alerts": sum(len(a) for a in alerts.values())}
+    log(f"[feeders] (a) inline FastWireIngest + submit: "
+        f"{json.dumps(readings)} on {card}")
+    return ref, readings
+
+
+class _Landing:
+    """A landing host on the card: an EventBus of `partitions` partitions
+    holding the records (record r on partition r % partitions), its busnet
+    edge, and a FeederService whose on_outputs hook materializes each
+    landed blob's alerts. The hook keeps its own work off the blob's flight
+    record (which then shows the landing's work only) and out of the
+    per-blob step and CPU readings."""
+
+    def __init__(self, dev, epoch, records, partitions):
+        from sitewhere_tpu_torch.feeders import FeederService
+        from sitewhere_tpu_torch.ops.pack import blob_to_batch_np
+        from sitewhere_tpu_torch.runtime.bus import EventBus
+        from sitewhere_tpu_torch.runtime.busnet import BusServer
+
+        landing, mine = self, threading.local()
+
+        class Service(FeederService):
+            """Times each blob that steps: the request's wall and thread
+            CPU, its step (the hook's part separately)."""
+
+            def _op_blob(self, req):
+                t0, c0 = time.perf_counter(), time.thread_time()
+                mine.blob = None
+                out = super()._op_blob(req)
+                if mine.blob is not None:
+                    mine.blob.update(handle_s=time.perf_counter() - t0,
+                                     cpu_s=time.thread_time() - c0)
+                return out
+
+            def _step_single(self, blob, n_events, age, order):
+                landing.blob, t0 = blob, time.perf_counter()
+                mine.blob = landing.current = {}
+                out = super()._step_single(blob, n_events, age, order)
+                landing.current["step_s"] = time.perf_counter() - t0
+                landing.per_blob.append(landing.current)
+                return out
+
+        def hook(engine, outputs, _rec):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            batch = blob_to_batch_np(self.blob)
+            last, engine._flight_last = engine._flight_last, None
+            try:
+                got = engine.materialize_alerts(batch, outputs)
+            finally:
+                engine._flight_last = last
+            self.steps.append((_blob_key(self.blob), _alert_keys(got)))
+            end = time.perf_counter()
+            self.current.update(hook_s=end - t0, end=end,
+                                hook_cpu_s=time.thread_time() - c0)
+
+        self.engine = feeder_engine(dev, epoch)
+        self.steps, self.per_blob = [], []
+        self.blob = self.current = None
+        self.bus = EventBus(partitions=partitions)
+        self.server = BusServer(self.bus)
+        self.server.start()
+        self.service = Service(self.engine, self.server, FEEDER_TOPIC,
+                               lease_ttl_s=60.0, on_outputs=hook)
+        self.publish(records)
+
+    def publish(self, records):
+        topic = self.bus.topic(FEEDER_TOPIC)
+        n = len(topic.partitions)
+        for r, data in enumerate(records):
+            topic.partitions[r % n].append(f"r{r}".encode(), data)
+
+    def wait(self, n_steps, what, procs=()):
+        deadline = time.perf_counter() + FEEDER_TIMEOUT_S
+        while len(self.per_blob) < n_steps:
+            dead = [p.returncode for p in procs if p.poll() is not None]
+            if dead:
+                raise AssertionError(f"{what}: a worker process exited "
+                                     f"{dead[0]}")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{what}: {len(self.steps)} of "
+                                     f"{n_steps} blobs landed in "
+                                     f"{FEEDER_TIMEOUT_S:.0f} s")
+            time.sleep(0.002)
+
+    def readings(self, t_ready, wall):
+        """bench.py's feeder readings: events/s from the workers' start
+        (`t_ready`, connected and leased) to the last blob's end, as
+        bench.py's curve counts it; the same from the first blob's end
+        (which steps eagerly and captures) to the last's; per blob after
+        the first, the landing's thread CPU and step host ms (the hook's
+        part left out) and the handoff (request wall less its step)."""
+        b = self.per_blob
+        steady = b[1:]
+
+        def mean_ms(f):
+            return statistics.mean(f(x) for x in steady) * 1e3
+
+        return {"blobs": len(b), "wall_s": wall,
+                "events_per_s": len(b) * BATCH / (b[-1]["end"] - t_ready),
+                "events_per_s_after_first": len(steady) * BATCH
+                / (b[-1]["end"] - b[0]["end"]),
+                "first_blob_ms": (b[0]["step_s"] - b[0]["hook_s"]) * 1e3,
+                "mesh_host_cpu_ms_per_step":
+                    mean_ms(lambda x: x["cpu_s"] - x["hook_cpu_s"]),
+                "step_ms_per_blob":
+                    mean_ms(lambda x: x["step_s"] - x["hook_s"]),
+                "handoff_ms_per_blob":
+                    mean_ms(lambda x: x["handle_s"] - x["step_s"]),
+                "materialize_hook_ms_per_blob":
+                    mean_ms(lambda x: x["hook_s"])}
+
+    def check(self, ref, launches, what):
+        """Every record stepped exactly once with the inline run's blob and
+        alerts; one capture; B1 launched once a landed blob; flight
+        records of the landing's segments only; state and presence
+        transitions equal the inline run's."""
+        engine = self.engine
+        keys = [k for k, _ in self.steps]
+        if sorted(keys) != sorted(ref["keys"]):
+            raise AssertionError(f"{what}: landed blobs are not the inline "
+                                 f"packs, each once ({len(keys)} steps)")
+        for key, alerts in self.steps:
+            if alerts != ref["alerts"][key]:
+                raise AssertionError(f"{what}: a blob's alerts differ from "
+                                     f"the inline step's")
+        if engine.graph_captures != 1:
+            raise AssertionError(f"{what}: {engine.graph_captures} captures")
+        if launches != len(keys):
+            raise AssertionError(f"{what}: B1 launched {launches} times for "
+                                 f"{len(keys)} blobs")
+        recs = engine.flight.export(last_n=len(keys))["records"]
+        extra = {s for r in recs for s in r["stages"]} - LANDING_SEGMENTS
+        if len(recs) != len(keys) or extra:
+            raise AssertionError(f"{what}: flight records hold {extra}")
+        assert_tree_bits_equal(ref["state"], engine.canonical_state(),
+                               f"{what} canonical state")
+        if engine.presence_sweep() != ref["missing"] or not torch.equal(
+                engine.state.present, ref["present"]):
+            raise AssertionError(f"{what}: presence transitions differ")
+
+    def close(self):
+        self.server.stop()
+        self.bus.close()
+
+
+def _thread_workers(port, n, name, epoch=1):
+    from sitewhere_tpu_torch.feeders import FeederWorker
+
+    workers = [FeederWorker("127.0.0.1", port, f"{name}-{i}", epoch=epoch,
+                            partitions=[i]) for i in range(n)]
+    for w in workers:
+        w.connect()
+        w.acquire_leases()
+    return workers
+
+
+def _query_threads(dev, n):
+    """`n` threads answering window queries (analytics/windows.py
+    `windowed_stats` over FEEDER_QUERY_ROWS rows, on each thread's own
+    stream, every grid copied back to the host) until the returned
+    finish() is called; finish() returns the queries answered."""
+    from sitewhere_tpu_torch.analytics.windows import windowed_stats
+    from sitewhere_tpu_torch.device import own_stream
+
+    stop, errors, answered = threading.Event(), [], [0] * n
+    ready = threading.Barrier(n + 1, timeout=60)
+
+    def query(i):
+        rng = np.random.default_rng(SEED + 120 + i)
+        rows = FEEDER_QUERY_ROWS
+        cols = (rng.integers(0, 64, rows).astype(np.int32),
+                rng.integers(0, 16_000, rows).astype(np.int32),
+                rng.uniform(0, 100, rows).astype(np.float32),
+                np.ones(rows, bool))
+        try:
+            with own_stream(dev):
+                ready.wait()
+                while not stop.is_set():
+                    windowed_stats(*cols, window_ms=1000, num_keys=64,
+                                   n_windows=16, device=dev).to("cpu")
+                    answered[i] += 1
+        except Exception as exc:  # noqa: BLE001 - raised by finish()
+            errors.append(exc)
+
+    threads = [threading.Thread(target=query, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    ready.wait()
+
+    def finish():
+        stop.set()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return sum(answered)
+
+    return finish
+
+
+def feeder_thread_run(dev, epoch, records, ref, n, card, profile=False,
+                      beside_queries=False):
+    """Run (b) at `n` in-process workers. With `profile`, FEEDER_PROFILED
+    more records are landed under the profiler afterwards; with
+    `beside_queries`, FEEDER_QUERY_THREADS threads answer window queries
+    on their own streams all along (the first blob's capture among
+    them)."""
+    what = f"(b) {n} worker thread(s)" + (
+        f" beside {FEEDER_QUERY_THREADS} window-query threads"
+        if beside_queries else "")
+    lb = _Landing(dev, epoch, records, n)
+    try:
+        finish = _query_threads(dev, FEEDER_QUERY_THREADS) \
+            if beside_queries else None
+        reset_launch_counts(lb.engine)
+        t0 = time.perf_counter()
+        workers = _thread_workers(lb.server.port, n, f"w{n}")
+        t_ready = time.perf_counter()
+        for w in workers:
+            w.start()
+        try:
+            lb.wait(len(records), what)
+        finally:
+            for w in workers:
+                w.stop()
+            answered = finish() if finish is not None else None
+        wall = time.perf_counter() - t0
+        launches = launch_counts(lb.engine)["points_in_zones"]
+        readings = lb.readings(t_ready, wall)
+        if answered is not None:
+            readings["window_queries_answered"] = answered
+        lb.check(ref, launches, what)
+        if profile:
+            lb.publish(records[:FEEDER_PROFILED])
+            done = len(lb.steps) + FEEDER_PROFILED
+            # connected (leases, the replica's journal) before the window
+            (prof,) = _thread_workers(lb.server.port, 1, "wprof")
+
+            def land():
+                prof.start()
+                try:
+                    lb.wait(done, "profiled landing")
+                finally:
+                    prof.stop()
+
+            wall_ms, _, on_device, busy, idle = device_profile(land)
+            readings["profiled"] = {
+                "blobs": FEEDER_PROFILED, "wall_ms": wall_ms,
+                "device_busy_ms": busy, "device_idle_share": idle,
+                "device_events": sum(e.count for e in on_device)}
+        log(f"[feeders] {what} over busnet == inline (blobs, alerts, state, "
+            f"presence; one capture; B1 {launches} launches for "
+            f"{len(records)} blobs): {json.dumps(readings)} on {card}")
+        return readings, launches
+    finally:
+        lb.close()
+        del lb
+        torch.cuda.empty_cache()
+
+
+def feeder_process_run(dev, epoch, records, ref, card, tmp):
+    """Run (c): FEEDER_PROCESSES `python -m sitewhere_tpu_torch serve
+    --feeder` workers (their pack off this interpreter's lock) against a
+    landing in this process."""
+    import re
+    import signal
+
+    n = FEEDER_PROCESSES
+    lb = _Landing(dev, epoch, records, n)
+    procs, ready, outs = [], [], []
+    try:
+        reset_launch_counts(lb.engine)
+        t0 = time.perf_counter()
+        for i in range(n):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", "-m", "sitewhere_tpu_torch", "serve",
+                 "--feeder", "--feeder-connect",
+                 f"127.0.0.1:{lb.server.port}", "--feeder-name",
+                 f"proc-{i}", "--feeder-partitions", str(i), "--data-dir",
+                 f"{tmp}/feeder-{i}"], cwd=REPO_ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            outs.append([])
+
+        def read(i):
+            for line in procs[i].stdout:
+                outs[i].append(line)
+                if re.search(r"feeder '.*' serving", line):
+                    ready.append(time.perf_counter())
+
+        readers = [threading.Thread(target=read, args=(i,), daemon=True)
+                   for i in range(n)]
+        for t in readers:
+            t.start()
+        lb.wait(len(records), "(c) serve --feeder processes", procs)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=120) for p in procs]
+        for t in readers:
+            t.join(timeout=30)
+        if rcs != [0] * n or len(ready) != n:
+            raise AssertionError(f"serve --feeder exited {rcs}:\n" + "".join(
+                "".join(o[-20:]) for o in outs))
+        launches = launch_counts(lb.engine)["points_in_zones"]
+        readings = lb.readings(min(ready), wall)
+        readings["boot_s"] = max(ready) - t0
+        lb.check(ref, launches, "(c) serve --feeder")
+        log(f"[feeders] (c) {n} `serve --feeder` processes == inline "
+            f"(B1 {launches} launches): {json.dumps(readings)} on {card}")
+        return readings, launches
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        lb.close()
+        del lb
+        torch.cuda.empty_cache()
+
+
+def feeder_takeover_run(dev, epoch, records, ref, card):
+    """Run (d): a worker dies between a blob's ack and its offset commit
+    (the `feeder_process_death` fault point) after FEEDER_DEATH_AFTER
+    acks; a successor at a higher epoch steals the live lease and replays
+    the partition: the landing's watermark drops the acked extents."""
+    from sitewhere_tpu_torch.feeders import FeederWorker
+    from sitewhere_tpu_torch.runtime.faults import (
+        FaultPlan, FaultRule, arm, disarm)
+    from sitewhere_tpu_torch.runtime.metrics import GLOBAL_METRICS
+
+    replays = GLOBAL_METRICS.counter("feeder.replay_dropped")
+    takeovers = GLOBAL_METRICS.counter("takeover.count")
+    replay0, takeover0 = replays.value, takeovers.value
+    lb = _Landing(dev, epoch, records, 1)
+    try:
+        reset_launch_counts(lb.engine)
+        t0 = time.perf_counter()
+        dying = FeederWorker("127.0.0.1", lb.server.port, "w-dying",
+                             epoch=1)
+        arm(FaultPlan(seed=SEED, rules=[FaultRule(
+            "feeder_process_death", times=1, after=FEEDER_DEATH_AFTER)]))
+        try:
+            for _ in range(50):
+                dying.run_once(timeout_s=0.05)
+                if dying.dead:
+                    break
+        finally:
+            disarm()
+        dying.client.close()
+        died_after = len(lb.steps)
+        if not dying.dead or died_after != FEEDER_DEATH_AFTER + 1:
+            raise AssertionError(f"the worker did not die after "
+                                 f"{FEEDER_DEATH_AFTER + 1} acks "
+                                 f"({died_after} landed)")
+        successor = FeederWorker("127.0.0.1", lb.server.port,
+                                 "w-successor", epoch=2)
+        successor.connect()
+        if not successor.acquire_leases():
+            raise AssertionError("the successor got no lease")
+        successor.start()
+        try:
+            lb.wait(len(records), "(d) takeover")
+            # the replayed extents were dropped, nothing stepped twice
+            time.sleep(0.5)
+        finally:
+            successor.stop()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(lb.engine)["points_in_zones"]
+        readings = lb.readings(t0, wall)
+        readings.update(died_after_blobs=died_after,
+                        replay_dropped=replays.value - replay0,
+                        takeovers=takeovers.value - takeover0)
+        if readings["replay_dropped"] < 1 or readings["takeovers"] < 1:
+            raise AssertionError(f"(d) takeover: {readings}")
+        lb.check(ref, launches, "(d) takeover")
+        log(f"[feeders] (d) takeover at a higher epoch, replay deduplicated "
+            f"== inline (B1 {launches} launches, no blob stepped twice): "
+            f"{json.dumps(readings)} on {card}")
+        return readings, launches
+    finally:
+        lb.close()
+        del lb
+        torch.cuda.empty_cache()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gpu_processes():
+    """nvidia-smi's compute processes: [(pid, used MiB)], or "not measured"
+    where it lists none (a pid namespace may hide them)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "not measured"
+    rows = [ln.split(",") for ln in out.splitlines() if ln.strip()]
+    return [(int(p), float(m)) for p, m in rows] or "not measured"
+
+
+class _HostLog:
+    """A supervised serve process's output, read on a thread."""
+
+    def __init__(self, proc):
+        self.proc, self.lines = proc, []
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+
+    def text(self):
+        return "".join(self.lines)
+
+    def count(self, what):
+        return self.text().count(what)
+
+    def child_pids(self):
+        import re
+
+        return [int(m) for m in re.findall(r"child pid=(\d+)", self.text())]
+
+
+def _until(predicate, what, logs, timeout_s=CLUSTER_WAIT_S):
+    """Seconds until predicate() holds; raises with the hosts' output."""
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > timeout_s:
+            tails = "\n".join(f"--- host {i} ---\n{h.text()[-3000:]}"
+                              for i, h in enumerate(logs))
+            raise AssertionError(f"timed out waiting for {what}\n{tails}")
+        time.sleep(0.25)
+    return time.perf_counter() - t0
+
+
+def control_plane_drill(dev, card, tmp):
+    """CLUSTER_HOSTS `serve --cluster-peers ... --supervise` processes, each
+    with its engine on the card in the default configuration, through
+    tests/test_provisioning_cluster.py's drill: tenant and user created on
+    host 0, an event through host 1's bus edge, a JWT minted on host 2,
+    host 1 killed and rebuilt by its supervisor, the tenant deleted on
+    host 2; host 0's cluster telemetry names every peer."""
+    import os
+    import signal
+
+    import msgpack
+
+    from sitewhere_tpu_torch.client import SiteWhereClient
+    from sitewhere_tpu_torch.model.common import _asdict
+    from sitewhere_tpu_torch.model.event import (
+        DeviceEventBatch, DeviceMeasurement)
+    from sitewhere_tpu_torch.runtime.bus import TopicNaming
+    from sitewhere_tpu_torch.runtime.busnet import BusClient
+
+    n, instance_id = CLUSTER_HOSTS, "cpdrill"
+    bus_ports = [_free_port() for _ in range(n)]
+    rest_ports = [_free_port() for _ in range(n)]
+    peers = ",".join(f"{i}=127.0.0.1:{bus_ports[i]}" for i in range(n))
+    cfg = f"{tmp}/cluster.json"
+    with open(cfg, "w") as f:
+        json.dump({"instance": {"id": instance_id},
+                   "cluster": {"heartbeat_s": 0.5, "stale_after_s": 5.0},
+                   "persist": {"checkpoint_interval_s": None}}, f)
+
+    def client(port, tenant="default", user="admin", password="password"):
+        c = SiteWhereClient(f"http://127.0.0.1:{port}", tenant=tenant,
+                            timeout=60.0)
+        c.authenticate(user, password)
+        return c
+
+    def attempt(fn):
+        try:
+            return fn()
+        except Exception:  # noqa: BLE001 - polled until it holds
+            return None
+
+    def publish(port, token, name, value):
+        naming = TopicNaming(instance=instance_id)
+        payload = msgpack.packb({
+            "sourceId": "drill", "deviceToken": token,
+            "kind": "DeviceEventBatch",
+            "request": _asdict(DeviceEventBatch(
+                device_token=token, measurements=[DeviceMeasurement(
+                    name=name, value=value,
+                    event_date=int(time.time() * 1000))])),
+            "metadata": {}}, use_bin_type=True)
+        bc = BusClient("127.0.0.1", port)
+        try:
+            bc.publish(naming.event_source_decoded_events("acme"),
+                       token.encode(), payload)
+        finally:
+            bc.close()
+
+    def engines(port):
+        topo = attempt(lambda: client(port).get_topology())
+        return None if topo is None else set(topo.get("tenant_engines", {}))
+
+    def devices(port):
+        listed = attempt(lambda: client(port, "acme").get(
+            "/api/devices", pageSize=100))
+        return {d["token"] for d in (listed or {}).get("results", [])}
+
+    def folded(port, name, value):
+        state = attempt(lambda: client(port, "acme").get(
+            "/api/devicestates/adev")) or {}
+        meas = state.get("lastMeasurements") or state.get(
+            "last_measurements") or {}
+        got = meas.get(name)
+        return (got[1] if isinstance(got, (list, tuple)) else got) == value
+
+    out = {}
+    sups, logs = [], []
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            sups.append(subprocess.Popen(
+                [sys.executable, "-u", "-m", "sitewhere_tpu_torch", "serve",
+                 "--supervise", "--supervise-backoff", "1", "--config", cfg,
+                 "--cluster-num-processes", str(n),
+                 "--cluster-process-id", str(i), "--cluster-peers", peers,
+                 "--bus-port", str(bus_ports[i]),
+                 "--port", str(rest_ports[i]),
+                 "--data-dir", f"{tmp}/host-{i}"], cwd=REPO_ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env))
+            logs.append(_HostLog(sups[-1]))
+        boots = [None] * n
+
+        def serving():
+            for i, h in enumerate(logs):
+                if boots[i] is None and h.count("REST gateway"):
+                    boots[i] = time.perf_counter() - t0
+            return all(b is not None for b in boots)
+
+        _until(serving, "all hosts serving", logs, timeout_s=300.0)
+        out["boot_s"] = boots
+        for h in logs:
+            if f"device       : {dev.type}" not in h.text():
+                raise AssertionError(f"a host's engine is not on {dev}:\n"
+                                     + h.text()[-2000:])
+        out["gpu_processes_mib"] = _gpu_processes()
+
+        c0 = client(rest_ports[0])
+        created = c0.post("/api/tenants", {
+            "token": "acme", "name": "Acme", "tenant_template_id": "empty"})
+        rep = created["replication"]
+        if rep.get("mode") != "replicated" or rep.get("peers") != n - 1:
+            raise AssertionError(f"tenant create: {rep}")
+        c0.post("/api/users", {
+            "username": "drill-user", "password": "drill-pw",
+            "authorities": ["REST", "VIEW_SERVER_INFO",
+                            "ADMINISTER_TENANTS"]})
+        c0t = client(rest_ports[0], "acme")
+        c0t.post("/api/devicetypes", {"token": "adt", "name": "drill"})
+        c0t.post("/api/devices", {"token": "adev",
+                                  "device_type_token": "adt"})
+        c0t.post("/api/assignments", {"token": "aas",
+                                      "device_token": "adev"})
+        out["tenant_engines_converged_s"] = _until(
+            lambda: all("acme" in (engines(p) or ()) for p in rest_ports),
+            "acme engines on every host", logs)
+        out["registry_converged_s"] = _until(
+            lambda: all("adev" in devices(p) for p in rest_ports[1:]),
+            "acme registry on hosts 1 and 2", logs)
+        publish(bus_ports[1], "adev", "temp", 42.5)
+        out["event_folded_s"] = _until(
+            lambda: folded(rest_ports[1], "temp", 42.5),
+            "the event folded on host 1", logs)
+        c2u = client(rest_ports[2], user="drill-user", password="drill-pw")
+        if c2u.get("/api/system/version").get("edition") is None:
+            raise AssertionError("the replicated user's JWT was refused")
+
+        telemetry = client(rest_ports[0]).get("/api/cluster/telemetry")
+        if sorted(telemetry["processes"]) != [str(i) for i in range(n)] \
+                or telemetry["stale_peers"]:
+            raise AssertionError(f"cluster telemetry: "
+                                 f"{sorted(telemetry['processes'])}, stale "
+                                 f"{telemetry['stale_peers']}")
+
+        for port in rest_ports:
+            client(port).post("/api/instance/checkpoint", {})
+        victim = logs[1].child_pids()[-1]
+        restarts, banners = logs[1].count("restarting in"), \
+            logs[1].count("REST gateway")
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        _until(lambda: logs[1].count("restarting in") > restarts,
+               "host 1's supervisor restart", logs)
+        _until(lambda: logs[1].count("REST gateway") > banners,
+               "host 1 serving again", logs)
+        _until(lambda: "acme" in (engines(rest_ports[1]) or ())
+               and "adev" in devices(rest_ports[1]),
+               "host 1 rebuilt acme from durable state", logs)
+        out["restart_wall_s"] = time.perf_counter() - t_kill
+        client(rest_ports[1], user="drill-user", password="drill-pw")
+        publish(bus_ports[1], "adev", "post", 77.0)
+        out["post_restart_event_folded_s"] = _until(
+            lambda: folded(rest_ports[1], "post", 77.0),
+            "the post-restart event folded on host 1", logs)
+
+        deleted = client(rest_ports[2]).delete("/api/tenants/acme")
+        if deleted["replication"]["tombstones"] < 1:
+            raise AssertionError(f"tenant delete: {deleted['replication']}")
+        out["delete_converged_s"] = _until(
+            lambda: all(e is not None and "acme" not in e
+                        for e in map(engines, rest_ports)),
+            "acme engines stopped everywhere", logs)
+        out["gpu_processes_mib_end"] = _gpu_processes()
+        for p in sups:
+            p.send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=120) for p in sups]
+        if rcs != [0] * n:
+            raise AssertionError(f"supervisors exited {rcs}")
+    finally:
+        for p in sups:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for h in logs:
+            for pid in h.child_pids():
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+    out["drill_wall_s"] = time.perf_counter() - t0
+    log(f"[cluster] {n} supervised `serve --cluster-peers` hosts, engines "
+        f"on {dev}: tenant, user, registry and an event converged, JWT on "
+        f"host 2, host 1 killed and rebuilt, delete converged, telemetry "
+        f"names every peer: {json.dumps(out)} on {card}")
+    return out
+
+
+def phase_feeders(dev, card):
+    """Phase 11: the feeder fleet landing on the card at phase 3's size,
+    then the control-plane cluster drill. Returns the readings and B1's
+    launches on the feeder path."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    epoch = int(time.time() * 1000) - EPOCH_LAG_MS
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 110)
+    records = [encode_delivery(rng, epoch, N_REGISTERED, BATCH, 0,
+                               device_class=r % FEEDER_CLASSES)[1]
+               for r in range(FEEDER_RECORDS)]
+    log(f"[feeders] {FEEDER_RECORDS} records of {BATCH} events encoded in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({sum(map(len, records))} bytes)")
+    out, launches = {}, 0
+    ref, out["inline"] = inline_feeder_run(dev, epoch, records, card)
+    for n in FEEDER_THREADS:
+        out[f"threads_{n}"], k = feeder_thread_run(
+            dev, epoch, records, ref, n, card, profile=(n == 1))
+        launches += k
+    out["threads_1_beside_queries"], k = feeder_thread_run(
+        dev, epoch, records, ref, 1, card, beside_queries=True)
+    launches += k
+    tmp = tempfile.TemporaryDirectory(prefix="swt-feeders-")
+    try:
+        out["processes"], k = feeder_process_run(dev, epoch, records, ref,
+                                                 card, tmp.name)
+        launches += k
+        out["takeover"], k = feeder_takeover_run(dev, epoch, records, ref,
+                                                 card)
+        launches += k
+        del ref
+        torch.cuda.empty_cache()
+        out["cluster"] = control_plane_drill(dev, card, tmp.name)
+    finally:
+        tmp.cleanup()
+    out["launches_feeder_path"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[feeders] readings {json.dumps(out)} on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
@@ -4016,6 +4827,13 @@ def main() -> int:
         torch.cuda.set_device(dev)
         card, name = phase_card()
         phase_instance(dev, card, name)
+        return 0
+    if sys.argv[1:] == ["--feeders-only"]:
+        # phase 11 alone, for debugging it (prints no result line)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        card, _ = phase_card()
+        phase_feeders(dev, card)
         return 0
     try:
         dev = torch.device("cuda", 0)
@@ -4038,6 +4856,7 @@ def main() -> int:
         _, ingest_launches = phase_ingest(dev, card, main_ref)
         read = phase_read_side(dev, card, main_ref)
         instance = phase_instance(dev, card, name)
+        feeders = phase_feeders(dev, card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4054,6 +4873,7 @@ def main() -> int:
         "launches_durable_path": durable_launches,
         "launches_ingest_path": ingest_launches,
         "launches_instance_path": instance_launches["points_in_zones"],
+        "launches_feeder_path": feeders["launches_feeder_path"],
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],

@@ -18,12 +18,14 @@ Commands:
   version  print the package version
   deadletters / assemble-checkpoint  as in the reference
 
-Single host only. These serve modes come with later slices and exit
-non-zero naming their ROADMAP item: the bus edge and the feeder fleet
-(`--bus-port`, `--feeder`, `--feeders`: A5), the control-plane-only
-cluster (`--cluster-peers`), the gang-restart supervisor (`--supervise`)
-and usage telemetry (A4b), the multi-host cluster and a sharded pipeline
-(`--cluster-coordinator`, `--shards` > 1: A6).
+One card a host. `serve` also takes the networked bus edge
+(`--bus-port`), the feeder fleet's landing zone on it (`--feeders`), a
+feeder worker (`serve --feeder`: host work only, no card), the
+control-plane cluster (`--cluster-peers` without a coordinator), the
+gang-restart supervisor (`--supervise`) and usage telemetry
+(`telemetry.*`). The multi-host SPMD cluster and a sharded pipeline
+(`--cluster-coordinator`, `--shards` > 1) come with the sharded path and
+exit non-zero naming ROADMAP A6.
 
 Configuration layers (runtime/config.py — the CLI uses the canonical
 ``DEFAULTS`` schema there): built-in defaults <- --config JSON file <-
@@ -233,12 +235,7 @@ def _install_stop_handlers(stop: Optional[threading.Event] = None
 
 # serve modes of later slices: (config key or flag, ROADMAP item, what)
 _LEFT_OUT = (
-    ("bus.edge_port", "A5", "the networked bus edge (runtime/busnet.py)"),
-    ("feeders.enabled", "A5", "the feeder fleet's landing zone"),
-    ("feeders.connect", "A5", "a feeder worker"),
-    ("cluster.peers", "A4b", "the control-plane-only cluster"),
     ("cluster.coordinator", "A6", "the multi-host cluster"),
-    ("telemetry.enabled", "A4b", "usage telemetry (runtime/telemetry.py)"),
 )
 
 
@@ -247,8 +244,140 @@ def _refuse(message: str) -> int:
     return 2
 
 
+def _parse_peers(spec: Optional[str]) -> dict:
+    """'0=hostA:9092,1=hostB:9092' -> {0: ("hostA", 9092), ...}."""
+    out = {}
+    if not spec:
+        return out
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        pid, _, addr = part.partition("=")
+        host, _, port = addr.rpartition(":")
+        out[int(pid)] = (host, int(port))
+    return out
+
+
+def _serve_feeder(cfg) -> int:
+    """Run ONE feeder worker process (``serve --feeder``): no instance, no
+    engine and no card — connect to the landing host's bus edge, lease
+    source partitions, and run decode -> intern -> pack -> ship on the host
+    until stopped. Composes with --supervise: a killed feeder restarts with
+    a freshly minted epoch, above any floor its previous incarnation was
+    fenced at."""
+    import os
+    import socket
+
+    from sitewhere_tpu_torch.feeders import FeederWorker
+    from sitewhere_tpu_torch.runtime.recovery import mint_epoch
+
+    connect = cfg.get("feeders.connect")
+    if not connect:
+        print("serve --feeder requires --feeder-connect host:port "
+              "(the mesh host's bus edge)", file=sys.stderr)
+        return 2
+    host, _, port = str(connect).rpartition(":")
+    name = cfg.get("feeders.name") or f"{socket.gethostname()}:{os.getpid()}"
+    spec = cfg.get("feeders.partitions")
+    partitions = None
+    if spec not in (None, ""):
+        partitions = [int(p) for p in str(spec).split(",") if p.strip()]
+    epoch = mint_epoch(cfg.get("persist.data_dir"))
+    stop = _install_stop_handlers()
+    worker = FeederWorker(
+        host or "127.0.0.1", int(port), name, epoch=epoch,
+        partitions=partitions,
+        poll_max_records=int(cfg.get("feeders.poll_max_records")),
+        shed_backoff_s=float(cfg.get("feeders.shed_backoff_s")),
+        hard_exit=True)
+    hello = worker.connect()
+    worker.acquire_leases()
+    print(f"sitewhere-tpu feeder '{name}' serving", flush=True)
+    print(f"  mesh host  : tcp://{connect}", flush=True)
+    print(f"  topic      : {hello['topic']} "
+          f"({hello['partitions']} partitions)", flush=True)
+    print(f"  epoch      : {epoch}", flush=True)
+    print(f"  partitions : {sorted(worker.owned) or '(contending)'}",
+          flush=True)
+    try:
+        while not stop.is_set():
+            if worker.run_once() == 0 and not worker.owned:
+                # nothing leased yet (another worker holds everything):
+                # retry acquisition on a lazy cadence instead of spinning
+                stop.wait(0.5)
+    finally:
+        worker.stop()
+    return 0
+
+
+def _start_telemetry(cfg, instance):
+    """Opt-in usage telemetry (the MicroserviceAnalytics role; None unless
+    telemetry.enabled and telemetry.endpoint are configured)."""
+    from sitewhere_tpu_torch.runtime.telemetry import build_from_config
+
+    telemetry = build_from_config(cfg, instance.instance_id)
+    if telemetry is not None:
+        telemetry.start()
+    return telemetry
+
+
+def _serve_control_plane(cfg) -> int:
+    """Boot one host of a control-plane-replicated deployment: a
+    single-card instance (its own engine) plus the busnet edge and the
+    replication stack — registry gossip, tenant/user provisioning with
+    reactive engine lifecycle, script replication, heartbeats. REST
+    mutations on any host converge everywhere without restarts; a killed
+    host restarts alone (wrap with --supervise) and rebuilds its tenant
+    set from checkpoint + durable stores, not templates."""
+    from sitewhere_tpu_torch.parallel.cluster import ControlPlaneCluster
+    from sitewhere_tpu_torch.web.server import RestServer
+
+    stop = _install_stop_handlers()
+    process_id = int(cfg.get("cluster.process_id"))
+    peers = _parse_peers(cfg.get("cluster.peers"))
+    num_processes = int(cfg.get("cluster.num_processes") or 0) or \
+        (len(peers) or 1)
+    instance = _build_instance(cfg)
+    edge_port = cfg.get("bus.edge_port")
+    cluster = ControlPlaneCluster(
+        instance, process_id, num_processes,
+        peer_bus_addrs=peers,
+        bus_host=cfg.get("api.host"),
+        bus_port=int(edge_port) if edge_port is not None else 0,
+        heartbeat_s=float(cfg.get("cluster.heartbeat_s")),
+        stale_after_s=float(cfg.get("cluster.stale_after_s")))
+    cluster.start()
+    _apply_rule_config(instance, cfg)
+    _apply_search_config(instance, cfg)
+    telemetry = _start_telemetry(cfg, instance)
+    rest = RestServer(instance, host=cfg.get("api.host"),
+                      port=int(cfg.get("api.port")),
+                      token_expiration_minutes=int(
+                          cfg.get("api.jwt_expiration_min")))
+    rest.start()
+
+    print(f"sitewhere-tpu control-plane host {process_id}/{num_processes} "
+          f"instance '{instance.instance_id}' serving", flush=True)
+    print(f"  REST gateway : {rest.base_url}", flush=True)
+    print(f"  bus edge     : tcp://{cfg.get('api.host')}:"
+          f"{cluster.bus_port}", flush=True)
+    print(f"  device       : {instance.device}", flush=True)
+
+    try:
+        while not stop.wait(1.0):
+            pass
+    finally:
+        rest.stop()
+        cluster.stop()
+        if telemetry is not None:
+            telemetry.stop()
+    return 0
+
+
 def cmd_serve(args) -> int:
     from sitewhere_tpu_torch.device import resolve_device
+    from sitewhere_tpu_torch.runtime.busnet import BusServer
     from sitewhere_tpu_torch.web.server import RestServer
 
     cfg = _build_config(args.config)
@@ -274,8 +403,7 @@ def cmd_serve(args) -> int:
         if value is not None:
             cfg.set(key, value)
     if getattr(args, "feeder", False):
-        return _refuse("serve --feeder (a feeder worker) comes with the "
-                       "feeder fleet: ROADMAP A5")
+        return _serve_feeder(cfg)
     if getattr(args, "feeders", False):
         cfg.set("feeders.enabled", True)
     for flag, key in (("cluster_coordinator", "cluster.coordinator"),
@@ -297,6 +425,12 @@ def cmd_serve(args) -> int:
         resolve_device(cfg.get("pipeline.device") or "cuda")
     except RuntimeError as exc:
         return _refuse(f"{exc} (serve --device cpu; no CUDA fallback)")
+    if cfg.get("cluster.peers") and cfg.get("cluster.process_id") is not None:
+        # peers without a coordinator: control-plane-only cluster — N
+        # independent single-card instances whose registries + tenant/
+        # user provisioning converge over busnet (parallel/cluster.py
+        # ControlPlaneCluster)
+        return _serve_control_plane(cfg)
 
     # graceful-shutdown handlers BEFORE the (slow) boot: a SIGTERM that
     # lands mid-boot or in the window right after the serving banner must
@@ -307,24 +441,56 @@ def cmd_serve(args) -> int:
     instance.start()
     _apply_rule_config(instance, cfg)
     _apply_search_config(instance, cfg)
+    telemetry = _start_telemetry(cfg, instance)
     rest = RestServer(instance, host=cfg.get("api.host"),
                       port=int(cfg.get("api.port")),
                       token_expiration_minutes=int(
                           cfg.get("api.jwt_expiration_min")))
     rest.start()
+    bus_server = None
+    edge_port = cfg.get("bus.edge_port")
+    if edge_port is not None:
+        bus_server = BusServer(instance.bus, host=cfg.get("api.host"),
+                               port=int(edge_port))
+        bus_server.start()
+    feeder_service = None
+    if (cfg.get("feeders.enabled") and bus_server is not None
+            and instance.pipeline_engine is not None):
+        # mount the feeder fleet's landing zone on the bus edge: remote
+        # workers lease partitions of the frames topic and this host's
+        # per-step work on their blobs shrinks to H2D + the captured step
+        from sitewhere_tpu_torch.feeders import FeederService
+        from sitewhere_tpu_torch.sources.manager import GLOBAL_ADMISSION
+        feeder_service = FeederService(
+            instance.pipeline_engine, bus_server,
+            frames_topic=(cfg.get("feeders.frames_topic")
+                          or instance.naming.feeder_frames()),
+            lease_ttl_s=float(cfg.get("feeders.lease_ttl_s")),
+            tenant=cfg.get("instance.default_tenant") or "default",
+            admission=GLOBAL_ADMISSION)
 
     print(f"sitewhere-tpu instance '{instance.instance_id}' serving",
           flush=True)
     print(f"  REST gateway : {rest.base_url}", flush=True)
     print(f"  OpenAPI doc  : {rest.base_url}/api/openapi.json", flush=True)
     print(f"  device       : {instance.device}", flush=True)
+    if bus_server is not None:
+        print(f"  bus edge     : tcp://{cfg.get('api.host')}:"
+              f"{bus_server.port}", flush=True)
+    if feeder_service is not None:
+        print(f"  feeder fleet : topic {feeder_service.frames_topic} "
+              f"(lease ttl {feeder_service.lease_ttl_s:g}s)", flush=True)
 
     try:
         while not stop.wait(1.0):
             pass
     finally:
+        if bus_server is not None:
+            bus_server.stop()
         rest.stop()
         instance.stop()
+        if telemetry is not None:
+            telemetry.stop()
     return 0
 
 
@@ -400,63 +566,17 @@ def cmd_version(_args) -> int:
     return 0
 
 
-class RestCalls:
-    """JSON calls on a running RestServer with a JWT minted from HTTP Basic
-    credentials (stdlib only, a connection a call). What `deadletters`
-    needs of the reference's client/rest.py, which comes with ROADMAP
-    A4b."""
-
-    def __init__(self, base_url: str, username: str = "admin",
-                 password: str = "password"):
-        import base64
-        import urllib.parse
-
-        url = urllib.parse.urlsplit(base_url)
-        self.host, self.port = url.hostname, url.port
-        basic = base64.b64encode(f"{username}:{password}".encode()).decode()
-        self.token = None
-        self.token = self.ok("POST", "/authapi/jwt", headers={
-            "Authorization": f"Basic {basic}"})["token"]
-
-    def call(self, method: str, path: str, body=None, headers=None,
-             query=None):
-        """(status, decoded JSON body or raw bytes)."""
-        import http.client
-        import urllib.parse
-
-        if query:
-            path = f"{path}?{urllib.parse.urlencode(query)}"
-        hdrs = {"Content-Type": "application/json", **(headers or {})}
-        if self.token and "Authorization" not in hdrs:
-            hdrs["Authorization"] = f"Bearer {self.token}"
-        conn = http.client.HTTPConnection(self.host, self.port, timeout=120)
-        try:
-            conn.request(method, path, None if body is None
-                         else json.dumps(body), hdrs)
-            resp = conn.getresponse()
-            raw = resp.read()
-        finally:
-            conn.close()
-        ctype = resp.getheader("Content-Type") or ""
-        return resp.status, (json.loads(raw) if "json" in ctype and raw
-                             else raw)
-
-    def ok(self, method: str, path: str, body=None, **kw):
-        """The decoded body of a 2xx answer; raises otherwise."""
-        status, out = self.call(method, path, body, **kw)
-        if not 200 <= status < 300:
-            raise RuntimeError(f"{method} {path}: HTTP {status} {out!r}")
-        return out
-
-
 def cmd_deadletters(args) -> int:
     """Operator loop over parked records on a RUNNING instance (REST):
     list backlogs, inspect records, replay into the reprocess pipeline
     (runtime/deadletter.py; reference: inbound-reprocess-events,
     KafkaTopicNaming.java:48-69)."""
-    client = RestCalls(args.url, args.username, args.password)
+    from sitewhere_tpu_torch.client.rest import SiteWhereClient
+
+    client = SiteWhereClient(args.url)
+    client.authenticate(args.username, args.password)
     if args.action == "list":
-        topics = client.ok("GET", "/api/instance/deadletters")["topics"]
+        topics = client.get("/api/instance/deadletters")["topics"]
         if not topics:
             print("no parked records")
             return 0
@@ -468,8 +588,8 @@ def cmd_deadletters(args) -> int:
         print("error: --topic required for this action", file=sys.stderr)
         return 2
     if args.action == "show":
-        out = client.ok("GET", "/api/instance/deadletters/records",
-                        query={"topic": args.topic, "limit": args.limit})
+        out = client.get("/api/instance/deadletters/records",
+                         topic=args.topic, limit=args.limit)
         for r in out["records"]:
             print(f"[{r['partition']}:{r['offset']}] key={r['key']} "
                   f"{r['size']}B {json.dumps(r['preview'])}")
@@ -480,7 +600,7 @@ def cmd_deadletters(args) -> int:
         body = {"topic": args.topic, "max": args.limit}
         if args.target:
             body["target"] = args.target
-        out = client.ok("POST", "/api/instance/deadletters/replay", body)
+        out = client.post("/api/instance/deadletters/replay", body)
         print(f"replayed {out['replayed']} -> {out['target']} "
               f"(remaining {out['remaining']})")
         return 0
@@ -516,16 +636,18 @@ def main(argv=None) -> int:
     serve.add_argument("--bus-port", type=int,
                        help="expose the event bus on TCP for edge processes")
     serve.add_argument("--feeders", action="store_true",
-                       help="mesh host: mount the feeder-fleet landing "
+                       help="landing host: mount the feeder-fleet landing "
                             "zone on the bus edge (feeders.enabled; "
                             "requires --bus-port)")
     serve.add_argument("--feeder", action="store_true",
                        help="run as a FEEDER WORKER process instead of "
                             "an instance: lease source partitions on the "
-                            "mesh host named by --feeder-connect and "
-                            "ship packed wire blobs (docs/FEEDERS.md)")
+                            "landing host named by --feeder-connect and "
+                            "ship packed wire blobs; host work only "
+                            "(decode, intern, pack): it never touches "
+                            "CUDA and needs no card (docs/FEEDERS.md)")
     serve.add_argument("--feeder-connect",
-                       help="feeder mode: mesh host bus edge host:port")
+                       help="feeder mode: landing host bus edge host:port")
     serve.add_argument("--feeder-name",
                        help="feeder lease identity (default host:pid)")
     serve.add_argument("--feeder-partitions",
@@ -581,9 +703,28 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     if getattr(args, "supervise", False):
-        return _refuse("serve --supervise (the gang-restart supervisor, "
-                       "runtime/supervisor.py) comes with the cluster "
-                       "modes: ROADMAP A4b")
+        # re-exec serve (without --supervise) under the gang-restart
+        # supervisor (runtime/supervisor.py; the reference's zero-operator
+        # recovery analog, MicroserviceKafkaConsumer.java:88 rebalance)
+        from sitewhere_tpu_torch.runtime.supervisor import supervise_serve
+
+        raw = list(sys.argv[1:] if argv is None else argv)
+        child_argv = []
+        skip = False
+        for item in raw:
+            if skip:
+                skip = False
+                continue
+            if item == "--supervise":
+                continue
+            if item == "--supervise-backoff":
+                skip = True
+                continue
+            if item.startswith("--supervise-backoff="):
+                continue
+            child_argv.append(item)
+        return supervise_serve(child_argv,
+                               backoff_s=args.supervise_backoff)
     return args.fn(args)
 
 

@@ -11,9 +11,12 @@ managements, JWT token service, and instance bootstrap — all under a
 single lifecycle root so `start()`/`stop()` brings the platform up/down
 deterministically.
 
-Single host only: a sharded engine (`shards > 1`, a `mesh`) and the
-cluster hooks come with the sharded path (ROADMAP A6) and raise; one
-engine never stands in for a sharded one.
+One card a host: a sharded engine (`shards > 1`, a `mesh`) and the
+data-plane cluster hooks come with the sharded path (ROADMAP A6) and
+raise; one engine never stands in for a sharded one. The control-plane
+cluster (parallel/cluster.py ControlPlaneCluster) installs itself as
+`cluster_hooks` before start(): tenant engines then register their
+registries with its gossip.
 """
 
 from __future__ import annotations
@@ -94,9 +97,9 @@ class SiteWhereInstance(LifecycleComponent):
         # into a journey span stitched across busnet hops (0 disables);
         # ingest services read this at construction (sources/fastlane.py)
         self.trace_sample_n = int(trace_sample_n or 0)
-        # multi-host deployment hooks (parallel/cluster.py ClusterService
-        # installs itself here BEFORE start(); tenant engines pass it into
-        # their inbound processors for ownership routing + lockstep feeds)
+        # multi-host deployment hooks (parallel/cluster.py
+        # ControlPlaneCluster installs itself here BEFORE start(); tenant
+        # engines register their registries with its gossip)
         self.cluster_hooks = None
         self.naming = TopicNaming(instance=instance_id)
         self.metrics = GLOBAL_METRICS

@@ -74,12 +74,20 @@ class TenantEngine(LifecycleComponent):
                                                 tenant.token)
         if registry_tensors is not None:
             registry_tensors.attach(self.registry, tenant.token)
-        if cluster is not None:
-            # cross-host registry replication and ownership routing come
-            # with the sharded path; a single host never drops them quietly
+        if cluster is not None and getattr(cluster, "data_plane", True):
+            # inbound ownership routing and the lockstep step loop come
+            # with the sharded path; a host never drops them quietly
             raise NotImplementedError(
-                "cluster hooks (registry gossip, inbound ownership routing) "
-                "come with the sharded path: ROADMAP A6")
+                "data-plane cluster hooks (inbound ownership routing, the "
+                "lockstep step loop) come with the sharded path: ROADMAP A6")
+        if cluster is not None and getattr(cluster, "gossip", None) \
+                is not None:
+            # control-plane cluster (parallel/cluster.py): this tenant's
+            # registry mutations broadcast to peers; theirs apply here.
+            # Each host owns every device it ingests, so inbound keeps the
+            # direct single-host submit path.
+            cluster.gossip.register_tenant_registry(tenant.token,
+                                                    self.registry)
 
         # event persistence + triggers. The pipeline packer's device
         # interner rides along so control-plane appends (inbound persist,

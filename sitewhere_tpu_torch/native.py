@@ -109,6 +109,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.swt_interner_add.restype = i32
     lib.swt_interner_add_gap.argtypes = [vp]
     lib.swt_interner_add_gap.restype = i32
+    lib.swt_interner_set_at.argtypes = [vp, i32, c.c_char_p, i32]
+    lib.swt_interner_set_at.restype = i32
     lib.swt_interner_token_at.argtypes = [vp, i32, c.c_char_p, i32]
     lib.swt_interner_token_at.restype = i32
     lib.swt_interner_lookup_offsets.argtypes = [vp, c.c_char_p, p_i64, i32,
@@ -276,6 +278,12 @@ class NativeInterner:
         """Append a slot no lookup finds (a gap of a shard-congruent
         snapshot); its index, -1 when the capacity is exceeded."""
         return self._lib.swt_interner_add_gap(self._h)
+
+    def set_at(self, idx: int, token: str) -> int:
+        """Fill gap slot `idx` with `token` (a replica's journal fill); 0
+        on success."""
+        raw = token.encode(errors="surrogateescape")
+        return self._lib.swt_interner_set_at(self._h, idx, raw, len(raw))
 
     def token_at(self, idx: int) -> Optional[str]:
         cap = 1024

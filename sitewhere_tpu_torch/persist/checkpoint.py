@@ -852,8 +852,9 @@ class InstanceCheckpointManager:
             groups.append(self.instance.bus.consumer(
                 topic, f"inbound-processing-{tenant.token}"))
         # (a cluster host's forwarded foreign-rows consumer comes with the
-        # sharded path, ROADMAP A6: the port's instance refuses cluster
-        # hooks, so every group that advances device state is listed here)
+        # sharded path, ROADMAP A6: the port's instance takes only the
+        # control-plane cluster, which forwards no rows, so every group
+        # that advances device state is listed here)
         return groups
 
     def save(self) -> str:

@@ -37,7 +37,7 @@ import dataclasses
 import logging
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -325,6 +325,12 @@ class PipelineEngine(LifecycleComponent):
         self._state: Optional[DeviceStateTensors] = None
         # rule mutation and the params compile
         self._lock = threading.RLock()
+        # rule-mutation listeners (cluster gossip): `_rules_io_lock` is held
+        # across a mutation and its fire, so listeners see mutations in the
+        # order they happened; `_lock` only around the list change, so a
+        # stalled listener never blocks a step's params compile
+        self._rules_listeners: List[Callable[[str, str, object], None]] = []
+        self._rules_io_lock = threading.RLock()
         # state advance (submit / presence) against state reads and swaps
         # from other threads
         self._state_lock = threading.RLock()
@@ -578,11 +584,27 @@ class PipelineEngine(LifecycleComponent):
 
     # -- rules ----------------------------------------------------------------
 
+    def add_rules_listener(
+            self, callback: Callable[[str, str, object], None]) -> None:
+        """Subscribe to rule mutations: callback(op, kind, payload) with op
+        'add' (payload = the rule; a rule program's spec dict) or 'remove'
+        (payload = the token)."""
+        self._rules_listeners.append(callback)
+
+    def _fire_rules(self, op: str, kind: str, payload) -> None:
+        for callback in list(self._rules_listeners):
+            callback(op, kind, payload)
+
     def _mutate_rule(self, kind: str, rule, replace: bool) -> None:
         if kind == "threshold" and not isinstance(rule, ThresholdRule):
             raise SiteWhereError("threshold rule expected", ErrorCode.GENERIC)
         if kind == "geofence" and not isinstance(rule, GeofenceRule):
             raise SiteWhereError("geofence rule expected", ErrorCode.GENERIC)
+        with self._rules_io_lock:
+            self._mutate_rule_locked(kind, rule, replace)
+            self._fire_rules("add", kind, rule)
+
+    def _mutate_rule_locked(self, kind: str, rule, replace: bool) -> None:
         with self._lock:
             exists = any(r.token == rule.token
                          for r in self._threshold_rules
@@ -624,16 +646,19 @@ class PipelineEngine(LifecycleComponent):
         self.upsert_rule("geofence", rule)
 
     def remove_rule(self, token: str) -> bool:
-        with self._lock:
-            n = len(self._threshold_rules) + len(self._geofence_rules)
-            self._threshold_rules = [r for r in self._threshold_rules
-                                     if r.token != token]
-            self._geofence_rules = [r for r in self._geofence_rules
-                                    if r.token != token]
-            changed = n != (len(self._threshold_rules)
-                            + len(self._geofence_rules))
+        with self._rules_io_lock:
+            with self._lock:
+                n = len(self._threshold_rules) + len(self._geofence_rules)
+                self._threshold_rules = [r for r in self._threshold_rules
+                                         if r.token != token]
+                self._geofence_rules = [r for r in self._geofence_rules
+                                        if r.token != token]
+                changed = n != (len(self._threshold_rules)
+                                + len(self._geofence_rules))
+                if changed:
+                    self._rules_version += 1
             if changed:
-                self._rules_version += 1
+                self._fire_rules("remove", "", token)
         return changed
 
     def get_rule(self, token: str):
@@ -726,16 +751,23 @@ class PipelineEngine(LifecycleComponent):
             max_nodes=self.rule_program_nodes,
             max_state_slots=self.rule_program_state_slots,
             intern_measurement=self.packer.measurements.intern)
-        return self._install(self._rule_programs, "program",
-                             self.max_rule_programs, "rule program", spec,
-                             slot, epoch)
+        with self._rules_io_lock:
+            entry = self._install(self._rule_programs, "program",
+                                  self.max_rule_programs, "rule program",
+                                  spec, slot, epoch)
+            self._fire_rules("add", "program", dict(spec))
+        return entry
 
     def create_rule_program(self, spec: Dict) -> Dict:
         return self._create(self._rule_programs, "rule program", spec,
                             self.upsert_rule_program)
 
     def remove_rule_program(self, token: str) -> bool:
-        return self._remove(self._rule_programs, token)
+        with self._rules_io_lock:
+            removed = self._remove(self._rule_programs, token)
+            if removed:
+                self._fire_rules("remove", "program", token)
+        return removed
 
     def get_rule_program(self, token: str) -> Optional[Dict]:
         with self._lock:

@@ -2,9 +2,9 @@
 
 Counterpart of `sitewhere_tpu/registry/interning.py` with sequential
 allocation only (what `shard_classes=1` gives there): the shard-congruent
-allocator and the replica journal belong to later slices. Index 0 is
-reserved as UNKNOWN so lookup tensors keep a sentinel row and failed
-lookups stay in-band on the device.
+allocator belongs to the sharded path (ROADMAP A6). Index 0 is reserved as
+UNKNOWN so lookup tensors keep a sentinel row and failed lookups stay
+in-band on the device.
 
 The batched calls (`lookup_batch`, `lookup_offsets`, `intern_batch`,
 `intern_offsets`) run on the native host library's table (`native.py`),
@@ -13,6 +13,12 @@ authoritative for token_of / snapshot / restore. The mirror is built at the
 first batched call (so an interner that never sees one never loads the
 library), kept in step by every later mutation, and rebuilt by restore().
 Every mutation, native ones included, bumps `version`.
+
+The replica journal (`journal_len`, `journal_since`, `apply_delta`,
+`journal_epoch`) is the reference's: one (idx, token) entry per slot
+assignment in index order, a gap slot as (idx, None), so a feeder's replica
+(feeders/replica.py) that replays it packs the same indices. restore()
+rebuilds it and bumps `journal_epoch`.
 """
 
 from __future__ import annotations
@@ -45,6 +51,10 @@ class TokenInterner:
         self._token_array_version = -1
         # the native mirror, built at the first batched call
         self._nat = None
+        # append-only assignment journal for replicas (see the module
+        # docstring); replaying it from 0 reproduces _to_token
+        self._journal: List[tuple] = []
+        self.journal_epoch = 0
 
     def __len__(self) -> int:
         return len(self._to_token)
@@ -75,6 +85,7 @@ class TokenInterner:
                 self._raise_capacity()
             self._to_token.append(token)
             self._to_index[token] = idx
+            self._journal.append((idx, token))
             self.version += 1
             if self._nat is not None:
                 nidx = self._nat.add(token)
@@ -190,6 +201,66 @@ class TokenInterner:
             token = self._nat.token_at(idx)
             self._to_token.append(token)
             self._to_index[token] = idx
+            self._journal.append((idx, token))
+
+    # -- the replica journal (feeders/replica.py) -------------------------------
+
+    def journal_len(self) -> int:
+        with self._lock:
+            return len(self._journal)
+
+    def journal_since(self, n: int) -> tuple:
+        """(journal_epoch, entries[n:]): the delta a replica at journal
+        position `n` needs. A replica whose remembered epoch differs
+        discards its table and resyncs from 0 (this interner was
+        restored)."""
+        with self._lock:
+            return self.journal_epoch, list(self._journal[n:])
+
+    def apply_delta(self, entries: Sequence[tuple], base: int) -> int:
+        """Replay journal entries [base, base + len) onto this interner (a
+        replica), by explicit index: appended gaps and in-place fills
+        reproduce the authoritative table. Raises on a positional mismatch
+        or a slot conflict (the replica must resync). Returns the new
+        journal length."""
+        with self._lock:
+            if base != len(self._journal):
+                raise SiteWhereError(
+                    f"interner '{self.name}' delta base {base} != replica "
+                    f"journal {len(self._journal)} (resync required)",
+                    ErrorCode.GENERIC)
+            mutated = False
+            for idx, token in entries:
+                idx = int(idx)
+                if idx >= self.capacity:
+                    self._raise_capacity()
+                while len(self._to_token) <= idx:
+                    self._to_token.append(None)
+                    if self._nat is not None and \
+                            self._nat.add_gap() != len(self._to_token) - 1:
+                        self._mirror_sync_error(-1, len(self._to_token) - 1)
+                cur = self._to_token[idx]
+                if token is None:
+                    if cur is not None:
+                        raise SiteWhereError(
+                            f"interner '{self.name}' delta gap at occupied "
+                            f"slot {idx} ({cur!r})", ErrorCode.GENERIC)
+                elif cur is None:
+                    self._to_token[idx] = token
+                    self._to_index[token] = idx
+                    if self._nat is not None and \
+                            self._nat.set_at(idx, token) != 0:
+                        self._mirror_sync_error(-1, idx)
+                    mutated = True
+                elif cur != token:
+                    raise SiteWhereError(
+                        f"interner '{self.name}' delta conflict at slot "
+                        f"{idx}: {cur!r} != {token!r} (resync required)",
+                        ErrorCode.GENERIC)
+                self._journal.append((idx, token))
+            if mutated:
+                self.version += 1
+            return len(self._journal)
 
     # -- snapshots ----------------------------------------------------------------
 
@@ -209,6 +280,10 @@ class TokenInterner:
             self._to_token = incoming
             self._to_index = {t: i for i, t in enumerate(incoming)
                               if t is not None}
+            # the journal no longer describes the table: rebuild it as the
+            # snapshot's slots and bump the epoch, so replicas resync
+            self._journal = [(i, t) for i, t in enumerate(incoming) if i > 0]
+            self.journal_epoch += 1
             self.version += 1
             if self._nat is not None:
                 self._nat = None

@@ -7,8 +7,11 @@ DIVERGES (the port's behaviour, asserted instead):
     `check` reports torch, the CUDA device, nvcc, a build of each CUDA
     kernel and of the native host library, and exits non-zero when one is
     missing; the native library has no pure-Python fallback mode.
-  test_serve_bus_edge: the networked bus edge is ROADMAP A5; serve refuses
-    `--bus-port` naming it.
+
+The networked serve modes (`--feeders --bus-port`, `--feeder`,
+`--cluster-peers`, `--supervise`) boot on `--device cpu`; only the
+multi-host SPMD cluster and a sharded pipeline are refused, naming ROADMAP
+A6.
 """
 
 import re
@@ -21,14 +24,17 @@ import torch
 from test_torch_scenarios import load_reference
 
 DIVERGES = {"test_version_and_check",
-            "test_check_passes_without_native_runtime",
-            "test_serve_bus_edge"}
+            "test_check_passes_without_native_runtime"}
 
 REFERENCE_TESTS = load_reference(globals(), "test_cli", replacements=[
     ('''        [sys.executable, "-m", "sitewhere_tpu_torch", "serve",
          "--config"''',
      '''        [sys.executable, "-m", "sitewhere_tpu_torch", "serve",
          "--device", "cpu", "--config"'''),
+    ('''"serve", "--port", "0",
+         "--no-pipeline", "--bus-port", "0",''',
+     '''"serve", "--port", "0",
+         "--no-pipeline", "--bus-port", "0", "--device", "cpu",'''),
 ], diverges=DIVERGES)
 
 
@@ -67,29 +73,75 @@ def test_check_passes_without_native_runtime():
     assert (chk.returncode != 0) == (not torch.cuda.is_available())
 
 
-def test_serve_bus_edge(tmp_path):
-    out = _cli("serve", "--port", "0", "--no-pipeline", "--device", "cpu",
-               "--bus-port", "0", "--data-dir", str(tmp_path / "data"),
-               timeout=120)
-    assert out.returncode != 0
-    assert "ROADMAP A5" in out.stderr
-    assert not (tmp_path / "data").exists()
-
-
 @pytest.mark.parametrize("args,item", [
-    (("--feeder",), "A5"),
-    (("--feeders",), "A5"),
-    (("--cluster-peers", "0=127.0.0.1:9092", "--cluster-process-id", "0"),
-     "A4b"),
-    (("--cluster-coordinator", "127.0.0.1:1234"), "A6"),
-    (("--shards", "2"), "A6"),
-    (("--supervise",), "A4b"),
+    # ids as when six modes were refused: the other four boot (below)
+    pytest.param(("--cluster-coordinator", "127.0.0.1:1234"), "A6",
+                 id="args3-A6"),
+    pytest.param(("--shards", "2"), "A6", id="args4-A6"),
 ])
 def test_left_out_serve_modes_exit_naming_their_roadmap_item(args, item):
     out = _cli("serve", "--port", "0", "--device", "cpu", *args,
                timeout=120)
     assert out.returncode != 0
     assert f"ROADMAP {item}" in out.stderr
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _serve_until(args, pattern, tmp_path):
+    """Boot `serve --device cpu ARGS` in a session of its own, wait for
+    `pattern` on its stdout, SIGTERM it and return (match, exit code); on
+    a failure the whole session is killed (a supervisor's child too)."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sitewhere_tpu_torch", "serve", "--port", "0",
+         "--device", "cpu", "--data-dir", str(tmp_path / "data"), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_env(), start_new_session=True)
+    try:
+        m = _wait_for(proc, pattern)
+        proc.send_signal(signal.SIGTERM)
+        return m, proc.wait(timeout=120)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        proc.wait(timeout=30)
+
+
+@pytest.mark.parametrize("mode", ["feeders", "feeder", "cluster-peers",
+                                  "supervise"])
+def test_networked_serve_modes_boot_on_the_cpu(mode, tmp_path):
+    if mode == "feeder":
+        # a worker needs the landing host's edge: the reference's message
+        out = _cli("serve", "--feeder", timeout=120)
+        assert out.returncode == 2
+        assert "serve --feeder requires --feeder-connect host:port" \
+            in out.stderr
+        return
+    if mode == "feeders":
+        m, rc = _serve_until(("--feeders", "--bus-port", "0"),
+                             r"feeder fleet : topic (\S+)", tmp_path)
+        assert m.group(1).endswith("feeder-frames"), m.group(0)
+    elif mode == "cluster-peers":
+        m, rc = _serve_until(
+            ("--cluster-peers", f"0=127.0.0.1:{_free_port()}",
+             "--cluster-process-id", "0"),
+            r"control-plane host (\d+)/(\d+)", tmp_path)
+        assert m.groups() == ("0", "1")
+    else:
+        m, rc = _serve_until(("--supervise",), r"REST gateway : http",
+                             tmp_path)
+    assert rc == 0
 
 
 def test_serve_without_cuda_refuses_to_boot(tmp_path):

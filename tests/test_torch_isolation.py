@@ -89,7 +89,14 @@ def test_importing_every_module_loads_no_jax():
             "transport.protobuf_compat", "transport.servers",
             "transport.stomp", "web", "web.admin", "web.controllers",
             "web.explorer", "web.marshal", "web.openapi", "web.pagejs",
-            "web.router", "web.server")}
+            "web.router", "web.server")} | {
+        # the networked tier: the bus edge, the feeder fleet, the
+        # control-plane cluster, its supervisor, telemetry, the client
+        f"sitewhere_tpu_torch.{m}" for m in (
+            "runtime.busnet", "runtime.telemetry", "runtime.supervisor",
+            "feeders", "feeders.protocol", "feeders.replica",
+            "feeders.service", "feeders.worker", "parallel",
+            "parallel.cluster", "client", "client.rest")}
     assert runtime <= set(info["modules"]) <= set(info["loaded"]) | \
         set(info["preloaded"])
     assert not [m for m in info["preloaded"] if _forbidden(m)]

@@ -1,9 +1,9 @@
 """The reference's own scenario files, run on the port's classes.
 
 `load_reference(namespace, "test_web")` reads tests/test_web.py, renames its
-`sitewhere_tpu` imports to `sitewhere_tpu_torch` (the HTTP client stays the
-reference's: it is plain HTTP, and the port's client is a later slice), and
-executes it into the calling test module's namespace, so pytest collects
+`sitewhere_tpu` imports to `sitewhere_tpu_torch` (the REST client too: the
+scenarios drive the port's own `client/rest.py`), and executes it into the
+calling test module's namespace, so pytest collects
 every reference test and fixture there as a test of the port. The port's
 instance runs where it is told to: `SiteWhereInstance` is rebound to a
 subclass whose device defaults to the CPU, the way the port's tests ask for
@@ -20,9 +20,6 @@ import torch
 from sitewhere_tpu_torch.instance import SiteWhereInstance as _PortInstance
 
 TESTS = pathlib.Path(__file__).resolve().parent
-
-# imports that stay the reference's: the REST client (plain HTTP)
-_KEEP = ("sitewhere_tpu_torch.client",)
 
 
 class CPUInstance(_PortInstance):
@@ -42,9 +39,6 @@ def port_source(name: str, replacements=()) -> str:
                       "SiteWhereInstance",
                       "from test_torch_scenarios import "
                       "CPUInstance as SiteWhereInstance")
-    for keep in _KEEP:
-        src = src.replace(keep, keep.replace("sitewhere_tpu_torch",
-                                             "sitewhere_tpu"))
     for old, new in replacements:
         assert old in src, f"{name}: {old!r} not in the reference"
         src = src.replace(old, new)
@@ -73,12 +67,14 @@ def load_reference(namespace: dict, name: str, replacements=(),
 
 
 def test_renaming_keeps_the_client_and_the_cpu_default():
+    """The renamed scenarios drive the port's REST client, and an instance
+    built in a test body runs on the CPU."""
     src = port_source("test_web")
-    assert "from sitewhere_tpu.client import" in src
+    assert "from sitewhere_tpu_torch.client import" in src
     assert "from test_torch_scenarios import CPUInstance as " \
         "SiteWhereInstance" in src
     assert "from sitewhere_tpu_torch.web import RestServer" in src
-    assert "sitewhere_tpu." not in src.replace("sitewhere_tpu.client", "")
+    assert "sitewhere_tpu." not in src
     if not torch.cuda.is_available():
         try:
             _PortInstance(instance_id="no-cuda-default")
