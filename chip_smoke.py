@@ -143,9 +143,11 @@ Phases (any failure prints its error and exits non-zero, with no result):
      blob (counts set to 0 before each run and read after), flight records
      of h2d/dispatch/stage_wait/guard only, canonical state and presence
      transitions equal the inline run's; (d) counts replayed blobs dropped
-     and a takeover. events/s, mesh_host_cpu_ms_per_step,
-     step_ms_per_blob and handoff_ms_per_blob (bench.py's names) and the
-     walls are printed. Then three `serve --cluster-peers ... --supervise`
+     and a takeover. events/s, mesh_host_cpu_ms_per_step ("not
+     measured" where the thread CPU clock's tick could be a tenth of it),
+     step_ms_per_blob and handoff_ms_per_blob (bench.py's names, from the
+     service's accounting less the hook's part) and the walls are
+     printed. Then three `serve --cluster-peers ... --supervise`
      processes, each with its engine on the card in the default
      configuration, through tests/test_provisioning_cluster.py's drill,
      and host 0's cluster telemetry; boot walls, convergence times, the
@@ -159,6 +161,7 @@ The last lines are the kernels' JSON line, the card line, and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -3346,13 +3349,12 @@ def phase_read_side(dev, card, main_ref):
 # -- phase 10: the instance behind `serve` -----------------------------------------
 
 INSTANCE_REST_DEVICES = 64
-# 24 payloads of 4,096 events: 98,304 events, 12 batches of the default
+# 40 payloads of 4,096 events: 163,840 events, 20 batches of the default
 # configuration, sent back to back to the running instance as a gateway
-# sends them (cut from 40 and 4 beside the pollers: on a slow host the
-# phase alone took ~500 s of the script's 1,200 s limit)
-INSTANCE_PAYLOADS = 24
+# sends them
+INSTANCE_PAYLOADS = 40
 INSTANCE_PAYLOAD_EVENTS = 4096        # events a wire payload
-INSTANCE_POLLED = 2                   # payloads sent beside the REST pollers
+INSTANCE_POLLED = 4                   # payloads sent beside the REST pollers
 INSTANCE_CLIENTS = 8                  # REST pollers beside the ingest
 # each poller's pause between requests, a dashboard's refresh: pollers in
 # a tight loop hold the interpreter lock so much that the inbound consumer
@@ -3361,7 +3363,9 @@ INSTANCE_POLL_PERIOD_S = 0.25
 INSTANCE_SAMPLE_DEVICES = 256         # devices the pollers read
 INSTANCE_PROFILED = 3                 # payloads under the profiler
 INSTANCE_AFTER_SAVE = 1               # payloads past the checkpoint
-INSTANCE_STREAM_TIMEOUT_S = 300.0     # a window's payloads must be in by then
+# a window's payloads must be in by then (4 payloads beside the pollers
+# took 218 s on the slowest host seen)
+INSTANCE_STREAM_TIMEOUT_S = 450.0
 INSTANCE_PROGRAMS, INSTANCE_MODELS, INSTANCE_POLICIES = 32, 8, 8
 INSTANCE_ZONE_VERTS = 16
 INSTANCE_COMMANDS = ("bench-cmd", "inspect")
@@ -4072,6 +4076,34 @@ CLUSTER_WAIT_S = 240.0
 REPO_ROOT = str(__import__("pathlib").Path(__file__).resolve().parent)
 
 
+@functools.lru_cache(maxsize=None)
+def thread_cpu_tick_s():
+    """The step of the thread CPU clock: the least change of
+    time.thread_time() seen while spinning (some kernels advance it a
+    scheduler tick at a time), never below the resolution the clock
+    reports; inf where it does not move within a second."""
+    steps, last = [], time.thread_time()
+    deadline = time.perf_counter() + 1.0
+    while len(steps) < 3 and time.perf_counter() < deadline:
+        now = time.thread_time()
+        if now != last:
+            steps.append(now - last)
+            last = now
+    if not steps:
+        return float("inf")
+    return max(min(steps), time.get_clock_info("thread_time").resolution)
+
+
+def thread_cpu_ms(total_s, n, readings):
+    """The mean thread CPU of `n` items in ms, from `readings` clock
+    differences an item, each off by up to one tick of the clock: "not
+    measured" where that error could exceed a tenth of the mean."""
+    mean = total_s / n
+    if readings * thread_cpu_tick_s() > 0.1 * mean:
+        return "not measured"
+    return mean * 1e3
+
+
 def feeder_engine(dev, epoch):
     """Phase 3's world on `dev`, its params built before any traffic (rule
     alert types are interned then; a device alert's type when packed)."""
@@ -4129,7 +4161,9 @@ def inline_feeder_run(dev, epoch, records, card):
                 "events_per_s_after_first":
                     (len(records) - 1) * BATCH / sum(walls[1:]),
                 "first_record_ms": walls[0] * 1e3,
-                "mesh_host_cpu_ms_per_step": statistics.mean(cpus[1:]) * 1e3,
+                "mesh_host_cpu_ms_per_step":
+                    thread_cpu_ms(sum(cpus[1:]), len(cpus) - 1, 1),
+                "thread_cpu_tick_ms": thread_cpu_tick_s() * 1e3,
                 "record_ms_p50": statistics.median(walls[1:]) * 1e3,
                 "alerts": sum(len(a) for a in alerts.values())}
     log(f"[feeders] (a) inline FastWireIngest + submit: "
@@ -4140,62 +4174,60 @@ def inline_feeder_run(dev, epoch, records, card):
 class _Landing:
     """A landing host on the card: an EventBus of `partitions` partitions
     holding the records (record r on partition r % partitions), its busnet
-    edge, and a FeederService whose on_outputs hook materializes each
-    landed blob's alerts. The hook keeps its own work off the blob's flight
-    record (which then shows the landing's work only) and out of the
-    per-blob step and CPU readings."""
+    edge, and a FeederService with metrics of its own whose on_outputs hook
+    materializes each landed blob's alerts. The hook keeps its own work off
+    the blob's flight record (which then shows the landing's work only) and
+    times itself, so readings() takes it out of the service's own per-blob
+    accounting."""
 
     def __init__(self, dev, epoch, records, partitions):
         from sitewhere_tpu_torch.feeders import FeederService
-        from sitewhere_tpu_torch.ops.pack import blob_to_batch_np
         from sitewhere_tpu_torch.runtime.bus import EventBus
         from sitewhere_tpu_torch.runtime.busnet import BusServer
-
-        landing, mine = self, threading.local()
-
-        class Service(FeederService):
-            """Times each blob that steps: the request's wall and thread
-            CPU, its step (the hook's part separately)."""
-
-            def _op_blob(self, req):
-                t0, c0 = time.perf_counter(), time.thread_time()
-                mine.blob = None
-                out = super()._op_blob(req)
-                if mine.blob is not None:
-                    mine.blob.update(handle_s=time.perf_counter() - t0,
-                                     cpu_s=time.thread_time() - c0)
-                return out
-
-            def _step_single(self, blob, n_events, age, order):
-                landing.blob, t0 = blob, time.perf_counter()
-                mine.blob = landing.current = {}
-                out = super()._step_single(blob, n_events, age, order)
-                landing.current["step_s"] = time.perf_counter() - t0
-                landing.per_blob.append(landing.current)
-                return out
-
-        def hook(engine, outputs, _rec):
-            t0, c0 = time.perf_counter(), time.thread_time()
-            batch = blob_to_batch_np(self.blob)
-            last, engine._flight_last = engine._flight_last, None
-            try:
-                got = engine.materialize_alerts(batch, outputs)
-            finally:
-                engine._flight_last = last
-            self.steps.append((_blob_key(self.blob), _alert_keys(got)))
-            end = time.perf_counter()
-            self.current.update(hook_s=end - t0, end=end,
-                                hook_cpu_s=time.thread_time() - c0)
+        from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry
 
         self.engine = feeder_engine(dev, epoch)
         self.steps, self.per_blob = [], []
-        self.blob = self.current = None
+        self.blob = None
+        stage_blob = self.engine.stage_blob
+
+        def staging(blob, **kw):
+            # the blob the hook materializes: the service stages a blob and
+            # runs its hook in turn under its step lock
+            self.blob = blob
+            return stage_blob(blob, **kw)
+
+        self.engine.stage_blob = staging
+        self.metrics = MetricsRegistry()
+        self.landed = self.metrics.counter("feeder.blobs")
         self.bus = EventBus(partitions=partitions)
         self.server = BusServer(self.bus)
         self.server.start()
-        self.service = Service(self.engine, self.server, FEEDER_TOPIC,
-                               lease_ttl_s=60.0, on_outputs=hook)
+        self.service = FeederService(self.engine, self.server, FEEDER_TOPIC,
+                                     lease_ttl_s=60.0, metrics=self.metrics,
+                                     on_outputs=self._hook)
         self.publish(records)
+
+    def _hook(self, engine, outputs, _rec):
+        """Materializes the landed blob's alerts; notes the service's
+        accounting as it stands (every blob before this one) and its own
+        wall and thread CPU."""
+        from sitewhere_tpu_torch.ops.pack import blob_to_batch_np
+
+        svc = self.service
+        t0, c0 = time.perf_counter(), time.thread_time()
+        before = (svc.blob_handle_s, svc.blob_step_s, svc.blob_cpu_s)
+        batch = blob_to_batch_np(self.blob)
+        last, engine._flight_last = engine._flight_last, None
+        try:
+            got = engine.materialize_alerts(batch, outputs)
+        finally:
+            engine._flight_last = last
+        self.steps.append((_blob_key(self.blob), _alert_keys(got)))
+        end = time.perf_counter()
+        self.per_blob.append({"before": before, "hook_s": end - t0,
+                              "hook_cpu_s": time.thread_time() - c0,
+                              "end": end})
 
     def publish(self, records):
         topic = self.bus.topic(FEEDER_TOPIC)
@@ -4205,13 +4237,14 @@ class _Landing:
 
     def wait(self, n_steps, what, procs=()):
         deadline = time.perf_counter() + FEEDER_TIMEOUT_S
-        while len(self.per_blob) < n_steps:
+        # the service counts a blob once its accounting is in
+        while self.landed.value < n_steps:
             dead = [p.returncode for p in procs if p.poll() is not None]
             if dead:
                 raise AssertionError(f"{what}: a worker process exited "
                                      f"{dead[0]}")
             if time.perf_counter() > deadline:
-                raise AssertionError(f"{what}: {len(self.steps)} of "
+                raise AssertionError(f"{what}: {self.landed.value} of "
                                      f"{n_steps} blobs landed in "
                                      f"{FEEDER_TIMEOUT_S:.0f} s")
             time.sleep(0.002)
@@ -4221,27 +4254,28 @@ class _Landing:
         (`t_ready`, connected and leased) to the last blob's end, as
         bench.py's curve counts it; the same from the first blob's end
         (which steps eagerly and captures) to the last's; per blob after
-        the first, the landing's thread CPU and step host ms (the hook's
-        part left out) and the handoff (request wall less its step)."""
-        b = self.per_blob
-        steady = b[1:]
-
-        def mean_ms(f):
-            return statistics.mean(f(x) for x in steady) * 1e3
-
+        the first, from the service's accounting less the hook's part: the
+        landing's thread CPU, its step host ms and the handoff (the
+        handled wall less its step)."""
+        b, svc = self.per_blob, self.service
+        n = len(b) - 1
+        first = b[1]["before"]          # the first blob's accounting alone
+        handle = svc.blob_handle_s - first[0]
+        step = svc.blob_step_s - first[1]
+        cpu = svc.blob_cpu_s - first[2]
+        hook = sum(x["hook_s"] for x in b[1:])
+        hook_cpu = sum(x["hook_cpu_s"] for x in b[1:])
         return {"blobs": len(b), "wall_s": wall,
                 "events_per_s": len(b) * BATCH / (b[-1]["end"] - t_ready),
-                "events_per_s_after_first": len(steady) * BATCH
+                "events_per_s_after_first": n * BATCH
                 / (b[-1]["end"] - b[0]["end"]),
-                "first_blob_ms": (b[0]["step_s"] - b[0]["hook_s"]) * 1e3,
+                "first_blob_ms": (first[1] - b[0]["hook_s"]) * 1e3,
+                # two clock differences a blob: the service's, the hook's
                 "mesh_host_cpu_ms_per_step":
-                    mean_ms(lambda x: x["cpu_s"] - x["hook_cpu_s"]),
-                "step_ms_per_blob":
-                    mean_ms(lambda x: x["step_s"] - x["hook_s"]),
-                "handoff_ms_per_blob":
-                    mean_ms(lambda x: x["handle_s"] - x["step_s"]),
-                "materialize_hook_ms_per_blob":
-                    mean_ms(lambda x: x["hook_s"])}
+                    thread_cpu_ms(cpu - hook_cpu, n, 2),
+                "step_ms_per_blob": (step - hook) / n * 1e3,
+                "handoff_ms_per_blob": (handle - step) / n * 1e3,
+                "materialize_hook_ms_per_blob": hook / n * 1e3}
 
     def check(self, ref, launches, what):
         """Every record stepped exactly once with the inline run's blob and
@@ -4366,7 +4400,7 @@ def feeder_thread_run(dev, epoch, records, ref, n, card, profile=False,
         lb.check(ref, launches, what)
         if profile:
             lb.publish(records[:FEEDER_PROFILED])
-            done = len(lb.steps) + FEEDER_PROFILED
+            done = lb.landed.value + FEEDER_PROFILED
             # connected (leases, the replica's journal) before the window
             (prof,) = _thread_workers(lb.server.port, 1, "wprof")
 
@@ -4460,11 +4494,7 @@ def feeder_takeover_run(dev, epoch, records, ref, card):
     from sitewhere_tpu_torch.feeders import FeederWorker
     from sitewhere_tpu_torch.runtime.faults import (
         FaultPlan, FaultRule, arm, disarm)
-    from sitewhere_tpu_torch.runtime.metrics import GLOBAL_METRICS
 
-    replays = GLOBAL_METRICS.counter("feeder.replay_dropped")
-    takeovers = GLOBAL_METRICS.counter("takeover.count")
-    replay0, takeover0 = replays.value, takeovers.value
     lb = _Landing(dev, epoch, records, 1)
     try:
         reset_launch_counts(lb.engine)
@@ -4502,8 +4532,9 @@ def feeder_takeover_run(dev, epoch, records, ref, card):
         launches = launch_counts(lb.engine)["points_in_zones"]
         readings = lb.readings(t0, wall)
         readings.update(died_after_blobs=died_after,
-                        replay_dropped=replays.value - replay0,
-                        takeovers=takeovers.value - takeover0)
+                        replay_dropped=lb.metrics.counter(
+                            "feeder.replay_dropped").value,
+                        takeovers=lb.metrics.counter("takeover.count").value)
         if readings["replay_dropped"] < 1 or readings["takeovers"] < 1:
             raise AssertionError(f"(d) takeover: {readings}")
         lb.check(ref, launches, "(d) takeover")

@@ -82,15 +82,9 @@ class FeederService:
                  lease_ttl_s: float = 5.0, tenant: str = "default",
                  admission=None, metrics=GLOBAL_METRICS,
                  replay_barrier=GLOBAL_REPLAY_BARRIER,
-                 on_outputs: Optional[Callable] = None,
-                 submitter=None):
+                 on_outputs: Optional[Callable] = None):
         self.engine = engine
         self.server = server
-        # optional pipeline/feed.py PipelinedSubmitter: blobs from
-        # concurrent feeders then stage (H2D) in parallel on its stager
-        # threads while the step thread dispatches in order — the ack
-        # still waits for dispatch so the watermark never outruns a step
-        self.submitter = submitter
         self.frames_topic = frames_topic
         self.lease_ttl_s = float(lease_ttl_s)
         self.tenant = tenant
@@ -345,11 +339,6 @@ class FeederService:
     def _step_single(self, blob: np.ndarray, n_events: int, age,
                      order: int) -> int:
         engine = self.engine
-        if self.submitter is not None:
-            fut = self.submitter.submit_blob(
-                np.ascontiguousarray(blob), n_events, age=age)
-            fut.result(timeout=120.0)
-            return n_events
         rec = engine.flight.begin_step(engine=engine.name)
         rec.age = age
         staged = engine.stage_blob(np.ascontiguousarray(blob),

@@ -495,12 +495,6 @@ class RegistryGossip:
     def _on_rule_mutation(self, op: str, kind: str, payload) -> None:
         if getattr(self._applying, "active", False) or not self.peers:
             return
-        if kind == "program":
-            # rule programs replicate through the instance's durable store
-            # (register_scripts, `_rule_program` envelopes); the engine's
-            # feed carries their spec dict, which has no `.token` (the
-            # reference raises AttributeError here: ROADMAP C)
-            return
         from sitewhere_tpu_torch.pipeline.engine import rule_to_dict
 
         if op == "remove":

@@ -586,9 +586,10 @@ class PipelineEngine(LifecycleComponent):
 
     def add_rules_listener(
             self, callback: Callable[[str, str, object], None]) -> None:
-        """Subscribe to rule mutations: callback(op, kind, payload) with op
-        'add' (payload = the rule; a rule program's spec dict) or 'remove'
-        (payload = the token)."""
+        """Subscribe to threshold and geofence rule mutations:
+        callback(op, kind, payload) with op 'add' (payload = the rule) or
+        'remove' (payload = the token). Rule programs are not in this feed:
+        they replicate through the instance's durable store."""
         self._rules_listeners.append(callback)
 
     def _fire_rules(self, op: str, kind: str, payload) -> None:
@@ -751,23 +752,16 @@ class PipelineEngine(LifecycleComponent):
             max_nodes=self.rule_program_nodes,
             max_state_slots=self.rule_program_state_slots,
             intern_measurement=self.packer.measurements.intern)
-        with self._rules_io_lock:
-            entry = self._install(self._rule_programs, "program",
-                                  self.max_rule_programs, "rule program",
-                                  spec, slot, epoch)
-            self._fire_rules("add", "program", dict(spec))
-        return entry
+        return self._install(self._rule_programs, "program",
+                             self.max_rule_programs, "rule program", spec,
+                             slot, epoch)
 
     def create_rule_program(self, spec: Dict) -> Dict:
         return self._create(self._rule_programs, "rule program", spec,
                             self.upsert_rule_program)
 
     def remove_rule_program(self, token: str) -> bool:
-        with self._rules_io_lock:
-            removed = self._remove(self._rule_programs, token)
-            if removed:
-                self._fire_rules("remove", "program", token)
-        return removed
+        return self._remove(self._rule_programs, token)
 
     def get_rule_program(self, token: str) -> Optional[Dict]:
         with self._lock:

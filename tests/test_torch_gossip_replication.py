@@ -32,22 +32,18 @@ def _engine():
 
 
 def test_engine_fires_rule_mutations_in_order():
-    """add / remove of threshold and geofence rules and of rule programs
-    reach the listener in the order they happened, each after its
-    mutation is visible; a remove of an unknown token fires nothing."""
+    """add / remove of threshold and geofence rules reach the listener in
+    the order they happened, each after its mutation is visible; a remove
+    of an unknown token fires nothing, and rule programs (replicated
+    through the instance's durable store) fire nothing."""
     from sitewhere_tpu_torch.pipeline.engine import rule_from_dict
 
     engine = _engine()
     seen = []
 
     def listener(op, kind, payload):
-        token = payload if op == "remove" else (
-            payload["token"] if kind == "program" else payload.token)
-        visible = (engine.get_rule_program(token) is not None
-                   if kind == "program" or (op == "remove"
-                                            and token.startswith("p-"))
-                   else engine.get_rule(token)[0] is not None)
-        seen.append((op, kind, token, visible))
+        token = payload if op == "remove" else payload.token
+        seen.append((op, kind, token, engine.get_rule(token)[0] is not None))
 
     engine.add_rules_listener(listener)
     engine.create_rule(*rule_from_dict({
@@ -63,16 +59,15 @@ def test_engine_fires_rule_mutations_in_order():
     assert not engine.remove_rule_program("p-composite")
     assert seen == [("add", "threshold", "t1", True),
                     ("add", "geofence", "g1", True),
-                    ("add", "program", "p-composite", True),
-                    ("remove", "", "t1", False),
-                    ("remove", "program", "p-composite", False)]
+                    ("remove", "", "t1", False)]
 
 
 def test_gossip_replicates_rules_and_leaves_programs_to_their_store():
     """The gossip's rules feed publishes threshold/geofence adds and
-    removes; a rule program's add (a spec dict: the reference raises
-    AttributeError on it) publishes nothing here — programs replicate
-    through the instance's durable store (`_rule_program` envelopes)."""
+    removes; a rule program's add with a peer attached neither raises (the
+    reference raises AttributeError there) nor publishes on that feed —
+    programs replicate through the instance's durable store
+    (`_rule_program` envelopes)."""
     from sitewhere_tpu_torch.pipeline.engine import rule_from_dict
 
     def pipeline_host(instance_id):
