@@ -154,6 +154,30 @@ Phases (any failure prints its error and exits non-zero, with no result):
      restart wall and the card's compute processes are printed.
      `python3 chip_smoke.py --feeders-only` runs phase 11 alone (no result
      line).
+ 12. the sharded path (parallel/engine.py ShardedPipelineEngine): SHARDS
+     shards of phase 3's world on the card (per-shard batch BATCH //
+     SHARDS), flat batches of SHARD_EVENTS events of phase 3's traffic in
+     each wire layout (compact, full, packed), SHARD_WARMUP + SHARD_STEPS
+     each, the first step of each layout first. (a) Host routing and
+     device routing (the route inside the captured step, ops/route.py):
+     each layout's first step held against the same engine on the CPU
+     (outputs and state), every launch counted from 0 (B1 once a shard a
+     step), one capture a static configuration, the route counters, and
+     the whole run's alerts (sorted), state and presence transitions
+     against phase 3's single engine on the card fed the same steps (alert
+     lanes of SHARD_LANES a shard, which hold every fire); step p50/p99
+     (submit until the card is done), the materialize time, events/s, the
+     profiler's busy and idle share beside the single engine's, and the
+     routing prologue alone (CUDA events). (b) phase 5's world sharded,
+     SHARD_STATEFUL_STEPS steps, card == CPU (scores within the
+     tolerance), the rule-program kernel once a shard a step. (c) an
+     elastic checkpoint: SHARDS shards save, 4 shards and a single engine
+     restore and continue equal. (d) the host router at its micro-bench's
+     shape (native and numpy route_blob, route_columns, route_batch). (e)
+     `serve --shards SERVE_SHARDS` in a subprocess: boot, SERVE_DEVICES
+     events over the bus edge through the sharded step, every device's
+     state read back over REST. `python3 chip_smoke.py --sharded-only`
+     runs phase 12 alone (no result line).
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -725,10 +749,13 @@ def phase_kernel_vs_plain(dev, card):
 
 def build_world(dev, geofence_impl, epoch_base_ms=None, *,
                 max_devices=MAX_DEVICES, n_registered=N_REGISTERED,
-                n_zones=N_ZONES, n_verts=N_VERTS, batch=BATCH, **engine_kw):
+                n_zones=N_ZONES, n_verts=N_VERTS, batch=BATCH, shards=0,
+                **engine_kw):
     """Phase 3's world (the sizes are keywords so the card tests can build
     it small): registry, zones, threshold and geofence rules, a started
-    engine on `dev`."""
+    engine on `dev`. With `shards`, the engine is a ShardedPipelineEngine
+    of that many shards on `dev`, `batch` events a flat batch
+    (per-shard batch `batch // shards`)."""
     from sitewhere_tpu_torch.model import AlertLevel
     from sitewhere_tpu_torch.pipeline import (
         GeofenceRule, PipelineEngine, ThresholdRule)
@@ -745,13 +772,19 @@ def build_world(dev, geofence_impl, epoch_base_ms=None, *,
     for z in range(n_zones):
         reg.mirror_zone(f"zone-{z}", "tenant-1",
                         [tuple(v) for v in verts[z]], area="area-1")
-    engine = PipelineEngine(
-        reg, batch_size=batch, measurement_slots=MEASUREMENT_SLOTS,
-        max_tenants=MAX_TENANTS, max_threshold_rules=MAX_RULES,
-        max_geofence_rules=MAX_RULES,
-        presence_missing_interval_ms=PRESENCE_MS,
-        geofence_impl=geofence_impl,
-        device=dev, **engine_kw)
+    kw = dict(measurement_slots=MEASUREMENT_SLOTS,
+              max_tenants=MAX_TENANTS, max_threshold_rules=MAX_RULES,
+              max_geofence_rules=MAX_RULES,
+              presence_missing_interval_ms=PRESENCE_MS,
+              geofence_impl=geofence_impl, **engine_kw)
+    if shards:
+        from sitewhere_tpu_torch.parallel import (
+            ShardedPipelineEngine, make_mesh)
+        engine = ShardedPipelineEngine(
+            reg, mesh=make_mesh(shards, device=dev),
+            per_shard_batch=batch // shards, **kw)
+    else:
+        engine = PipelineEngine(reg, batch_size=batch, device=dev, **kw)
     engine.packer.epoch_base_ms = (
         epoch_base_ms if epoch_base_ms is not None
         else int(time.time() * 1000) - EPOCH_LAG_MS)
@@ -1092,7 +1125,7 @@ def profile_engine(engine, batches, n_prof=5):
 
     def steps():
         for batch in batches[:n_prof]:
-            engine.materialize_alerts(batch, engine.submit(batch))
+            engine.materialize_alerts(*engine.submit_routed(batch))
 
     wall_ms, events, on_device, busy_ms, idle = device_profile(steps)
     engine.take_command_fires()
@@ -1267,8 +1300,8 @@ def run_stateful_trace(engine, batches, n_check, rule_twin=None):
     families = torch.zeros(4, dtype=torch.int64, device=engine.device)
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
-        out = engine.submit(batch)
-        got = engine.materialize_alerts(batch, out)
+        view, out = engine.submit_routed(batch)
+        got = engine.materialize_alerts(view, out)
         fired = engine.take_command_fires()
         walls.append(time.perf_counter() - t0)
         if rule_twin is not None:
@@ -2321,6 +2354,7 @@ def object_records(epoch, n_devices=OBJECT_DEVICES, n_requests=256):
     events each with fixed ids, every 16th from an unknown device."""
     import msgpack
 
+    from sitewhere_tpu_torch.client.rest import SiteWhereClientError
     from sitewhere_tpu_torch.model.common import _asdict
     from sitewhere_tpu_torch.model.event import (
         DeviceAlert, DeviceEventBatch, DeviceLocation, DeviceMeasurement)
@@ -4619,6 +4653,7 @@ def control_plane_drill(dev, card, tmp):
     import msgpack
 
     from sitewhere_tpu_torch.client import SiteWhereClient
+    from sitewhere_tpu_torch.client.rest import SiteWhereClientError
     from sitewhere_tpu_torch.model.common import _asdict
     from sitewhere_tpu_torch.model.event import (
         DeviceEventBatch, DeviceMeasurement)
@@ -4847,6 +4882,569 @@ def phase_feeders(dev, card):
     return out
 
 
+# -- phase 12: the sharded path on one card ----------------------------------
+
+SHARDS = 8
+# a flat batch of phase 3's traffic a little short of SHARDS x the
+# per-shard batch (BATCH // SHARDS): a uniform flat batch of exactly
+# SHARDS x B overflows some shard on most steps (each shard's count spreads
+# ~115 rows around B), so phase 3's 131,072 rows would spill to the host
+# route every step; at 15/16 of it every shard and every lane fits
+SHARD_EVENTS = BATCH * 15 // 16
+SHARD_WARMUP, SHARD_STEPS = 3, 10
+SHARD_LAYOUTS = ("compact", "full", "packed")
+SHARD_STATEFUL_STEPS = 2
+# alert lanes that hold every fire of a step (the default 128 would keep a
+# different first-128 per shard than the single engine's first 128)
+SHARD_LANES = BATCH // SHARDS
+SHARD_AFTER_RESTORE = 2
+ROUTER_BENCH = (65536, 8, 8192)      # the router micro-bench's shape
+ROUTER_REPS = 7
+SERVE_SHARDS = 8
+SERVE_DEVICES = 64
+
+
+def shard_traffic(packer, seed):
+    """{layout: SHARD_WARMUP + SHARD_STEPS flat batches} of phase 3's
+    traffic: compact (the main path's mix), full (the same with
+    elevations) and packed (measurements and alerts only)."""
+    out = {}
+    for i, layout in enumerate(SHARD_LAYOUTS):
+        batches = []
+        for s in range(SHARD_WARMUP + SHARD_STEPS):
+            b = synthetic_batch(
+                packer, N_REGISTERED, SHARD_EVENTS, seed + 100 * i + s,
+                p_types=((0.9, 0.0, 0.1) if layout == "packed"
+                         else (0.6, 0.3, 0.1)))
+            if layout == "full":
+                b.elevation = torch.from_numpy(np.random.default_rng(
+                    seed + s).uniform(1, 50, b.elevation.shape[0])
+                    .astype(np.float32))
+            batches.append(b)
+        out[layout] = batches
+    return out
+
+
+def shard_schedule(traffic):
+    """The steps in order: each layout's first step (the CPU-checked
+    ones), then each layout's other warm-ups and timed steps. Returns
+    [(layout, index, batch)]."""
+    order = [(layout, 0, traffic[layout][0]) for layout in SHARD_LAYOUTS]
+    for layout in SHARD_LAYOUTS:
+        order += [(layout, i, b) for i, b in enumerate(traffic[layout])
+                  if i]
+    return order
+
+
+def lane_digest(engine, view, out):
+    """The step's fired rows as its alert lanes hold them, whatever the
+    engine's layout: (number of rows, sha256 of the rows sorted), a row
+    being (global device index, ts, the threshold / geofence / program /
+    model fire, rule and level fields). It is what materialize_alerts
+    builds its alerts from, without building them (each alert object
+    costs ~14 us of host time, 0.4 s a step at this traffic)."""
+    import hashlib
+
+    from sitewhere_tpu_torch.ops.compact import decode_alert_lanes
+
+    lanes = out.alert_lanes.cpu().numpy()
+    dev, ts = np.asarray(view.device_idx), np.asarray(view.ts)
+    S = getattr(engine, "n_shards", 1)
+    if lanes.ndim == 2:
+        lanes, dev, ts = lanes[None], dev[None], ts[None]
+    parts = []
+    for s in range(lanes.shape[0]):
+        d = decode_alert_lanes(lanes[s])
+        parts.append(np.stack([
+            dev[s][d.rows].astype(np.int64) * S + s, ts[s][d.rows],
+            d.thr_fired, d.thr_rule, d.thr_level, d.geo_fired, d.geo_rule,
+            d.geo_level, d.prog_fired, d.prog_rule, d.prog_level,
+            d.model_fired, d.model_slot], axis=1).astype(np.int64))
+    rows = np.concatenate(parts)
+    rows = rows[np.lexsort(rows.T[::-1])]
+    return len(rows), hashlib.sha256(rows.tobytes()).hexdigest()
+
+
+def sharded_step(engine, batch, materialize=True):
+    """submit, then materialize or digest the lanes: ((step s: submit
+    until the card is done, materialize s or None), alert keys or the
+    lane digest, outputs)."""
+    t0 = time.perf_counter()
+    view, out = engine.submit_routed(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if not materialize:
+        return (t1 - t0, None), lane_digest(engine, view, out), out
+    alerts = engine.materialize_alerts(view, out)
+    return (t1 - t0, time.perf_counter() - t1), _alert_keys(alerts), out
+
+
+def _outputs_bits_equal(a, b, what, score_tol=False):
+    for f in a.__dataclass_fields__:
+        x, y = getattr(a, f), getattr(b, f).to(getattr(a, f).device)
+        if f == "model_score" and score_tol:
+            torch.testing.assert_close(x, y, rtol=SCORE_RTOL,
+                                       atol=SCORE_ATOL)
+        elif not torch.equal(_bits(x), _bits(y)):
+            raise AssertionError(f"{what}: outputs field {f} differs")
+
+
+def sharded_run(dev, card, mode, traffic, epoch, single_ref):
+    """One sharded engine (SHARDS shards on the card, host or device
+    routing) over the schedule: the first step of each layout held against
+    the same engine on the CPU (outputs and state), every launch counted
+    from 0, one capture a static configuration, the run's alerts and
+    state against the single card engine's."""
+    cpu = torch.device("cpu")
+    routing = mode == "device"
+    kw = dict(shards=SHARDS, device_routing=routing,
+              alert_lane_capacity=SHARD_LANES)
+    engine = build_world(dev, "auto", epoch, **kw)
+    twin = build_world(cpu, "auto", epoch, **kw)
+    schedule = shard_schedule(traffic)
+    torch.cuda.synchronize()
+    reset_launch_counts(engine)
+    timed = {layout: [] for layout in SHARD_LAYOUTS}
+    materialize, alerts = [], 0
+    t_cpu = 0.0
+    for n, (layout, i, batch) in enumerate(schedule):
+        # the first step of each layout materializes its alerts (card ==
+        # CPU == single engine); the others compare the lanes' digests
+        first = n < len(SHARD_LAYOUTS)
+        (wall, mat), got, out = sharded_step(engine, batch, first)
+        want = single_ref["steps"][n]
+        if (sorted(got) if first else got) != want:
+            raise AssertionError(f"[sharded {mode}] step {n} ({layout}): "
+                                 f"alerts differ from the single engine's")
+        alerts += len(got) if first else got[0]
+        if i >= SHARD_WARMUP:
+            timed[layout].append(wall)
+        if first:
+            materialize.append(mat)
+            t0 = time.perf_counter()
+            _, cpu_keys, cpu_out = sharded_step(twin, batch)
+            if cpu_keys != got:
+                raise AssertionError(f"[sharded {mode}] {layout} first "
+                                     f"step: card and CPU alerts differ")
+            _outputs_bits_equal(cpu_out, out, f"[sharded {mode}] {layout}")
+            assert_tree_bits_equal(twin.canonical_state(),
+                                   engine.canonical_state(),
+                                   f"[sharded {mode}] {layout} state")
+            t_cpu += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = launch_counts(engine)
+    steps = len(schedule)
+    if launches["points_in_zones"] != SHARDS * steps:
+        raise AssertionError(
+            f"[sharded {mode}] B1 launched {launches['points_in_zones']} "
+            f"times over {steps} steps of {SHARDS} shards")
+    # one key a layout, and one more a layout a host spill ran on
+    keys = len(SHARD_LAYOUTS) * (2 if engine.device_route_fallbacks else 1)
+    if not (engine.graph_captures == len(engine._graphs) <= keys):
+        raise AssertionError(f"[sharded {mode}] {engine.graph_captures} "
+                             f"captures of {len(engine._graphs)} keys")
+    if engine.device_route_dropped:
+        raise AssertionError(f"[sharded {mode}] the device route dropped "
+                             f"{engine.device_route_dropped} rows")
+    if engine.pending_overflow:
+        raise AssertionError(f"[sharded {mode}] rows left in the overflow "
+                             f"backlog")
+    assert_tree_bits_equal(single_ref["state"], engine.canonical_state(),
+                           f"[sharded {mode}] state vs the single engine")
+    missing = sorted(engine.presence_sweep())
+    if missing != single_ref["missing"]:
+        raise AssertionError(f"[sharded {mode}] presence transitions differ "
+                             f"from the single card engine's")
+    all_timed = [w for layout in SHARD_LAYOUTS for w in timed[layout]]
+    valid = SHARD_EVENTS * len(all_timed)
+    summary = {
+        "mode": mode, "shards": SHARDS,
+        "per_shard_batch": engine.batch_size, "events_a_step": SHARD_EVENTS,
+        "steps": steps, "timed_steps": len(all_timed),
+        "events_per_s": valid / sum(all_timed),
+        "step_ms_p50": float(np.percentile(all_timed, 50) * 1e3),
+        "step_ms_p99": float(np.percentile(all_timed, 99) * 1e3),
+        "step_ms_p50_by_layout": {
+            layout: float(np.percentile(timed[layout], 50) * 1e3)
+            for layout in SHARD_LAYOUTS},
+        "materialize_ms_first_steps": [m * 1e3 for m in materialize],
+        "graph_captures": engine.graph_captures,
+        "b1_launches": launches["points_in_zones"],
+        "device_route_steps": engine.device_route_steps,
+        "device_route_fallbacks": engine.device_route_fallbacks,
+        "device_route_dropped": engine.device_route_dropped,
+        "alerts": alerts, "presence_missing": len(missing),
+        "cpu_check_s": t_cpu,
+    }
+    log(f"[sharded {mode}] {json.dumps(summary)} on {card}")
+    del twin
+    return engine, summary
+
+
+def single_reference(dev, card, traffic, epoch):
+    """The single card engine (phase 3's) over the same schedule: alerts,
+    canonical state before its sweep, presence transitions, timings."""
+    engine = build_world(dev, "auto", epoch, alert_lane_capacity=BATCH)
+    steps, timed, materialize = [], [], []
+    for n, (_, i, batch) in enumerate(shard_schedule(traffic)):
+        first = n < len(SHARD_LAYOUTS)
+        (wall, mat), got, _ = sharded_step(engine, batch, first)
+        steps.append(sorted(got) if first else got)
+        if i >= SHARD_WARMUP:
+            timed.append(wall)
+        if first:
+            materialize.append(mat)
+    ref = {"steps": steps, "state": engine.canonical_state(),
+           "missing": sorted(engine.presence_sweep())}
+    summary = {"events_per_s": SHARD_EVENTS * len(timed) / sum(timed),
+               "step_ms_p50": float(np.percentile(timed, 50) * 1e3),
+               "step_ms_p99": float(np.percentile(timed, 99) * 1e3),
+               "materialize_ms_first_steps": [m * 1e3 for m in materialize],
+               "timed_steps": len(timed),
+               "alerts": sum(len(g) if n < len(SHARD_LAYOUTS) else g[0]
+                             for n, g in enumerate(steps))}
+    log(f"[sharded single] the single card engine over the same steps: "
+        f"{json.dumps(summary)} on {card}")
+    return engine, ref, summary
+
+
+def routing_prologue_ms(engine, batch):
+    """CUDA-event ms of the device route alone (ops/route.py) on one flat
+    blob of the schedule, on the card: the sharded step's prologue."""
+    from sitewhere_tpu_torch.ops.pack import batch_to_blob
+    from sitewhere_tpu_torch.ops.route import device_route_chunk
+
+    flat = engine._pack_flat_blob(batch)
+    blob = torch.from_numpy(np.ascontiguousarray(flat)).to(engine.device)
+    del flat
+    S, B, C = engine.n_shards, engine.batch_size, engine.route_lane_capacity
+    routed, dropped = device_route_chunk(blob, S, B, C)
+    if int(dropped.sum()):
+        raise AssertionError("the route dropped rows of a fitting batch")
+    host, _ = engine.router.route_blob(batch_to_blob(
+        batch, wire_rows=blob.shape[0]))
+    if not torch.equal(routed.cpu(), torch.from_numpy(host)):
+        raise AssertionError("the device route and the host router differ")
+    return {"ms": time_cuda(lambda: device_route_chunk(blob, S, B, C)),
+            "queued_ms": time_cuda_queued(
+                lambda: device_route_chunk(blob, S, B, C)),
+            "rows": int(blob.shape[0]), "lanes": int(blob.shape[1]),
+            "lane_capacity": C}
+
+
+def sharded_stateful(dev, card, epoch):
+    """(b) Phase 5's world on SHARDS shards (device routing) on the card
+    and on the CPU, SHARD_STATEFUL_STEPS steps: alerts, command fires,
+    every state group and counter equal, scores within the tolerance; the
+    rule-program kernel counted once a shard a step."""
+    cpu = torch.device("cpu")
+    engine = build_stateful_world(dev, epoch, shards=SHARDS)
+    twin = build_stateful_world(cpu, epoch, shards=SHARDS)
+    batches = [synthetic_batch(engine.packer, N_REGISTERED, SHARD_EVENTS,
+                               SEED + 900 + s, mm_slots=(1, 2),
+                               t_off_ms=1000 * s)
+               for s in range(SHARD_STATEFUL_STEPS)]
+    torch.cuda.synchronize()
+    reset_launch_counts(engine)
+    walls, _, alerts, fires, scores, snap, families, _ = run_stateful_trace(
+        engine, batches, len(batches))
+    launches = launch_counts(engine)
+    want = SHARDS * len(batches)
+    for name, n in launches.items():
+        if n != want:
+            raise AssertionError(f"[sharded stateful] {name} launched {n} "
+                                 f"times; expected {want}")
+    _, _, c_alerts, c_fires, c_scores, c_snap, _, _ = run_stateful_trace(
+        twin, batches, len(batches))
+    if c_alerts != alerts or c_fires != fires:
+        raise AssertionError("[sharded stateful] card and CPU alerts or "
+                             "command fires differ")
+    compare_snapshots(snap, c_snap)
+    worst = 0.0
+    for got, ref in zip(scores, c_scores):
+        torch.testing.assert_close(got, ref, rtol=SCORE_RTOL,
+                                   atol=SCORE_ATOL)
+        worst = max(worst, float((got - ref).abs().max()))
+    summary = {"steps": len(batches), "launches": launches,
+               "alerts": sum(len(a) for a in alerts),
+               "fires": sum(len(f) for f in fires),
+               "fired_rows_by_family": dict(zip(
+                   ("threshold", "geofence", "program", "model"), families)),
+               "score_max_abs_diff": worst,
+               "step_ms": [w * 1e3 for w in walls]}
+    if not (families[2] and families[3]):
+        raise AssertionError("[sharded stateful] no program or model fired")
+    log(f"[sharded stateful] card == CPU: {json.dumps(summary)} on {card}")
+    return summary
+
+
+def sharded_elastic(dev, card, engine, traffic, epoch):
+    """(c) Save the SHARDS-shard engine, restore into 4 shards and into a
+    single engine on the card; all three continue equal."""
+    from sitewhere_tpu_torch.persist.checkpoint import PipelineCheckpointer
+
+    four = build_world(dev, "auto", epoch + 1, shards=4,
+                       alert_lane_capacity=BATCH // 4)
+    single = build_world(dev, "auto", epoch + 2, alert_lane_capacity=BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip-sharded-") as tmp:
+        ckpt = PipelineCheckpointer(tmp)
+        t0 = time.perf_counter()
+        path = ckpt.save(engine)
+        save_s = time.perf_counter() - t0
+        restore_s = []
+        for other in (four, single):
+            t0 = time.perf_counter()
+            ckpt.restore(other, path)
+            restore_s.append(time.perf_counter() - t0)
+    engines = (engine, four, single)
+    for eng in engines[1:]:
+        assert_tree_bits_equal(engine.canonical_state(),
+                               eng.canonical_state(), "[elastic] restored")
+    after = shard_traffic(engine.packer, SEED + 950)["compact"][
+        :SHARD_AFTER_RESTORE]
+    for k, batch in enumerate(after):
+        keys = [sorted(sharded_step(e, batch)[1]) for e in engines]
+        if keys[1] != keys[0] or keys[2] != keys[0]:
+            raise AssertionError(f"[elastic] step {k}: alerts differ "
+                                 f"after the restore")
+    for eng in engines[1:]:
+        assert_tree_bits_equal(engine.canonical_state(),
+                               eng.canonical_state(), "[elastic] continued")
+    summary = {"save_s": save_s, "restore_s_4_shards": restore_s[0],
+               "restore_s_single": restore_s[1],
+               "steps_after": len(after)}
+    log(f"[sharded elastic] {SHARDS} shards -> 4 shards and -> single, "
+        f"continued equal: {json.dumps(summary)} on {card}")
+    return summary
+
+
+def router_bench(card):
+    """(d) The port's host router at the micro-bench's shape: the native
+    and numpy route_blob, route_columns and the fused pack + route, median
+    ms of ROUTER_REPS runs each, after one warm run."""
+    from sitewhere_tpu_torch.ops.pack import EventBatch, batch_to_blob
+    from sitewhere_tpu_torch.parallel.router import ShardRouter
+
+    n, S, B = ROUTER_BENCH
+    rng = np.random.default_rng(SEED)
+    et = rng.integers(0, 3, n).astype(np.int32)
+    batch = EventBatch(
+        device_idx=rng.integers(0, 1_000_000, n).astype(np.int32),
+        tenant_idx=np.zeros(n, np.int32), event_type=et,
+        ts=rng.integers(0, 100_000, n).astype(np.int32),
+        mm_idx=np.where(et == 0, rng.integers(0, 8, n), 0).astype(np.int32),
+        value=rng.uniform(-50, 50, n).astype(np.float32),
+        lat=np.where(et == 1, rng.uniform(-90, 90, n), 0).astype(np.float32),
+        lon=np.where(et == 1, rng.uniform(-180, 180, n), 0)
+        .astype(np.float32),
+        elevation=np.zeros(n, np.float32),
+        alert_type_idx=np.where(et == 2, rng.integers(0, 8, n), 0)
+        .astype(np.int32),
+        alert_level=rng.integers(0, 5, n).astype(np.int32),
+        valid=np.ones(n, bool))
+    blob = batch_to_blob(batch)
+    router = ShardRouter(S, B)
+    nat, nat_over = router.route_blob(blob)
+    plain, plain_over = router.route_blob_plain(blob)
+    if not (np.array_equal(nat, plain) and np.array_equal(nat_over,
+                                                          plain_over)):
+        raise AssertionError("the native and numpy routers differ")
+
+    def median_ms(fn):
+        fn()
+        samples = []
+        for _ in range(ROUTER_REPS):
+            t0 = time.perf_counter()
+            fn()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+
+    out = {"n": n, "shards": S, "per_shard_batch": B,
+           "wire_rows": int(blob.shape[0]),
+           "route_blob_native_ms": median_ms(lambda: router.route_blob(blob)),
+           "route_blob_numpy_ms": median_ms(
+               lambda: router.route_blob_plain(blob)),
+           "route_columns_ms": median_ms(lambda: router.route_columns(batch)),
+           "route_batch_native_ms": median_ms(
+               lambda: router.route_batch(batch))}
+    log(f"[sharded router] host ms at the micro-bench shape: "
+        f"{json.dumps(out)} (host of {card})")
+    return out
+
+
+def serve_sharded_drive(device_arg, shards=SERVE_SHARDS, env_extra=None,
+                        timeout_s=300.0):
+    """`python -m sitewhere_tpu_torch serve --shards N` as a user runs it:
+    boot with a bus edge, provision SERVE_DEVICES devices over REST, send
+    one decoded-events request a device over the edge into the sharded
+    step, read every device's state back over REST (its last measurement
+    must be the one sent), and exit 0 on SIGTERM."""
+    import os
+    import re
+    import signal
+
+    import msgpack
+
+    from sitewhere_tpu_torch.client.rest import SiteWhereClientError
+    from sitewhere_tpu_torch.model.common import _asdict
+    from sitewhere_tpu_torch.model.event import (
+        DeviceEventBatch, DeviceMeasurement)
+    from sitewhere_tpu_torch.runtime.bus import TopicNaming
+    from sitewhere_tpu_torch.runtime.busnet import BusClient
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1", **(env_extra or {}))
+    with tempfile.TemporaryDirectory(prefix="chip-serve-") as tmp:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sitewhere_tpu_torch", "serve",
+             "--port", "0", "--bus-port", "0", "--device", device_arg,
+             "--shards", str(shards), "--data-dir", f"{tmp}/data"],
+            cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env)
+        try:
+            t0, seen, lines = time.perf_counter(), {}, []
+            patterns = {"url": r"REST gateway : (http://\S+)",
+                        "bus": r"bus edge     : tcp://[^:]+:(\d+)",
+                        "shards": r"shards       : (\d+)"}
+            while (len(seen) < len(patterns)
+                   and time.perf_counter() - t0 < timeout_s):
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                lines.append(line)
+                for key, pattern in patterns.items():
+                    m = re.search(pattern, line)
+                    if m:
+                        seen[key] = m.group(1)
+            assert len(seen) == len(patterns), \
+                "serve did not come up:\n" + "".join(lines)
+            boot_s = time.perf_counter() - t0
+            rest = rest_client(seen["url"])
+            topology = rest.get("/api/instance/topology")
+            rest.create_device_type({"token": "dt-shard", "name": "S"})
+            tokens = [f"shard-dev-{i}" for i in range(SERVE_DEVICES)]
+            for i, token in enumerate(tokens):
+                rest.create_device({"token": token,
+                                    "device_type_token": "dt-shard"})
+                rest.create_assignment({"token": f"shard-as-{i}",
+                                        "device_token": token})
+            topic = TopicNaming(instance=topology["instance_id"]) \
+                .event_source_decoded_events("default")
+            values = {token: 10.0 + i for i, token in enumerate(tokens)}
+            now = int(time.time() * 1000)
+            client = BusClient("127.0.0.1", int(seen["bus"]))
+            t_ingest = time.perf_counter()
+            try:
+                for token in tokens:
+                    batch = DeviceEventBatch(
+                        device_token=token, measurements=[DeviceMeasurement(
+                            name="temp", value=values[token],
+                            event_date=now)])
+                    client.publish(topic, token.encode(), msgpack.packb({
+                        "sourceId": "chip-smoke", "deviceToken": token,
+                        "kind": "DeviceEventBatch",
+                        "request": _asdict(batch), "metadata": {}},
+                        use_bin_type=True))
+            finally:
+                client.close()
+            ingested, pending = {}, list(tokens)
+            while pending and time.perf_counter() - t_ingest < timeout_s:
+                token = pending[0]
+                try:
+                    state = rest.get(f"/api/devicestates/{token}")
+                except SiteWhereClientError as exc:
+                    if exc.status != 404:   # no state until its step ran
+                        raise
+                    time.sleep(0.2)
+                    continue
+                got = state.get("last_measurements", {}).get("temp")
+                if got is None:
+                    time.sleep(0.2)
+                    continue
+                ingested[token] = float(got[1])
+                pending.pop(0)
+            ingest_s = time.perf_counter() - t_ingest
+            assert not pending, f"{len(pending)} devices never folded"
+            wrong = {t: v for t, v in ingested.items() if v != values[t]}
+            assert not wrong, f"states differ from what was sent: {wrong}"
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            assert rc == 0, f"serve exited {rc}:\n{proc.stdout.read()}"
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    last = tokens[-1]
+    return {"shards": int(seen["shards"]), "boot_s": boot_s,
+            "ingest_and_read_s": ingest_s, "events": len(tokens),
+            "ingested": len(ingested), "state_value": ingested[last],
+            "last_value": values[last],
+            "device": topology["device"]}
+
+
+def phase_sharded(dev, card):
+    """Phase 12: the sharded path on the card (see the module docstring).
+    Returns the summary; its `b1_launches` and `rule_launches` are the
+    kernels' launches on the sharded path."""
+    t_phase = time.perf_counter()
+    epoch = int(time.time() * 1000) - EPOCH_LAG_MS
+    single, single_ref, single_sum = None, None, None
+    t0 = time.perf_counter()
+    world = build_world(dev, "auto", epoch, shards=SHARDS)
+    traffic = shard_traffic(world.packer, SEED + 700)
+    log(f"[sharded] {SHARDS} shards x {world.batch_size} rows, "
+        f"{len(SHARD_LAYOUTS)} layouts x {SHARD_WARMUP + SHARD_STEPS} "
+        f"flat batches of {SHARD_EVENTS} events built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    del world
+    single, single_ref, single_sum = single_reference(dev, card, traffic,
+                                                      epoch)
+    runs = {}
+    engines = {}
+    for mode in ("host", "device"):
+        engines[mode], runs[mode] = sharded_run(dev, card, mode, traffic,
+                                                epoch, single_ref)
+    device_eng = engines["device"]
+    compact = traffic["compact"]
+    prologue = routing_prologue_ms(device_eng, compact[0])
+    log(f"[sharded] routing prologue (ops/route.py, CUDA events): "
+        f"{json.dumps(prologue)} on {card}")
+    profiles = {"single": profile_engine(single, compact, n_prof=3)}
+    for mode, eng in engines.items():
+        profiles[mode] = profile_engine(eng, compact, n_prof=3)
+    for name, prof in profiles.items():
+        log(f"[sharded] profiler ({name}): {json.dumps(prof)} on {card}")
+    del single
+    stateful = sharded_stateful(dev, card, epoch)
+    elastic = sharded_elastic(dev, card, device_eng, traffic, epoch)
+    del engines
+    router = router_bench(card)
+    t0 = time.perf_counter()
+    serve = serve_sharded_drive("cuda")
+    serve["wall_s"] = time.perf_counter() - t0
+    if serve["device"]["type"] != "cuda":
+        raise AssertionError(f"serve ran on {serve['device']}")
+    log(f"[sharded serve] {json.dumps(serve)} on {card}")
+    summary = {
+        "single": single_sum, "host": runs["host"], "device": runs["device"],
+        "routing_prologue": prologue,
+        "idle_share": {k: p["device_idle_share"] for k, p in
+                       profiles.items()},
+        "busy_ms_per_step": {k: p["device_busy_ms_per_step"] for k, p in
+                             profiles.items()},
+        "stateful": stateful, "elastic": elastic, "router": router,
+        "serve": serve,
+        "b1_launches": (runs["host"]["b1_launches"]
+                        + runs["device"]["b1_launches"]),
+        "rule_launches": stateful["launches"]["eval_rule_programs"],
+        "seconds": time.perf_counter() - t_phase}
+    log(f"[sharded] phase 12 took {summary['seconds']:.1f} s: "
+        f"device route p50 {runs['device']['step_ms_p50']:.2f} ms / p99 "
+        f"{runs['device']['step_ms_p99']:.2f} ms, host route p50 "
+        f"{runs['host']['step_ms_p50']:.2f} ms, single engine p50 "
+        f"{single_sum['step_ms_p50']:.2f} ms, on {card}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
@@ -4865,6 +5463,13 @@ def main() -> int:
         torch.cuda.set_device(dev)
         card, _ = phase_card()
         phase_feeders(dev, card)
+        return 0
+    if sys.argv[1:] == ["--sharded-only"]:
+        # phase 12 alone, for debugging it (prints no result line)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        card, _ = phase_card()
+        phase_sharded(dev, card)
         return 0
     try:
         dev = torch.device("cuda", 0)
@@ -4888,6 +5493,7 @@ def main() -> int:
         read = phase_read_side(dev, card, main_ref)
         instance = phase_instance(dev, card, name)
         feeders = phase_feeders(dev, card)
+        sharded = phase_sharded(dev, card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4905,6 +5511,7 @@ def main() -> int:
         "launches_ingest_path": ingest_launches,
         "launches_instance_path": instance_launches["points_in_zones"],
         "launches_feeder_path": feeders["launches_feeder_path"],
+        "launches_sharded_path": sharded["b1_launches"],
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],
@@ -4943,6 +5550,7 @@ def main() -> int:
         "replaces": "sitewhere_tpu/ops/stateful.py:148",
         "launches": stateful["rule_kernel_launches"],
         "launches_instance_path": instance_launches["eval_rule_programs"],
+        "launches_sharded_path": sharded["rule_launches"],
         **{k: rule[k] for k in ("mismatches", "max_abs_err", "ms",
                                 "queued_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "rows",

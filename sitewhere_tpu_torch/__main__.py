@@ -23,9 +23,10 @@ One card a host. `serve` also takes the networked bus edge
 feeder worker (`serve --feeder`: host work only, no card), the
 control-plane cluster (`--cluster-peers` without a coordinator), the
 gang-restart supervisor (`--supervise`) and usage telemetry
-(`telemetry.*`). The multi-host SPMD cluster and a sharded pipeline
-(`--cluster-coordinator`, `--shards` > 1) come with the sharded path and
-exit non-zero naming ROADMAP A6.
+(`telemetry.*`). `--shards N` runs the sharded pipeline (N shards of the
+device population on the one card). The multi-host SPMD cluster
+(`--cluster-coordinator`) comes with the multi-host data plane and exits
+non-zero naming ROADMAP A6d.
 
 Configuration layers (runtime/config.py — the CLI uses the canonical
 ``DEFAULTS`` schema there): built-in defaults <- --config JSON file <-
@@ -235,7 +236,7 @@ def _install_stop_handlers(stop: Optional[threading.Event] = None
 
 # serve modes of later slices: (config key or flag, ROADMAP item, what)
 _LEFT_OUT = (
-    ("cluster.coordinator", "A6", "the multi-host cluster"),
+    ("cluster.coordinator", "A6d", "the multi-host cluster"),
 )
 
 
@@ -418,9 +419,10 @@ def cmd_serve(args) -> int:
         if value is not None and value is not False and value != "":
             return _refuse(f"{key} asks for {what}, which this package "
                            f"does not have yet: ROADMAP {item}")
-    if int(cfg.get("mesh.shards") or 1) > 1:
-        return _refuse("mesh.shards > 1 asks for a sharded pipeline, which "
-                       "comes with the sharded path: ROADMAP A6")
+    if cfg.get("feeders.enabled") and int(cfg.get("mesh.shards") or 1) > 1:
+        return _refuse("feeders.enabled with mesh.shards > 1 asks for the "
+                       "feeders' sharded landing, which this package does "
+                       "not have yet: ROADMAP A6e")
     try:
         resolve_device(cfg.get("pipeline.device") or "cuda")
     except RuntimeError as exc:
@@ -474,6 +476,11 @@ def cmd_serve(args) -> int:
     print(f"  REST gateway : {rest.base_url}", flush=True)
     print(f"  OpenAPI doc  : {rest.base_url}/api/openapi.json", flush=True)
     print(f"  device       : {instance.device}", flush=True)
+    engine = instance.pipeline_engine
+    if getattr(engine, "n_shards", 1) > 1:
+        print(f"  shards       : {engine.n_shards} on {instance.device} "
+              f"(device routing {'on' if engine.device_routing else 'off'})",
+              flush=True)
     if bus_server is not None:
         print(f"  bus edge     : tcp://{cfg.get('api.host')}:"
               f"{bus_server.port}", flush=True)
@@ -655,7 +662,7 @@ def main(argv=None) -> int:
                             "(default: contend for every partition)")
     serve.add_argument("--cluster-coordinator",
                        help="multi-host cluster coordinator host:port "
-                            "(ROADMAP A6: refused)")
+                            "(ROADMAP A6d: refused)")
     serve.add_argument("--cluster-num-processes", type=int,
                        help="total processes in the cluster")
     serve.add_argument("--cluster-process-id", type=int,

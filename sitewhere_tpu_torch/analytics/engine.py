@@ -132,8 +132,8 @@ class WindowedAnalyticsEngine:
         if mesh is not None:
             # never answer a mesh query on one device instead
             raise NotImplementedError(
-                "mesh-sharded windowed replay (sharded_windowed_stats, the "
-                "sharded path) is not ported to sitewhere_tpu_torch yet; "
+                "mesh-sharded windowed replay (sharded_windowed_stats) "
+                "comes with the sharded path's analytics: ROADMAP A6c; "
                 "this engine serves single-device queries only")
         t_scan = time.perf_counter()
         # key on the int32 device_idx column, not the token strings; tokens

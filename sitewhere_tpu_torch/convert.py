@@ -137,16 +137,18 @@ def registry_from_snapshot(arrays: Dict,
                            device_type_tokens: Sequence[Optional[str]] = (),
                            zone_tokens: Sequence[Optional[str]] = (),
                            area_tokens: Sequence[Optional[str]] = (),
-                           assignment_tokens: Sequence[Optional[str]] = ()
-                           ) -> RegistryTensors:
+                           assignment_tokens: Sequence[Optional[str]] = (),
+                           shard_classes: int = 1) -> RegistryTensors:
     """The port's registry mirror from a registry snapshot (`arrays`: the
     RegistrySnapshot columns by name) and interner snapshots (index ->
     token lists, index 0 = None for UNKNOWN). Capacities follow the
-    arrays: D = len(assignment_status), [Z, V, 2] = zone_vertices."""
+    arrays: D = len(assignment_status), [Z, V, 2] = zone_vertices.
+    `shard_classes` is the device interner's (a sharded world's S)."""
     D = int(np.asarray(arrays["assignment_status"]).shape[0])
     Z, V = np.asarray(arrays["zone_vertices"]).shape[:2]
     reg = RegistryTensors(max_devices=D, max_zones=int(Z),
-                          max_zone_vertices=int(V))
+                          max_zone_vertices=int(V),
+                          shard_classes=shard_classes)
     for interner, tokens in ((reg.devices, device_tokens),
                              (reg.tenants, tenant_tokens),
                              (reg.device_types, device_type_tokens),

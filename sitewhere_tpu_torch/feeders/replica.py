@@ -14,7 +14,8 @@ Replaying the journal reproduces the authoritative table slot-for-slot
 (gap slots included), so a replica lookup returns the same index the
 landing host's would — the whole bit-identity argument. Device interning
 is sequential (one shard class): a hello naming more shard classes comes
-from a sharded engine and is refused (ROADMAP A6).
+from a sharded engine and is refused (the feeders' sharded landing,
+ROADMAP A6e).
 
 Device tokens are never interned by ingest on either side: an unknown
 device must stay index 0 so the pipeline flags it unregistered
@@ -57,8 +58,8 @@ class ReplicaPacker:
             raise NotImplementedError(
                 f"the landing engine is sharded (engine "
                 f"{hello.get('engine')!r}, {classes} device shard classes): "
-                f"its route-layout pack comes with the sharded path, "
-                f"ROADMAP A6")
+                f"its route-layout pack comes with the feeders' sharded "
+                f"landing, ROADMAP A6e")
         self.client = client
         self.hello = dict(hello)
         self._metrics = metrics

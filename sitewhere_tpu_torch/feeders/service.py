@@ -1,7 +1,8 @@
 """Landing-host blob-ingest endpoint: the feeder fleet's landing zone.
 
 Counterpart of `sitewhere_tpu/feeders/service.py` for one engine on one
-card (a sharded engine is the sharded path, ROADMAP A6, and is refused).
+card (a sharded engine lands with the feeders' sharded landing, ROADMAP
+A6e, and is refused).
 Mounts the ``feeder_*`` op family on the serve process's BusServer
 (runtime/busnet.py ``register_op``). With feeders attached, the landing
 host's per-step work on this path is H2D-into-StagingRing + the captured
@@ -119,12 +120,17 @@ class FeederService:
         self.blob_handle_s = 0.0
         self.blob_step_s = 0.0
         self.blob_cpu_s = 0.0
+        from sitewhere_tpu_torch.parallel.engine import \
+            ShardedPipelineEngine
         from sitewhere_tpu_torch.pipeline.engine import PipelineEngine
-        if not isinstance(engine, PipelineEngine):
+        # the sharded engine IS a PipelineEngine: refuse it by name, or its
+        # blobs would land down the single-engine path
+        if (isinstance(engine, ShardedPipelineEngine)
+                or not isinstance(engine, PipelineEngine)):
             raise NotImplementedError(
                 f"feeders land on one PipelineEngine; a "
                 f"{type(engine).__name__} (a sharded engine) lands with the "
-                f"sharded path: ROADMAP A6")
+                f"feeders' sharded landing: ROADMAP A6e")
         for op, fn in ((protocol.OP_HELLO, self._op_hello),
                        (protocol.OP_LEASE, self._op_lease),
                        (protocol.OP_JOURNAL, self._op_journal),
@@ -145,8 +151,9 @@ class FeederService:
             "batch_size": packer.batch_size,
             "epoch_base_ms": packer.epoch_base_ms,
             "dev_capacity": packer.devices.capacity,
-            # sequential device interning (shard classes are ROADMAP A6)
-            "dev_shard_classes": 1,
+            # the device interner's classes (a replica refuses > 1 until
+            # the sharded landing, ROADMAP A6e)
+            "dev_shard_classes": packer.devices.shard_classes,
             "mm_capacity": packer.measurements.capacity,
             "at_capacity": packer.alert_types.capacity,
             "topic": self.frames_topic,

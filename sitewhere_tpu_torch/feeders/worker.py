@@ -2,7 +2,7 @@
 
 Counterpart of `sitewhere_tpu/feeders/worker.py` for a single-engine
 landing host: it packs the engine's own wire layout. A hello from a
-sharded engine (its route-layout pack) is refused naming ROADMAP A6. The
+sharded engine (its route-layout pack) is refused naming ROADMAP A6e. The
 worker does no device work: it decodes, interns and packs on the host and
 never touches CUDA.
 

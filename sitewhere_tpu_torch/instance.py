@@ -11,12 +11,16 @@ managements, JWT token service, and instance bootstrap — all under a
 single lifecycle root so `start()`/`stop()` brings the platform up/down
 deterministically.
 
-One card a host: a sharded engine (`shards > 1`, a `mesh`) and the
-data-plane cluster hooks come with the sharded path (ROADMAP A6) and
-raise; one engine never stands in for a sharded one. The control-plane
-cluster (parallel/cluster.py ControlPlaneCluster) installs itself as
-`cluster_hooks` before start(): tenant engines then register their
-registries with its gossip.
+`shards > 1` (or a `ShardMesh`) selects the sharded engine
+(parallel/engine.py): S shards of the device population on the one card,
+with shard-congruent device interning, as the reference builds it. A mesh
+that is not a single-controller `ShardMesh` (a multi-host one) and the
+data-plane cluster hooks belong to the multi-host data plane (ROADMAP A6d)
+and raise. The query planner's mesh provider answers None until sharded
+analytics (A6c), so every window query keeps the host route. The
+control-plane cluster (parallel/cluster.py ControlPlaneCluster) installs
+itself as `cluster_hooks` before start(): tenant engines then register
+their registries with its gossip.
 """
 
 from __future__ import annotations
@@ -87,10 +91,13 @@ class SiteWhereInstance(LifecycleComponent):
         super().__init__(f"instance:{instance_id}")
         # raises without CUDA: never falls back to the CPU
         self.device = device = resolve_device(device)
-        if shards > 1 or mesh is not None:
+        from sitewhere_tpu_torch.parallel.mesh import (
+            ShardMesh, shard_axis_size)
+        if mesh is not None and not isinstance(mesh, ShardMesh):
             raise NotImplementedError(
-                "a sharded pipeline (pipeline.shards > 1 or a device mesh) "
-                "comes with the sharded path: ROADMAP A6")
+                "a device mesh other than a single-controller ShardMesh (a "
+                "multi-host mesh) comes with the multi-host data plane: "
+                "ROADMAP A6d")
         self.instance_id = instance_id
         self.data_dir = data_dir
         # observability.trace_sample_n: sample 1 in N ingest deliveries
@@ -127,16 +134,40 @@ class SiteWhereInstance(LifecycleComponent):
         self.registry_tensors = None
         self.pipeline_engine = None
         if enable_pipeline:
-            from sitewhere_tpu_torch.pipeline.engine import PipelineEngine
             from sitewhere_tpu_torch.registry.tensors import RegistryTensors
+            n_shards = (shard_axis_size(mesh) if mesh is not None
+                        else max(1, shards))
+            if max_devices % n_shards:
+                raise ValueError(
+                    f"max_devices {max_devices} must be divisible by "
+                    f"{n_shards} shards")
+            # shard-congruent device interning: ownership (idx % S) is a
+            # pure function of the token (registry/interning.py)
             self.registry_tensors = RegistryTensors(
                 max_devices=max_devices, max_zones=max_zones,
-                max_zone_vertices=max_zone_vertices)
-            self.pipeline_engine = PipelineEngine(
-                self.registry_tensors, batch_size=batch_size,
-                measurement_slots=measurement_slots,
-                max_tenants=max_tenants,
-                h2d_buffer_depth=h2d_buffer_depth, device=device)
+                max_zone_vertices=max_zone_vertices,
+                shard_classes=n_shards)
+            if shards > 1 or mesh is not None:
+                # the sharded step over S shards on this card
+                from sitewhere_tpu_torch.parallel import (
+                    ShardedPipelineEngine, make_mesh)
+                self.pipeline_engine = ShardedPipelineEngine(
+                    self.registry_tensors,
+                    mesh=(mesh if mesh is not None
+                          else make_mesh(shards, device=device)),
+                    per_shard_batch=batch_size,
+                    measurement_slots=measurement_slots,
+                    max_tenants=max_tenants,
+                    device_routing=device_routing,
+                    h2d_buffer_depth=h2d_buffer_depth)
+            else:
+                from sitewhere_tpu_torch.pipeline.engine import \
+                    PipelineEngine
+                self.pipeline_engine = PipelineEngine(
+                    self.registry_tensors, batch_size=batch_size,
+                    measurement_slots=measurement_slots,
+                    max_tenants=max_tenants,
+                    h2d_buffer_depth=h2d_buffer_depth, device=device)
         # latency tier (pipeline.mode="latency"): one shared adaptive
         # batcher coalesces every tenant's hot events and flushes on fill
         # or linger (pipeline/feed.py) — inbound consumers offer to it
@@ -155,7 +186,7 @@ class SiteWhereInstance(LifecycleComponent):
         # planner-routed measurement-window reads — host kernel for small
         # scans on `device` — behind an incremental [K, W] grid cache and
         # bounded read admission, so dashboard pollers never stall ingest.
-        # One device has no replay mesh (_serving_mesh).
+        # No replay mesh until sharded analytics (_serving_mesh).
         from sitewhere_tpu_torch.analytics.engine import WindowedAnalyticsEngine
         from sitewhere_tpu_torch.serving import (
             QueryExecutor, QueryPlanner, WindowGridCache)
@@ -345,9 +376,11 @@ class SiteWhereInstance(LifecycleComponent):
         return SqliteStore(os.path.join(self.data_dir, f"{kind}.db"))
 
     def _serving_mesh(self):
-        """Planner mesh provider: None. One device has no replay mesh (the
-        reference's live_mesh is None below two devices), so every query
-        stays on the host route."""
+        """Planner mesh provider: None, so every query stays on the host
+        route. The reference hands the planner a sharded engine's mesh (its
+        shard axis is the replay axis); the port's analytics engine serves
+        no mesh until sharded analytics (ROADMAP A6c), and must never be
+        handed one."""
         return None
 
     def _make_engine(self, tenant: Tenant) -> TenantEngine:

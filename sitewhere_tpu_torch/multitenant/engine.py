@@ -76,10 +76,12 @@ class TenantEngine(LifecycleComponent):
             registry_tensors.attach(self.registry, tenant.token)
         if cluster is not None and getattr(cluster, "data_plane", True):
             # inbound ownership routing and the lockstep step loop come
-            # with the sharded path; a host never drops them quietly
+            # with the multi-host data plane; a host never drops them
+            # quietly
             raise NotImplementedError(
                 "data-plane cluster hooks (inbound ownership routing, the "
-                "lockstep step loop) come with the sharded path: ROADMAP A6")
+                "lockstep step loop) come with the multi-host data plane: "
+                "ROADMAP A6d")
         if cluster is not None and getattr(cluster, "gossip", None) \
                 is not None:
             # control-plane cluster (parallel/cluster.py): this tenant's

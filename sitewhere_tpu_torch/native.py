@@ -2,7 +2,8 @@
 
 Counterpart of `sitewhere_tpu/native/__init__.py`. The library is the
 ingest path's host tier: the token interner table, the single-pass decoder
-of wire frames, and the one-pass pack and unpack of the int32 wire blob.
+of wire frames, the one-pass pack and unpack of the int32 wire blob, and
+the sharded path's one-pass shard route (`route_blob`, `pack_route_blob`).
 
 It is built with `g++ -O3 -std=c++17 -shared -fPIC` at first use (never at
 import) into `sitewhere_tpu_torch/_build/` (git-ignored), under a file name
@@ -127,8 +128,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         p_u8, i64, p_i64,
         p_i32, p_i64, p_i64, i32, p_i64]
     lib.swt_decode_hot_frames.restype = i32
-    # swt_route_blob / swt_pack_route_blob stay unbound until the sharded
-    # path needs them
+    lib.swt_route_blob.argtypes = [p_i32, i64, i32, i32, i32, p_i32, p_i64,
+                                   i64]
+    lib.swt_route_blob.restype = i32
+    lib.swt_pack_route_blob.argtypes = [p_i32, p_i32, p_i32, p_i32, p_f32,
+                                        p_f32, p_f32, p_f32, p_i32, p_i32,
+                                        p_u8, i64, i32, i32, i32, i32,
+                                        p_i32, p_i64, i64]
+    lib.swt_pack_route_blob.restype = i32
 
 
 def _open(path: Path) -> Tuple[ctypes.CDLL, bool]:
@@ -203,6 +210,57 @@ def pack_blob(batch, out: np.ndarray, ts_base: int = 0) -> bool:
     rc = lib().swt_pack_blob(*cols, n, out.shape[0], int(ts_base),
                              out.reshape(-1))
     return rc == 0
+
+
+def route_blob(blob: np.ndarray, n_shards: int, per_shard: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Shard-route a flat wire blob [wire_rows, n] in one pass -> ([S,
+    wire_rows, B] routed blob, flat-row indices of the rows past a shard's
+    capacity, in arrival order); wire_rows follows the input blob."""
+    blob = host_column(blob, np.int32)
+    rows, n = blob.shape
+    out = np.zeros((n_shards, rows, per_shard), np.int32)
+    overflow = np.empty(max(n, 1), np.int64)
+    n_over = lib().swt_route_blob(blob.reshape(-1), n, n_shards, per_shard,
+                                  rows, out.reshape(-1), overflow,
+                                  len(overflow))
+    if n_over < 0:  # cannot happen with overflow_cap = n
+        raise RuntimeError("route_blob overflow capacity exceeded")
+    return out, overflow[:n_over]
+
+
+def pack_route_blob(batch, n_shards: int, per_shard: int,
+                    out: Optional[np.ndarray] = None,
+                    wire_rows: Optional[int] = None, ts_base: int = 0
+                    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Fused pack + route in one pass: EventBatch columns -> ([S,
+    wire_rows, B] routed blob, overflow flat-row indices). wire_rows comes
+    from `out` when a buffer is given (it need not be zeroed), else the
+    argument (default 5). Returns None when a device_idx is out of the
+    wire field's range (the caller raises with the detail)."""
+    n = batch.device_idx.shape[0]
+    if out is not None:
+        wire_rows = out.shape[1]
+    elif wire_rows is None:
+        wire_rows = 5
+    if out is None:
+        out = np.empty((n_shards, wire_rows, per_shard), np.int32)
+    i32, f32 = np.int32, np.float32
+    cols = [host_column(getattr(batch, name), dtype) for name, dtype in (
+        ("device_idx", i32), ("event_type", i32), ("ts", i32),
+        ("mm_idx", i32), ("value", f32), ("lat", f32), ("lon", f32),
+        ("elevation", f32), ("alert_type_idx", i32), ("alert_level", i32),
+        ("valid", np.uint8))]
+    _check_lengths(cols, n)
+    overflow = np.empty(max(n, 1), np.int64)
+    rc = lib().swt_pack_route_blob(
+        *cols, n, n_shards, per_shard, wire_rows, int(ts_base),
+        out.reshape(-1), overflow, len(overflow))
+    if rc == -2:
+        return None
+    if rc < 0:  # cannot happen with overflow_cap = n
+        raise RuntimeError("pack_route_blob overflow capacity exceeded")
+    return out, overflow[:rc]
 
 
 def _check_lengths(cols, n: int) -> None:

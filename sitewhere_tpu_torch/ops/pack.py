@@ -66,6 +66,10 @@ class EventBatch:
     def batch_size(self) -> int:
         return self.device_idx.shape[0]
 
+    def replace(self, **changes) -> "EventBatch":
+        """A copy with `changes` (the reference's struct `replace`)."""
+        return dataclasses.replace(self, **changes)
+
 
 WIRE_ROWS = 5
 WIRE_ROWS_COMPACT = 4
@@ -107,15 +111,45 @@ def wire_variant_for(batch: EventBatch) -> Tuple[int, int]:
     return WIRE_ROWS_COMPACT, 0
 
 
+def wire_rows_for(batch: EventBatch) -> int:
+    """Wire variant row count only (callers that cannot use the packed
+    layout's ts base)."""
+    return wire_variant_for(batch)[0]
+
+
+def empty_batch(batch_size: int) -> EventBatch:
+    """An all-padding host batch of `batch_size` rows (the sharded engine's
+    overflow drain steps submit one)."""
+    zi = torch.zeros(batch_size, dtype=torch.int32)
+    zf = torch.zeros(batch_size, dtype=torch.float32)
+    return EventBatch(
+        device_idx=zi, tenant_idx=zi.clone(), event_type=zi.clone(),
+        ts=zi.clone(), mm_idx=zi.clone(), value=zf, lat=zf.clone(),
+        lon=zf.clone(), elevation=zf.clone(), alert_type_idx=zi.clone(),
+        alert_level=zi.clone(),
+        valid=torch.zeros(batch_size, dtype=torch.bool))
+
+
 def _embed_ts_base(row0: np.ndarray, ts_base: int) -> None:
     """Scatter the 32-bit ts base over row 0's spare bits, 3 per lane (lane
-    10 carries the top 2). Bit work on a uint32 view so bit 31 never trips
-    int32 overflow handling."""
-    lanes = row0[:_BASE_LANES].view(np.uint32)
+    10 carries the top 2). row0 may be [B] or [S, B] (routed: the same base
+    lands in every shard's lanes). Bit work on a uint32 view so bit 31
+    never trips int32 overflow handling."""
+    lanes = row0[..., :_BASE_LANES].view(np.uint32)
     base = np.uint32(int(ts_base) & 0xFFFFFFFF)
     for lane in range(_BASE_LANES):
-        lanes[lane] |= ((base >> np.uint32(3 * lane)) & np.uint32(7)) \
+        lanes[..., lane] |= ((base >> np.uint32(3 * lane)) & np.uint32(7)) \
             << np.uint32(_BASE_SHIFT)
+
+
+def _extract_ts_base_np(row0: np.ndarray) -> np.ndarray:
+    """Inverse of _embed_ts_base; an int32 of row0's leading shape (a
+    scalar for a flat blob, [S] for a routed one)."""
+    base = np.zeros(row0.shape[:-1], np.uint32)
+    for lane in range(_BASE_LANES):
+        base |= ((row0[..., lane].astype(np.uint32) >> _BASE_SHIFT) & 7) \
+            << np.uint32(3 * lane)
+    return base.astype(np.int32)
 
 
 def _check_device_range(dev: np.ndarray) -> None:
@@ -136,12 +170,34 @@ def _blob_buffer(out: Optional[np.ndarray], rows: int, B: int) -> np.ndarray:
     return np.empty((rows, B), np.int32)
 
 
+def _pinned_variant(batch: EventBatch,
+                    wire_rows: Optional[int]) -> Tuple[int, int]:
+    """(rows, ts_base): the smallest layout the batch allows, or the one a
+    caller pins. A classic pin (4 or 5 rows) packs with base 0; a packed
+    pin is legal only for a packed-eligible batch (its ts base cannot be
+    guessed)."""
+    if wire_rows is None:
+        return wire_variant_for(batch)
+    if wire_rows == WIRE_ROWS_PACKED:
+        rows, ts_base = wire_variant_for(batch)
+        if rows != WIRE_ROWS_PACKED:
+            raise ValueError(
+                "batch is not packed-eligible (carries locations, "
+                "elevation, or a ts span over 2^16 ms); pack with a "
+                "classic layout")
+        return rows, ts_base
+    if wire_rows not in (WIRE_ROWS, WIRE_ROWS_COMPACT):
+        raise ValueError(f"wire_rows {wire_rows}: expected 3, 4 or 5")
+    return wire_rows, 0
+
+
 def batch_to_blob(batch: EventBatch,
-                  out: Optional[np.ndarray] = None) -> np.ndarray:
+                  out: Optional[np.ndarray] = None,
+                  wire_rows: Optional[int] = None) -> np.ndarray:
     """Pack a host batch into the wire blob ([rows, B] int32) in the
-    smallest layout its content allows, in one pass of the native host
-    library (`native.pack_blob`). A well-formed batch — anything the packer
-    produces — round-trips exactly.
+    smallest layout its content allows (or the `wire_rows` a caller pins),
+    in one pass of the native host library (`native.pack_blob`). A
+    well-formed batch — anything the packer produces — round-trips exactly.
 
     `out` is an optional preallocated [WIRE_ROWS, B] int32 buffer (the
     engine passes a pinned staging buffer): the blob is written in place
@@ -149,7 +205,7 @@ def batch_to_blob(batch: EventBatch,
     from sitewhere_tpu_torch import native
 
     B = batch.device_idx.shape[-1]
-    rows, ts_base = wire_variant_for(batch)
+    rows, ts_base = _pinned_variant(batch, wire_rows)
     blob = _blob_buffer(out, rows, B)
     if not native.pack_blob(batch, blob, ts_base=ts_base):
         _check_device_range(np.asarray(batch.device_idx, np.int32))
@@ -159,11 +215,12 @@ def batch_to_blob(batch: EventBatch,
 
 
 def batch_to_blob_plain(batch: EventBatch,
-                        out: Optional[np.ndarray] = None) -> np.ndarray:
+                        out: Optional[np.ndarray] = None,
+                        wire_rows: Optional[int] = None) -> np.ndarray:
     """The plain numpy version of batch_to_blob (about ten passes over
     the columns): the same blob, byte for byte, and the same error."""
     B = batch.device_idx.shape[-1]
-    rows, ts_base = wire_variant_for(batch)
+    rows, ts_base = _pinned_variant(batch, wire_rows)
     dev = np.asarray(batch.device_idx, np.int32)
     _check_device_range(dev)
     et = np.asarray(batch.event_type, np.int32) & 7
@@ -258,22 +315,30 @@ def blob_to_batch(blob: torch.Tensor) -> EventBatch:
 
 
 def blob_to_batch_np(blob: np.ndarray) -> EventBatch:
-    """Host inverse of batch_to_blob in one native pass: a [rows, n] wire
-    blob -> an EventBatch of CPU tensors (tenant_idx zero, as the wire does
-    not carry it). The plain version is `blob_to_batch` on a CPU tensor."""
+    """Host inverse of batch_to_blob in one native pass per blob: a [rows,
+    n] wire blob -> an EventBatch of [n] CPU tensors, or a routed [S, rows,
+    B] blob -> [S, B] columns, shard by shard (tenant_idx zero, as the wire
+    does not carry it). The plain version is `blob_to_batch` on a CPU
+    tensor."""
     from sitewhere_tpu_torch import native
 
     blob = np.asarray(blob, np.int32)
-    n = blob.shape[-1]
-    cols = {name: np.empty(n, np.int32) for name in (
+    shape = blob.shape[:-2] + blob.shape[-1:]    # [n] flat, [S, B] routed
+    cols = {name: np.empty(shape, np.int32) for name in (
         "device_idx", "event_type", "ts", "mm_idx", "alert_type_idx",
         "alert_level")}
-    cols.update({name: np.empty(n, np.float32) for name in (
+    cols.update({name: np.empty(shape, np.float32) for name in (
         "value", "lat", "lon", "elevation")})
-    cols["valid"] = np.empty(n, np.uint8)
-    native.unpack_blob(blob, cols)
+    cols["valid"] = np.empty(shape, np.uint8)
+    if blob.ndim == 2:
+        native.unpack_blob(blob, cols)
+    else:
+        flat = blob.reshape((-1,) + blob.shape[-2:])
+        for s in range(flat.shape[0]):
+            native.unpack_blob(flat[s], {k: v.reshape(-1, shape[-1])[s]
+                                         for k, v in cols.items()})
     cols["valid"] = cols["valid"].view(bool)
-    return EventBatch(tenant_idx=torch.zeros(n, dtype=torch.int32),
+    return EventBatch(tenant_idx=torch.zeros(shape, dtype=torch.int32),
                       **{k: torch.from_numpy(v) for k, v in cols.items()})
 
 

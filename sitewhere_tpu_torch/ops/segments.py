@@ -96,6 +96,22 @@ def batch_device_order(dev: torch.Tensor
     return order, inv
 
 
+def bucket_ranks(keys: torch.Tensor) -> torch.Tensor:
+    """Arrival-order rank (int32 [B]) of each row within its key bucket:
+    one stable sort by key (the reference's `lexsort((rows, keys))`), each
+    segment's start by a running max, then the rank scattered back to the
+    row's position (a permutation, so every write is unique)."""
+    B = keys.shape[0]
+    rows = torch.arange(B, dtype=torch.int64, device=keys.device)
+    sk, order = torch.sort(keys, stable=True)
+    first = torch.ones(B, dtype=torch.bool, device=keys.device)
+    first[1:] = sk[1:] != sk[:-1]
+    seg_start = torch.cummax(torch.where(first, rows, 0), dim=0).values
+    rank = torch.empty(B, dtype=torch.int32, device=keys.device)
+    rank[order] = (rows - seg_start).to(torch.int32)
+    return rank
+
+
 def scatter_max_by_key(keys: torch.Tensor, values: torch.Tensor,
                        valid: torch.Tensor, num_segments: int,
                        state: torch.Tensor) -> torch.Tensor:

@@ -35,8 +35,8 @@ TopologyStateAggregator.java).
 its OWN engine on its own card and owns every device it ingests; a killed
 host restarts alone (its supervisor) and rebuilds from durable state while
 the survivors keep serving. The multi-host SPMD cluster (lockstep step
-loop, foreign-row forwarding, ClusterService) is the sharded path, ROADMAP
-A6.
+loop, foreign-row forwarding, ClusterService) is the multi-host data
+plane, ROADMAP A6d.
 """
 
 from __future__ import annotations

@@ -24,13 +24,25 @@ INTO the engine-owned buffers the captured steps read
 (`load_canonical_*`), so the graphs stay valid and the next replay sees the
 restored state. Families re-install (pinned slot/epoch) before their state
 loads, so a family that goes empty -> non-empty reallocates its group
-first. The port's device interner is sequential: any snapshot — a JAX
-single-chip engine's, or a sharded engine's shard-congruent one — restores
-verbatim, and the registry mirror re-mirrors its rows under the restored
-indices (`RegistryTensors.rebuild`).
+first.
 
-The per-host `host-shards` layout (a multi-host save) needs the sharded
-engine, which the port does not have yet: a restore refuses it with
+The layout is canonical (flat, device-major), so a save on any topology
+restores onto any other (elastic restore): a sharded engine
+(parallel/engine.py) saves its groups un-sharded and re-shards them on
+load. The device interner restores verbatim when the snapshot fits its
+layout (a sequential interner takes any snapshot; the registry mirror then
+re-mirrors its rows under the restored indices, `RegistryTensors.rebuild`).
+A shard-congruent interner of another layout (S shards saved, S' restore)
+refuses the snapshot, so every token is re-interned congruently and the
+device-major rows of every group, and the overflow backlog's device
+indices, follow the old -> new index permutation (`_restore_devices_elastic`,
+`_permute_device_rows`, `_permute_group_rows`). A save drains a sharded
+engine's overflow backlog first (its bus offsets may be committed); a
+restored backlog parks on an engine that has one, and folds through steps
+on one that does not.
+
+The per-host `host-shards` layout (a multi-host save) belongs to the
+multi-host data plane (ROADMAP A6d): a restore refuses it with
 SiteWhereCheckpointError before touching the engine. `assemble_canonical`
 turns a cluster's per-host checkpoints into a canonical one that restores
 here.
@@ -62,11 +74,14 @@ import torch
 
 from sitewhere_tpu_torch.errors import SiteWhereError
 from sitewhere_tpu_torch.model.event import DeviceAlert
-from sitewhere_tpu_torch.ops.actuate import ActuationStateTensors
-from sitewhere_tpu_torch.ops.anomaly import ModelStateTensors
+from sitewhere_tpu_torch.ops.actuate import (
+    ActuationStateTensors, init_actuation_state)
+from sitewhere_tpu_torch.ops.anomaly import (
+    ModelStateTensors, init_model_state)
 from sitewhere_tpu_torch.ops.pack import EventBatch
 from sitewhere_tpu_torch.ops.slab import pack_state_slab_np
-from sitewhere_tpu_torch.ops.stateful import RuleStateTensors
+from sitewhere_tpu_torch.ops.stateful import (
+    RuleStateTensors, init_rule_state)
 from sitewhere_tpu_torch.persist.atomic import (
     fsync_dir, verify_digest_manifest, write_digest_manifest)
 from sitewhere_tpu_torch.pipeline.state_tensors import (
@@ -128,6 +143,47 @@ def _init_device_state_np(D: int, M: int, T: int) -> Dict[str, np.ndarray]:
             for f in dataclasses.fields(state)}
 
 
+def _permute_device_rows(cols: Dict[str, np.ndarray],
+                         perm: np.ndarray) -> Dict[str, np.ndarray]:
+    """Re-index device-major state rows old-index -> perm[old-index]
+    (elastic restore across shard-congruent interner layouts). Rows with
+    no device (perm 0) fall away; untouched rows keep init sentinels."""
+    sample = cols["last_measurement"]
+    init = _init_device_state_np(sample.shape[0], sample.shape[1],
+                                 cols["tenant_event_count"].shape[0])
+    old_idx = np.nonzero(perm)[0]
+    new_idx = perm[old_idx]
+    out = {}
+    for name, array in cols.items():
+        if name in _TENANT_FIELDS:
+            out[name] = array
+            continue
+        fresh = np.array(init[name])
+        fresh[new_idx] = array[old_idx]
+        out[name] = fresh
+    return out
+
+
+def _permute_group_rows(group: str, cols: Dict[str, np.ndarray],
+                        perm: np.ndarray) -> Dict[str, np.ndarray]:
+    """Re-index a stateful group's device-major slab old -> perm[old] (the
+    reference's _permute_rule_state_rows, _permute_model_state_rows and
+    _permute_actuation_state_rows): untouched rows keep init sentinels, so
+    unmapped devices start their windows fresh; the per-slot rows (gen and
+    counters) move verbatim."""
+    slab = cols["slab"]
+    D, P, lanes = slab.shape
+    if group == "actuation":
+        init = init_actuation_state(D, P, device="cpu")
+    else:
+        init = {"rule": init_rule_state, "model": init_model_state}[group](
+            D, P, (lanes - 2) // 4, device="cpu")
+    fresh = init.slab.numpy().copy()
+    old_idx = np.nonzero(perm)[0]
+    fresh[perm[old_idx]] = slab[old_idx]
+    return {**cols, "slab": fresh}
+
+
 def _shift_ts(array: np.ndarray, delta_ms: int) -> np.ndarray:
     """Shift rebased timestamps between epoch bases; the 'never' sentinel
     stays put."""
@@ -157,12 +213,17 @@ def _migrate_state_cols(cols: Dict[str, np.ndarray], *, flag_field: str
 
 
 def _install_overflow(engine, overflow_cols: Dict[str, np.ndarray]) -> None:
-    """Fold a restored overflow backlog into the engine in batch-size
-    chunks (zero-padded), stashing any fired alerts on the engine's pending
-    list — drained at the head of the next materialize_alerts, never
-    silently lost."""
+    """Hand a restored overflow backlog to the engine: an engine with a
+    pending-overflow slot (the sharded one) parks it, drained before its
+    next checkpoint; any other folds it in batch-size chunks (zero-padded),
+    stashing any fired alerts on the engine's pending list — drained at
+    the head of the next materialize_alerts, never silently lost."""
     cols = {f.name: np.asarray(overflow_cols[f.name])
             for f in dataclasses.fields(EventBatch)}
+    setter = getattr(engine, "set_pending_overflow_batch", None)
+    if setter is not None:
+        setter(EventBatch(**cols))
+        return
     n = cols["device_idx"].shape[0]
     B = engine.batch_size
     for start in range(0, n, B):
@@ -488,6 +549,12 @@ class PipelineCheckpointer:
                      extra_manifest: Optional[Dict] = None) -> str:
         t0 = time.perf_counter()
         self._fence_stale_save()
+        # a sharded engine's parked overflow rows fold into state first:
+        # their bus offsets may be committed, and a snapshot without them
+        # would break the offsets <= state invariant
+        drain = getattr(engine, "drain_pending", None)
+        if drain is not None:
+            drain()
         captured_offsets = {
             f"{g.topic.name}@{g.group_id}": list(g.committed)
             for g in consumer_groups or []
@@ -631,9 +698,9 @@ class PipelineCheckpointer:
         if manifest.get("layout") == "host-shards":
             raise SiteWhereCheckpointError(
                 f"checkpoint {path} is a per-host shard checkpoint "
-                f"(layout=host-shards), which only a sharded engine on the "
-                f"same cluster topology restores; assemble the cluster's "
-                f"per-host checkpoints with write_assembled first")
+                f"(layout=host-shards): the multi-host data plane's, "
+                f"ROADMAP A6d; assemble the cluster's per-host checkpoints "
+                f"with write_assembled first")
         t_read = time.perf_counter()
         groups = {}
         for prefix, group, *_ in _GROUPS:
@@ -654,7 +721,18 @@ class PipelineCheckpointer:
         # wipe the mid-window state they pin
         for _, _, _, key, installer in _GROUPS:
             self._restore_family(engine, manifest.get(key), installer)
-        self._restore_devices(engine, manifest["interners"]["devices"])
+        perm = self._restore_devices_elastic(
+            engine, manifest["interners"]["devices"])
+        if perm is not None:
+            state_cols = _permute_device_rows(state_cols, perm)
+            for group, cols in groups.items():
+                if cols:
+                    groups[group] = _permute_group_rows(group, cols, perm)
+            if overflow_cols:
+                dev = overflow_cols["device_idx"]
+                overflow_cols["device_idx"] = np.where(
+                    dev < len(perm), perm[np.clip(dev, 0, len(perm) - 1)],
+                    0).astype(np.int32)
         engine.load_canonical_state(DeviceStateTensors(
             **{name: torch.from_numpy(arr)
                for name, arr in state_cols.items()}))
@@ -696,15 +774,27 @@ class PipelineCheckpointer:
         return manifest.get("offsets", {})
 
     @staticmethod
-    def _restore_devices(engine, tokens) -> None:
-        """Restore the device interner verbatim (sequential here, so any
-        snapshot layout loads as it is); when that moves any token's index,
-        the registry mirror re-mirrors its rows under the new indices."""
+    def _restore_devices_elastic(engine, tokens) -> Optional[np.ndarray]:
+        """Restore the device interner. Verbatim when the snapshot fits its
+        layout (returns None; when that moves any token's index, the
+        registry mirror re-mirrors its rows under the new indices). A
+        shard-congruent interner refuses a snapshot of another layout:
+        then every token re-interns congruently and the old -> new index
+        permutation comes back for the device-major rows."""
         devices = engine.packer.devices
         before = devices.snapshot()
-        devices.restore(tokens)
+        try:
+            devices.restore(tokens)
+            perm = None
+        except ValueError:
+            devices.restore([None])  # reset, then allocate congruently
+            perm = np.zeros(max(len(tokens), 1), np.int32)
+            for i, token in enumerate(tokens):
+                if i and token is not None:
+                    perm[i] = devices.intern(token)
         if devices.snapshot() != before:
             engine.registry.rebuild()
+        return perm
 
     @staticmethod
     def _remap_tenant_rows(engine, tenant_tokens) -> None:

@@ -102,6 +102,77 @@ _log = logging.getLogger("sitewhere.pipeline")
 _BLOB_RING_SLOTS = 6
 
 
+def _host(column) -> np.ndarray:
+    return (column.cpu().numpy() if isinstance(column, torch.Tensor)
+            else np.asarray(column))
+
+
+def materialize_alerts_maskscan(engine, batch, outputs
+                                ) -> List[DeviceAlert]:
+    """The reference's pre-lane mask-scan materializer, kept as the
+    differential oracle of the alert lanes: the per-row fire, level and
+    rule columns come back to the host, the fired mask is scanned there,
+    and each fired row's alerts are built with per-row `token_of` lookups
+    — threshold, geofence, rule-program, then anomaly-model, as the lane
+    materializer orders them. Flat batches and outputs only (a sharded
+    engine's are flattened first, global device indices); returns every
+    fired row's alerts and touches no engine counter or pending list."""
+    (thr_fired, geo_fired, prog_fired, model_fired, thr_level, geo_level,
+     prog_level, thr_rule, geo_rule, prog_rule, model_first) = (
+        _host(getattr(outputs, name)) for name in (
+            "threshold_fired", "geofence_fired", "program_fired",
+            "model_fired", "threshold_alert_level", "geofence_alert_level",
+            "program_alert_level", "threshold_first_rule",
+            "geofence_first_rule", "program_first_rule", "model_first"))
+    fired_rows = np.nonzero(thr_fired | geo_fired | prog_fired
+                            | model_fired)[0]
+    if fired_rows.size == 0:
+        return []
+    device_idx = _host(batch.device_idx)
+    ts = _host(batch.ts)
+    rules = engine.list_rules()
+    thr_rules, geo_rules = rules["threshold"], rules["geofence"]
+    programs = engine.rule_programs_by_slot()
+    models = engine.anomaly_models_by_slot()
+    alerts: List[DeviceAlert] = []
+    for row in fired_rows:
+        token = engine.registry.devices.token_of(int(device_idx[row])) or ""
+        date = engine.packer.abs_ts(int(ts[row]))
+        if thr_fired[row] and 0 <= thr_rule[row] < len(thr_rules):
+            rule = thr_rules[int(thr_rule[row])]
+            alerts.append(DeviceAlert(
+                device_id=token, source=AlertSource.SYSTEM,
+                level=AlertLevel(int(thr_level[row])), type=rule.alert_type,
+                message=rule.alert_message
+                or f"threshold rule {rule.token} fired", event_date=date))
+        if geo_fired[row] and 0 <= geo_rule[row] < len(geo_rules):
+            rule = geo_rules[int(geo_rule[row])]
+            alerts.append(DeviceAlert(
+                device_id=token, source=AlertSource.SYSTEM,
+                level=AlertLevel(int(geo_level[row])), type=rule.alert_type,
+                message=rule.alert_message
+                or f"geofence rule {rule.token} fired", event_date=date))
+        if prog_fired[row] and int(prog_rule[row]) in programs:
+            spec = programs[int(prog_rule[row])]
+            alerts.append(DeviceAlert(
+                device_id=token, source=AlertSource.SYSTEM,
+                level=AlertLevel(int(prog_level[row])),
+                type=spec["alert_type"],
+                message=spec["alert_message"]
+                or f"rule program {spec['token']} fired", event_date=date))
+        if model_fired[row] and int(model_first[row]) in models:
+            # the lane carries only the model slot: level and type come
+            # from the installed spec on both paths
+            spec = models[int(model_first[row])]
+            alerts.append(DeviceAlert(
+                device_id=token, source=AlertSource.SYSTEM,
+                level=AlertLevel(int(spec["alert_level"])),
+                type=spec["alert_type"],
+                message=spec["alert_message"]
+                or f"anomaly model {spec['token']} fired", event_date=date))
+    return alerts
+
+
 def record_event(device: torch.device):
     """A CUDA event recorded on `device`'s current stream: ready once the
     work queued there so far is done. None on the CPU (always ready)."""
@@ -514,14 +585,20 @@ class PipelineEngine(LifecycleComponent):
         if state is None:
             return {}
         with self._state_lock:
-            first = state.fire_count.cpu().numpy()
-            second = getattr(state, _SECOND_COUNTER[group]).cpu().numpy()
+            first = self._slot_counts(state.fire_count)
+            second = self._slot_counts(
+                getattr(state, _SECOND_COUNTER[group]))
         with self._lock:
             return {token: {names[0]: int(first[e["slot"]])
                             if e["slot"] < first.shape[0] else 0,
                             names[1]: int(second[e["slot"]])
                             if e["slot"] < second.shape[0] else 0}
                     for token, e in entries.items()}
+
+    def _slot_counts(self, counter: torch.Tensor) -> np.ndarray:
+        """One family counter as a host [P] vector (the sharded engine sums
+        its per-shard partials)."""
+        return counter.cpu().numpy()
 
     def _install(self, entries: Dict[str, Dict], family: str, capacity: int,
                  what: str, spec: Dict, slot: Optional[int],
@@ -924,11 +1001,12 @@ class PipelineEngine(LifecycleComponent):
     def _refresh_params(self) -> None:
         with self._lock:
             snap = self.registry.snapshot()
+            rows = self._device_rows
             self._install_params(to_device(PipelineParams(
-                assignment_status=snap.assignment_status,
-                tenant_idx=snap.tenant_idx,
-                area_idx=snap.area_idx,
-                device_type_idx=snap.device_type_idx,
+                assignment_status=rows(snap.assignment_status),
+                tenant_idx=rows(snap.tenant_idx),
+                area_idx=rows(snap.area_idx),
+                device_type_idx=rows(snap.device_type_idx),
                 threshold=self._compile_threshold_table(),
                 zones=ZoneTable(vertices=snap.zone_vertices,
                                 nvert=snap.zone_nvert,
@@ -939,6 +1017,11 @@ class PipelineEngine(LifecycleComponent):
                 models=self._compile_model_table(),
                 policies=self._compile_policy_table()), self.device))
             self._params_built_for = (snap.version, self._rules_version)
+
+    def _device_rows(self, column: np.ndarray) -> np.ndarray:
+        """A device-indexed registry column in the params' layout ([D]
+        here; the sharded engine's [S, D/S])."""
+        return column
 
     def _install_params(self, params: PipelineParams) -> None:
         """Copy freshly built params into the resident ones (every table is
@@ -1199,9 +1282,11 @@ class PipelineEngine(LifecycleComponent):
             self._metrics.meter("events").mark(n_events)
         return outputs
 
-    def _dispatch_with_retry(self, blob, ready=None) -> ProcessOutputs:
+    def _dispatch_with_retry(self, blob, ready=None,
+                             points=("h2d_error", "dispatch_error")
+                             ) -> ProcessOutputs:
         """Run one state-advancing step with bounded retry around transient
-        H2D/dispatch failures (`_retried`). The first step of a static
+        failures at the fault `points` (`_retried`). The first step of a static
         configuration runs eagerly here; its capture follows OUTSIDE the
         retries (a retried eager step would apply twice), and a failed
         capture raises and marks the engine failed."""
@@ -1209,8 +1294,7 @@ class PipelineEngine(LifecycleComponent):
             with self._state_lock:
                 return self._run_step(blob, ready)
 
-        outputs, capture_from = self._retried(
-            step, ("h2d_error", "dispatch_error"))
+        outputs, capture_from = self._retried(step, points)
         if capture_from is not None:
             with self._state_lock:
                 try:
@@ -1294,11 +1378,11 @@ class PipelineEngine(LifecycleComponent):
         """Both fixed-shape lanes (alert + command) in one host copy, with
         bounded retry (`_retried`); a fetch never changes state, so
         retrying it is always safe."""
-        K = outputs.alert_lanes.shape[1]
+        K = outputs.alert_lanes.shape[-1]
         both = self._retried(
             lambda: torch.cat([outputs.alert_lanes, outputs.command_lanes],
-                              dim=1).cpu().numpy(), ("lane_fetch_error",))
-        return both[:, :K], both[:, K:]
+                              dim=-1).cpu().numpy(), ("lane_fetch_error",))
+        return both[..., :K], both[..., K:]
 
     def materialize_alerts(self, batch: EventBatch, outputs: ProcessOutputs,
                            max_alerts: Optional[int] = None
@@ -1554,11 +1638,16 @@ class PipelineEngine(LifecycleComponent):
                 self._state, params.assignment_status == 1, now_rel,
                 min(self.presence_missing_interval_ms, 2 ** 31 - 1))
             commit(self._state, state)
-        rows = np.nonzero(newly_missing.cpu().numpy())[0]
+        rows = self._global_indices(newly_missing.cpu().numpy())
         if rows.size == 0:
             return []
         tokens = self.registry.devices.token_array()[rows].tolist()
         return [t for t in tokens if t]
+
+    def _global_indices(self, mask: np.ndarray) -> np.ndarray:
+        """Device indices of a device-indexed host mask, in the order the
+        reference's sweep reports them (ascending here)."""
+        return np.nonzero(mask)[0]
 
     # -- state reads ----------------------------------------------------------
 
@@ -1596,7 +1685,8 @@ class PipelineEngine(LifecycleComponent):
         if idx == 0 or self._state is None:
             return None
         with self._state_lock:
-            row = {f.name: getattr(self._state, f.name)[idx].cpu().numpy()
+            row = {f.name: self._device_row(getattr(self._state, f.name),
+                                            idx).cpu().numpy()
                    for f in dataclasses.fields(self._state)
                    if not f.name.startswith("tenant_")}
         abs_ts = self.packer.abs_ts
@@ -1625,6 +1715,10 @@ class PipelineEngine(LifecycleComponent):
             state.last_alerts[atype] = (abs_ts(int(row["last_alert_ts"])),
                                         int(row["last_alert_level"]), "")
         return state
+
+    def _device_row(self, field: torch.Tensor, idx: int) -> torch.Tensor:
+        """Device `idx`'s row of a device-indexed state field."""
+        return field[idx]
 
     def stats(self) -> Dict:
         with self._state_lock:

@@ -1,8 +1,8 @@
 """Pipelined host->device feeding: overlap staging with device compute.
 
 Counterpart of `sitewhere_tpu/pipeline/feed.py` (`StepFuture`,
-`_PrePackedBlob`, `PipelinedSubmitter`, `AdaptiveBatcher`; single device —
-the sharded submitter waits for the sharded slice):
+`_PrePackedBlob`, `PipelinedSubmitter`, `ShardedPipelinedSubmitter`,
+`AdaptiveBatcher`):
 
   stager thread(s):  pack batch N+1 into a pinned staging buffer and start
                      its H2D copy on the engine's side stream (through the
@@ -275,6 +275,216 @@ class PipelinedSubmitter:
             slot = getattr(staged, "slot", None)
             if slot is not None:
                 self.engine.staging_ring.release(slot)
+
+
+class ShardedPipelinedSubmitter:
+    """Stage-ahead feeder for the ShardedPipelineEngine.
+
+    The same double-buffered discipline as PipelinedSubmitter, with the
+    sharded path's extra invariant: ROUTING IS STATEFUL (it consumes and
+    produces the engine's overflow backlog, and per-device order requires
+    requeued rows to ride the next routed batch):
+
+      stagers:     take batch N; PREPARE it in strict submission order (a
+                   routing turnstile): the overflow merge, then pack + the
+                   lane-fit guard with device routing on, or the host arena
+                   route; then start its H2D copy (engine.stage_prepared,
+                   through a staging-ring slot granted in sequence order)
+                   concurrently with other stagers' work
+      step thread: dispatch staged steps in submission order
+
+    Backpressure parity with submit(): past `engine.max_overflow_events` of
+    backlog at routing time, drain blobs (backlog only) are prepared as
+    extra steps under the same turn and bypass the ring (they dispatch
+    before their step reaches the ready heap); their alerts stash on the
+    engine's pending list like submit()'s drain.
+
+    `submit(batch)` returns a StepFuture resolving to (routed view,
+    outputs), the pair engine.submit returns.
+    """
+
+    def __init__(self, engine, depth: int = 3, stagers: int = 2):
+        if engine.is_multiprocess:
+            raise RuntimeError(
+                "ShardedPipelinedSubmitter is single-controller only")
+        self.engine = engine
+        self.depth = max(1, depth)
+        self._in: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        self._ready_lock = threading.Condition()
+        self._ready: List = []      # heap of (seq, staged_list, fut, exc)
+        self._next_seq = 0
+        self._next_route = 0        # routing turnstile position
+        self._next_step = 0
+        self._dispatched = 0
+        self._stage_window = _stage_window(self.depth, engine)
+        self._stop = threading.Event()
+        self._close_lock = threading.Lock()
+        self._stagers = [
+            threading.Thread(target=self._stage_loop,
+                             name=f"shard-feed-stage-{i}", daemon=True)
+            for i in range(max(1, stagers))]
+        self._step_thread = threading.Thread(target=self._step_loop,
+                                             name="shard-feed-step",
+                                             daemon=True)
+        for t in self._stagers:
+            t.start()
+        self._step_thread.start()
+
+    # -- producer ----------------------------------------------------------
+    def submit(self, batch: EventBatch, age=None) -> StepFuture:
+        fut = StepFuture()
+        item = (self._alloc_seq(), batch, fut, age)
+        while True:
+            with self._close_lock:
+                if self._stop.is_set():
+                    raise RuntimeError("submitter closed")
+                try:
+                    self._in.put_nowait(item)
+                    return fut
+                except queue.Full:
+                    pass
+            time.sleep(0.005)
+
+    def _alloc_seq(self) -> int:
+        with self._ready_lock:
+            seq = self._next_seq
+            self._next_seq += 1
+            return seq
+
+    # -- stager ------------------------------------------------------------
+    def _stage_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                seq, batch, fut, age = self._in.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            # the staged-ahead window (see PipelinedSubmitter)
+            with self._ready_lock:
+                while (not self._stop.is_set()
+                       and seq - self._next_step > self._stage_window):
+                    self._ready_lock.wait(timeout=0.1)
+            # the routing turnstile: strict submission order
+            with self._ready_lock:
+                while (not self._stop.is_set()
+                       and self._next_route != seq):
+                    self._ready_lock.wait(timeout=0.1)
+            if self._stop.is_set():
+                fut._resolve(error=RuntimeError("submitter closed"))
+                continue
+            eng = self.engine
+            staged = None
+            exc: Optional[BaseException] = None
+            try:
+                try:
+                    fault_point("feeder_thread_death")
+                    merged = eng.merge_pending_overflow(batch)
+                    prepared, over = eng._prepare_step(merged, age=age)
+                    eng.park_overflow(merged, over)
+                    prepped = [prepared]
+                    while eng.pending_overflow > eng.max_overflow_events:
+                        backlog = eng.pending_overflow_batch()
+                        eng.set_pending_overflow_batch(None)
+                        dprep, dover = eng._prepare_step(backlog)
+                        eng.park_overflow(backlog, dover)
+                        prepped.append(dprep)
+                finally:
+                    with self._ready_lock:
+                        self._next_route += 1
+                        self._ready_lock.notify_all()
+                # transfers start OUTSIDE the turnstile; the step's first
+                # blob takes a ring slot in seq order, drain blobs bypass it
+                staged = [eng.stage_prepared(p, order=seq if i == 0
+                                             else None, use_ring=(i == 0))
+                          for i, p in enumerate(prepped)]
+            except BaseException as stage_exc:
+                exc = stage_exc
+            with self._ready_lock:
+                heapq.heappush(self._ready, (seq, staged, fut, exc))
+                self._ready_lock.notify_all()
+            if (isinstance(exc, FaultError)
+                    and exc.point == "feeder_thread_death"):
+                raise exc
+
+    # -- step dispatcher ---------------------------------------------------
+    def _step_loop(self) -> None:
+        executing: deque = deque()
+        while not self._stop.is_set():
+            with self._ready_lock:
+                while not (self._ready
+                           and self._ready[0][0] == self._next_step):
+                    if self._stop.is_set():
+                        return
+                    self._ready_lock.wait(timeout=0.1)
+                seq, staged, fut, exc = heapq.heappop(self._ready)
+                self._next_step += 1
+            result = None
+            try:
+                if exc is None:
+                    eng = self.engine
+                    for s in staged[:-1]:
+                        # drained steps' alerts stash like submit()'s drain
+                        view, outputs = eng.dispatch_staged(s)
+                        eng._stash_pending_alerts(
+                            eng._materialize_routed(view, outputs))
+                        eng.drain_steps += 1
+                    result = eng.dispatch_staged(staged[-1])
+            except BaseException as step_exc:
+                exc = step_exc
+            finally:
+                with self._ready_lock:
+                    self._dispatched += 1
+                    self._ready_lock.notify_all()
+            if result is None:
+                fut._resolve(error=exc)
+                continue
+            fut._resolve(result)
+            # bound the card's queue to `depth` steps in flight
+            done = record_event(self.engine.device)
+            if done is not None:
+                executing.append(done)
+                if len(executing) > self.depth:
+                    executing.popleft().synchronize()
+
+    # -- draining ----------------------------------------------------------
+    def flush(self, timeout: Optional[float] = 60.0) -> None:
+        """Wait until every submitted batch's dispatch has RETURNED."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._ready_lock:
+            target = self._next_seq
+            while self._dispatched < target:
+                remaining = (None if deadline is None
+                             else deadline - time.monotonic())
+                if remaining is not None and remaining <= 0:
+                    raise TimeoutError("pipelined flush timed out")
+                self._ready_lock.wait(timeout=0.05 if remaining is None
+                                      else min(0.05, remaining))
+
+    def close(self) -> None:
+        with self._close_lock:
+            self._stop.set()
+        with self._ready_lock:
+            self._ready_lock.notify_all()
+        for t in self._stagers:
+            t.join(timeout=5.0)
+        self._step_thread.join(timeout=5.0)
+        leftovers = []
+        while True:
+            try:
+                leftovers.append(self._in.get_nowait())
+            except queue.Empty:
+                break
+        with self._ready_lock:
+            while self._ready:
+                leftovers.append(heapq.heappop(self._ready))
+        for item in leftovers:
+            fut = item[2]
+            if not fut.done():
+                fut._resolve(error=RuntimeError("submitter closed"))
+            # staged-but-never-dispatched steps still hold ring slots
+            if isinstance(item[1], list):
+                for s in item[1]:
+                    if getattr(s, "slot", None) is not None:
+                        self.engine.staging_ring.release(s.slot)
 
 
 class AdaptiveBatcher:

@@ -56,8 +56,8 @@ class InboundProcessingService(LifecycleComponent):
     DeviceEventManagement. Either may be None for partial wiring (e.g.
     persist-only during replay). `batcher` is the latency tier's shared
     AdaptiveBatcher (pipeline/feed.py). The reference's multi-host hooks
-    (`cluster`: ownership routing, lockstep feeding) come with the sharded
-    path (ROADMAP A6); passing them raises.
+    (`cluster`: ownership routing, lockstep feeding) come with the
+    multi-host data plane (ROADMAP A6d); passing them raises.
     """
 
     def __init__(self, bus: EventBus, registry, events=None, engine=None,
@@ -71,7 +71,7 @@ class InboundProcessingService(LifecycleComponent):
         if cluster is not None:
             raise NotImplementedError(
                 "multi-host inbound hooks (ownership routing, lockstep "
-                "feeding) come with the sharded path: ROADMAP A6")
+                "feeding) come with the multi-host data plane: ROADMAP A6d")
         self.bus = bus
         self.registry = registry
         self.events = events

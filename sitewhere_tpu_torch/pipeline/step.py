@@ -89,6 +89,10 @@ class ProcessOutputs:
     alert_lanes: torch.Tensor            # int32 [ALERT_LANE_ROWS, K]
     command_lanes: torch.Tensor          # int32 [COMMAND_LANE_ROWS, K_cmd]
 
+    def replace(self, **changes) -> "ProcessOutputs":
+        """A copy with `changes` (the reference's struct `replace`)."""
+        return dataclasses.replace(self, **changes)
+
 
 def validate_batch(params: PipelineParams, batch: EventBatch,
                    num_devices: int

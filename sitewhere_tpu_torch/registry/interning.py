@@ -1,10 +1,17 @@
 """Token interning: string identifiers -> dense int32 indices.
 
-Counterpart of `sitewhere_tpu/registry/interning.py` with sequential
-allocation only (what `shard_classes=1` gives there): the shard-congruent
-allocator belongs to the sharded path (ROADMAP A6). Index 0 is reserved as
-UNKNOWN so lookup tensors keep a sentinel row and failed lookups stay
+Counterpart of `sitewhere_tpu/registry/interning.py`. Index 0 is reserved
+as UNKNOWN so lookup tensors keep a sentinel row and failed lookups stay
 in-band on the device.
+
+`shard_classes` > 1 turns on shard-congruent allocation, as the reference's
+does: a token's index is chosen within its congruence class `crc32(token) %
+classes`, so the sharded engine's ownership `idx % S` depends only on the
+token, never on creation order. The table becomes sparse: gap slots are
+None (unfindable placeholders in the native mirror, overwritten in place by
+`set_at` when their class reaches them) and journal as (idx, None).
+Congruent interning goes token by token (the native bulk assign is
+sequential only). classes == 1 is the sequential allocator.
 
 The batched calls (`lookup_batch`, `lookup_offsets`, `intern_batch`,
 `intern_offsets`) run on the native host library's table (`native.py`),
@@ -36,11 +43,17 @@ class TokenInterner:
 
     UNKNOWN = 0
 
-    def __init__(self, capacity: int, name: str = "tokens"):
+    def __init__(self, capacity: int, name: str = "tokens",
+                 shard_classes: int = 1):
         if capacity < 2:
             raise ValueError("capacity must be >= 2")
+        if shard_classes < 1 or shard_classes >= capacity:
+            raise ValueError("shard_classes must be in [1, capacity)")
         self.capacity = capacity
         self.name = name
+        self.shard_classes = shard_classes
+        # per-class next candidate index (class 0 starts past UNKNOWN)
+        self._class_next: Dict[int, int] = {}
         self._to_index: Dict[str, int] = {}
         self._to_token: List[Optional[str]] = [None]  # index 0 = UNKNOWN
         self._lock = threading.Lock()
@@ -59,7 +72,17 @@ class TokenInterner:
     def __len__(self) -> int:
         return len(self._to_token)
 
-    def _raise_capacity(self):
+    def _raise_capacity(self, congruence_class: Optional[int] = None):
+        if congruence_class is not None:
+            # a class can run out while the table is mostly empty (crc32
+            # skew): name the real limit
+            per_class = self.capacity // self.shard_classes
+            raise SiteWhereError(
+                f"interner '{self.name}' congruence class "
+                f"{congruence_class} exhausted (~{per_class} slots per "
+                f"class = capacity {self.capacity} / {self.shard_classes} "
+                f"shard classes; raise max_devices)",
+                ErrorCode.CAPACITY_EXCEEDED)
         raise SiteWhereError(
             f"interner '{self.name}' capacity {self.capacity} exceeded",
             ErrorCode.CAPACITY_EXCEEDED)
@@ -71,6 +94,47 @@ class TokenInterner:
             f"interner '{self.name}' native mirror out of sync "
             f"(native {nidx} != {idx})", ErrorCode.GENERIC)
 
+    def _class_of(self, token: str) -> int:
+        import zlib
+
+        return zlib.crc32(token.encode(errors="surrogateescape")) \
+            % self.shard_classes
+
+    def _intern_congruent(self, token: str) -> int:
+        """Assign within the token's congruence class (caller holds the
+        lock): the class's next free slot, filling a gap in place or
+        appending gaps up to it."""
+        cls = self._class_of(token)
+        start = cls if cls != 0 else self.shard_classes
+        idx = self._class_next.get(cls, start)
+        # skip slots already occupied (a restored snapshot's)
+        while idx < len(self._to_token) and self._to_token[idx] is not None:
+            idx += self.shard_classes
+        if idx >= self.capacity:
+            self._raise_capacity(congruence_class=cls)
+        if idx < len(self._to_token):
+            # a gap left by another class growing past: fill it in place
+            self._to_token[idx] = token
+            if self._nat is not None and self._nat.set_at(idx, token) != 0:
+                self._mirror_sync_error(-1, idx)
+        else:
+            while len(self._to_token) < idx:
+                gap = len(self._to_token)
+                self._to_token.append(None)
+                self._journal.append((gap, None))
+                if self._nat is not None and self._nat.add_gap() != gap:
+                    self._mirror_sync_error(-1, gap)
+            self._to_token.append(token)
+            if self._nat is not None:
+                nidx = self._nat.add(token)
+                if nidx != idx:
+                    self._mirror_sync_error(nidx, idx)
+        self._journal.append((idx, token))
+        self._to_index[token] = idx
+        self._class_next[cls] = idx + self.shard_classes
+        self.version += 1
+        return idx
+
     def intern(self, token: str) -> int:
         """Get-or-assign the index for a token."""
         idx = self._to_index.get(token)
@@ -80,6 +144,8 @@ class TokenInterner:
             idx = self._to_index.get(token)
             if idx is not None:
                 return idx
+            if self.shard_classes > 1:
+                return self._intern_congruent(token)
             idx = len(self._to_token)
             if idx >= self.capacity:
                 self._raise_capacity()
@@ -175,6 +241,9 @@ class TokenInterner:
     def intern_batch(self, tokens: Iterable[str]) -> np.ndarray:
         from sitewhere_tpu_torch import native
 
+        if self.shard_classes > 1:
+            return np.fromiter((self.intern(t) for t in tokens),
+                               dtype=np.int32)
         buf, off = native.join_tokens(list(tokens))
         return self.intern_offsets(buf, off)
 
@@ -183,6 +252,17 @@ class TokenInterner:
         """intern_batch over a (joined bytes, offsets) pair. skip_empty maps
         zero-length tokens to UNKNOWN without interning (absent fields in
         decoded columns)."""
+        if self.shard_classes > 1:
+            n = len(off) - 1
+
+            def one(i):
+                if skip_empty and off[i + 1] == off[i]:
+                    return 0
+                return self.intern(
+                    buf[off[i]:off[i + 1]].decode(errors="surrogateescape"))
+
+            return np.fromiter((one(i) for i in range(n)), dtype=np.int32,
+                               count=n)
         with self._lock:
             idx, ok = self._native().intern_offsets(buf, off, skip_empty)
             self._sync_from_native()
@@ -251,6 +331,11 @@ class TokenInterner:
                     if self._nat is not None and \
                             self._nat.set_at(idx, token) != 0:
                         self._mirror_sync_error(-1, idx)
+                    if self.shard_classes > 1:
+                        cls = idx % self.shard_classes
+                        self._class_next[cls] = max(
+                            self._class_next.get(cls, 0),
+                            idx + self.shard_classes)
                     mutated = True
                 elif cur != token:
                     raise SiteWhereError(
@@ -277,6 +362,21 @@ class TokenInterner:
                 incoming.insert(0, None)
             if len(incoming) > self.capacity:
                 self._raise_capacity()
+            if self.shard_classes > 1:
+                # a snapshot of another layout would break ownership (idx
+                # % S must equal crc32(token) % S): refuse, validated
+                # before anything is swapped
+                bad = [t for i, t in enumerate(incoming)
+                       if t is not None and i > 0
+                       and i % self.shard_classes != self._class_of(t)]
+                if bad:
+                    raise ValueError(
+                        f"interner '{self.name}' snapshot is not "
+                        f"congruent with {self.shard_classes} shard "
+                        f"classes ({len(bad)} tokens at non-congruent "
+                        f"indices, e.g. {bad[0]!r}); it was taken on a "
+                        f"different shard layout — restore it onto the "
+                        f"original layout, or re-provision")
             self._to_token = incoming
             self._to_index = {t: i for i, t in enumerate(incoming)
                               if t is not None}
@@ -284,6 +384,15 @@ class TokenInterner:
             # snapshot's slots and bump the epoch, so replicas resync
             self._journal = [(i, t) for i, t in enumerate(incoming) if i > 0]
             self.journal_epoch += 1
+            # the congruent allocator resumes each class past its max
+            self._class_next = {}
+            if self.shard_classes > 1:
+                for idx, token in enumerate(incoming):
+                    if token is not None and idx > 0:
+                        cls = idx % self.shard_classes
+                        self._class_next[cls] = max(
+                            self._class_next.get(cls, 0),
+                            idx + self.shard_classes)
             self.version += 1
             if self._nat is not None:
                 self._nat = None

@@ -75,8 +75,12 @@ class RegistryTensors:
     params."""
 
     def __init__(self, max_devices: int, max_zones: int,
-                 max_zone_vertices: int):
-        self.devices = TokenInterner(max_devices, "devices")
+                 max_zone_vertices: int, shard_classes: int = 1):
+        # shard_classes = the sharded engine's shard count: device indices
+        # allocate within crc32(token) % S congruence classes, so shard
+        # ownership (idx % S) depends only on the token
+        self.devices = TokenInterner(max_devices, "devices",
+                                     shard_classes=shard_classes)
         self.tenants = TokenInterner(64, "tenants")
         self.areas = TokenInterner(4096, "areas")
         self.device_types = TokenInterner(4096, "device_types")

@@ -9,9 +9,10 @@ DIVERGES (the port's behaviour, asserted instead):
     missing; the native library has no pure-Python fallback mode.
 
 The networked serve modes (`--feeders --bus-port`, `--feeder`,
-`--cluster-peers`, `--supervise`) boot on `--device cpu`; only the
-multi-host SPMD cluster and a sharded pipeline are refused, naming ROADMAP
-A6.
+`--cluster-peers`, `--supervise`) and the sharded pipeline (`--shards N`,
+tests/test_torch_sharded_instance.py) boot on `--device cpu`; only the
+multi-host SPMD cluster (ROADMAP A6d) and the feeder landing on a sharded
+pipeline (A6e) are refused, naming their item.
 """
 
 import re
@@ -74,10 +75,12 @@ def test_check_passes_without_native_runtime():
 
 
 @pytest.mark.parametrize("args,item", [
-    # ids as when six modes were refused: the other four boot (below)
-    pytest.param(("--cluster-coordinator", "127.0.0.1:1234"), "A6",
+    # ids as when six modes were refused: the other four boot (below),
+    # and `--shards 2` alone boots too (test_torch_sharded_instance.py)
+    pytest.param(("--cluster-coordinator", "127.0.0.1:1234"), "A6d",
                  id="args3-A6"),
-    pytest.param(("--shards", "2"), "A6", id="args4-A6"),
+    pytest.param(("--shards", "2", "--feeders", "--bus-port", "0"), "A6e",
+                 id="args4-A6"),
 ])
 def test_left_out_serve_modes_exit_naming_their_roadmap_item(args, item):
     out = _cli("serve", "--port", "0", "--device", "cpu", *args,

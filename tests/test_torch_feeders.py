@@ -7,9 +7,10 @@ engine fed the same frames. Tolerance: none (f32 compared as bit
 patterns).
 
 DIVERGES (the port's behaviour, asserted instead):
-  TestEndToEndSharded: a sharded engine is the sharded path (ROADMAP A6);
-    the port's service refuses one, and its worker refuses a hello from
-    one (the route-layout pack), both naming A6.
+  TestEndToEndSharded: a sharded engine lands with the feeders' sharded
+    landing (ROADMAP A6e); the port's service refuses the port's own
+    sharded engine, and its worker refuses a hello from one (the
+    route-layout pack), both naming A6e.
 """
 
 import dataclasses
@@ -53,14 +54,23 @@ def test_every_reference_scenario_runs():
 
 class TestEndToEndSharded:
     def test_sharded_engine_is_refused_naming_a6(self, tmp_path):
-        class ShardedPipelineEngine:
-            """A stand-in for the reference's sharded engine."""
+        """The port's own sharded engine, a PipelineEngine subclass, is
+        refused by name: its blobs must not land down the single-engine
+        path."""
+        from sitewhere_tpu_torch.parallel import (
+            ShardedPipelineEngine, make_mesh)
+        from sitewhere_tpu_torch.registry.tensors import RegistryTensors
 
+        engine = ShardedPipelineEngine(
+            RegistryTensors(max_devices=64, max_zones=4, max_zone_vertices=4,
+                            shard_classes=4),
+            mesh=make_mesh(4, device="cpu"), per_shard_batch=16,
+            name="torch-feeder-sharded")
         lb_bus = EventBus(partitions=1)
         server = BusServer(lb_bus)
         try:
-            with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-                FeederService(ShardedPipelineEngine(), server, "frames")
+            with pytest.raises(NotImplementedError, match="ROADMAP A6e"):
+                FeederService(engine, server, "frames")
             # nothing was mounted on the edge
             assert "feeder_hello" not in server._server.op_handlers
         finally:
@@ -80,7 +90,8 @@ class TestEndToEndSharded:
                 lb.server.register_op(
                     "feeder_hello", lambda req, s=sharded: {**hello, **s})
                 w = lb.worker()
-                with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+                with pytest.raises(NotImplementedError,
+                                   match="ROADMAP A6e"):
                     w.connect()
                 w.client.close()
         finally:

@@ -18,6 +18,8 @@ import re
 import torch
 
 from sitewhere_tpu_torch.instance import SiteWhereInstance as _PortInstance
+from sitewhere_tpu_torch.parallel.mesh import make_mesh as _port_make_mesh
+from sitewhere_tpu_torch.pipeline.engine import PipelineEngine as _PortEngine
 
 TESTS = pathlib.Path(__file__).resolve().parent
 
@@ -45,24 +47,62 @@ def port_source(name: str, replacements=()) -> str:
     return src
 
 
+class CPUPipelineEngine(_PortEngine):
+    """The port's single engine, on the CPU unless a device is named."""
+
+    def __init__(self, *args, device="cpu", **kwargs):
+        super().__init__(*args, device=device, **kwargs)
+
+
+def cpu_make_mesh(n_shards=None, device="cpu"):
+    """The port's make_mesh, on the CPU unless a device is named."""
+    return _port_make_mesh(n_shards, device=device)
+
+
+def cpu_meshes(monkeypatch):
+    """Make `sitewhere_tpu_torch.parallel.make_mesh` default to the CPU for
+    one test, so a reference test body that imports it builds its mesh
+    where the port's tests run (a module's autouse fixture calls this)."""
+    import sitewhere_tpu_torch.parallel as parallel
+    import sitewhere_tpu_torch.parallel.mesh as mesh
+
+    monkeypatch.setattr(parallel, "make_mesh", cpu_make_mesh)
+    monkeypatch.setattr(mesh, "make_mesh", cpu_make_mesh)
+
+
 def load_reference(namespace: dict, name: str, replacements=(),
-                   diverges=()) -> list:
+                   diverges=(), only=None) -> list:
     """Execute the renamed reference file into `namespace`; returns the
     names of its tests. Tests named in `diverges` are dropped (the caller
-    defines their port versions)."""
+    defines their port versions). With `only` (test function or class
+    names), the file's other tests are dropped too: the caller runs just
+    that part of the reference file. A module-level `make_mesh` is rebound
+    to the CPU one."""
     # tracebacks point at the reference's lines (edits keep line counts)
     code = compile(port_source(name, replacements), str(TESTS / f"{name}.py"),
                    "exec")
     exec(code, namespace)
     if "SiteWhereInstance" in namespace:
         namespace["SiteWhereInstance"] = CPUInstance
+    if "make_mesh" in namespace:
+        namespace["make_mesh"] = cpu_make_mesh
+    if only is not None:
+        for key in [k for k in namespace
+                    if (k.startswith("test_") or k.startswith("Test"))
+                    and k not in only]:
+            del namespace[key]
     tests = sorted(
         [k for k in namespace if k.startswith("test_")]
         + [f"{k}.{m}" for k in namespace if k.startswith("Test")
            for m in dir(namespace[k]) if m.startswith("test_")])
     for test in diverges:
-        assert test in namespace, f"{name}: no test {test!r} to replace"
-        del namespace[test]
+        assert test in tests or test in namespace, \
+            f"{name}: no test {test!r} to replace"
+        if "." in test:  # a method of a test class
+            cls, method = test.split(".")
+            delattr(namespace[cls], method)
+        else:
+            del namespace[test]
     return tests
 
 
