@@ -106,7 +106,21 @@ Phases (any failure prints its error and exits non-zero, with no result):
      its wall alone. (e) bus replay on the card equals the CPU and the
      per-record loop. (f) a wide-row tenant's query on the card equals the
      CPU. Last, hourly windows over CHATTY_DEVICES chatty devices (thousands
-     of rows a cell), card equal to CPU.
+     of rows a cell), card equal to CPU. (g), after (c): the mesh route
+     (parallel/distributed.py), the monolithic query with a SHARDS-shard
+     mesh on the card under each combine ("psum", "ring"): counts, min and
+     max equal the host route's (b), sums and means within the reference's
+     rtol=1e-5, atol=1e-5; bit-equal to the same call with the segment
+     sum's plain version and to the CPU on the first MESH_CPU_WINDOWS
+     windows; an open-range query through an executor whose planner's
+     provider answers the mesh routes "mesh" and is counted; then 1 and
+     16 clients send it at once through READ_WORKERS workers, with the
+     one-replay-a-card gate and, once, without it (latency, queries/s,
+     peak device memory); the segment-sum kernel's launches counted from
+     0; the query's wall and split, the fold and each combine by CUDA
+     events beside their byte bounds, and the peak device memory.
+     `python3 chip_smoke.py --read-only` runs phase 3 and phase 9 (no
+     result line).
  10. the instance behind `serve`, built by the CLI's config builder with
      the default configuration (capacity 131072, 256 zones x 32 vertices,
      batch 8192, 8 slots, 16 tenants) and a data dir: (a) 100,000 devices
@@ -174,10 +188,24 @@ Phases (any failure prints its error and exits non-zero, with no result):
      elastic checkpoint: SHARDS shards save, 4 shards and a single engine
      restore and continue equal. (d) the host router at its micro-bench's
      shape (native and numpy route_blob, route_columns, route_batch). (e)
-     `serve --shards SERVE_SHARDS` in a subprocess: boot, SERVE_DEVICES
-     events over the bus edge through the sharded step, every device's
-     state read back over REST. `python3 chip_smoke.py --sharded-only`
-     runs phase 12 alone (no result line).
+     `serve --shards SERVE_SHARDS --feeders` in a subprocess: boot,
+     SERVE_DEVICES events over the bus edge through the sharded step,
+     every device's state read back over REST; then one `serve --feeder`
+     process lands a wire frame a device (every state shows it), and a
+     window query over REST (`serving.mesh_row_threshold` 1) takes the
+     mesh route and answers what the port on the CPU answers. (f) the
+     feeders' sharded landing: FeederWorker threads (LANDING_THREADS)
+     over a busnet loopback into a FeederService over a device-routing
+     sharded engine, FEEDER_RECORDS records of SHARD_EVENTS wire frames
+     (classes of devices by d // SHARDS, so each shard's share stays
+     even), then one skewed record (SHARD_SKEW_EVENTS frames of one
+     device) that the worker's guard sends down the counted spill: each
+     record stepped once with the inline run's flat blob and lanes, one
+     capture a static configuration, B1 SHARDS launches a record (counts
+     from 0), state and presence transitions equal the inline run's;
+     events/s and the handoff a blob under phase 11's names.
+     `python3 chip_smoke.py --sharded-only` runs phase 12 alone (no
+     result line).
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -258,6 +286,13 @@ REPLAY_RECORDS, REPLAY_DEVICES = 24_000, 64
 ADVERSARIAL_ROWS, ADVERSARIAL_KEYS, HOT_ROWS = 1_000_000, 1024, 100_000
 CHATTY_TENANT, CHATTY_DEVICES, CHATTY_CHUNKS = "tenant-chatty", 256, 12
 HOUR_MS = 3_600_000
+# (g): the mesh route's tolerance against the host route (the reference's
+# own, tests/test_distributed.py), and the windows of its CPU check
+MESH_TOL = 1e-5
+MESH_CPU_WINDOWS = 2
+# (g)'s load: (clients, whether the one-replay-a-card gate is on), each
+# client at least one open-range query through READ_WORKERS workers
+MESH_LOAD = ((1, True), (16, True), (16, False))
 H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
 # the latency of one dependent f32 add on the H100's SMs, in SM clock cycles
 # (the floor of a bit-equal row-order fold: one add after the other)
@@ -2051,13 +2086,15 @@ def phase_durable(dev, card, main_ref, stateful_ref):
 # -- phase 8: the ingest host tier --------------------------------------------
 
 def encode_delivery(rng, epoch, n_registered, batch, n_control,
-                    device_class=None):
+                    device_class=None, class_stride=1):
     """One delivery's wire bytes: `batch` hot frames of the headline traffic
     (the 60/30/10 mix, values U(0,100), lat/lon in the box, ts within 1 s
     of the epoch, INGEST_UNKNOWN of them from tokens the registry does not
     hold) and `n_control` REGISTER frames spread among them. With
-    `device_class` c, every device index is moved to its neighbour that is
-    c modulo FEEDER_CLASSES (phase 11). Returns (frame byte lengths in
+    `device_class` c, every device index d is moved to its neighbour whose
+    (d // class_stride) is c modulo FEEDER_CLASSES (phase 11 with stride 1;
+    phase 12's landing with stride SHARDS, which keeps every shard's share
+    of a record uniform). Returns (frame byte lengths in
     order, the bytes, the unknown tokens in order, the REGISTER frames)."""
     from sitewhere_tpu_torch.transport.wire import (
         MessageType, WireCodec, encode_frame)
@@ -2065,9 +2102,11 @@ def encode_delivery(rng, epoch, n_registered, batch, n_control,
     kind = rng.choice(3, size=batch, p=[0.6, 0.3, 0.1])
     dev = rng.integers(1, n_registered + 1, batch)
     if device_class is not None:
-        dev = dev - dev % FEEDER_CLASSES + device_class
-        dev[dev < 1] += FEEDER_CLASSES
-        dev[dev > n_registered] -= FEEDER_CLASSES
+        block = FEEDER_CLASSES * class_stride
+        dev = dev - dev % block + device_class * class_stride \
+            + dev % class_stride
+        dev[dev < 1] += block
+        dev[dev > n_registered] -= block
     unknown = rng.random(batch) < INGEST_UNKNOWN
     ts = epoch + rng.integers(0, 1000, batch)
     value = rng.uniform(0, 100, batch)
@@ -3335,13 +3374,218 @@ def chatty_query(dev, rlog, card):
     return readings
 
 
+def assert_mesh_matches_host(got, host, what):
+    """A mesh report against the host route's: keys, tokens, geometry and
+    the histogram equal, counts, min and max bit for bit, sums and means
+    within the reference's rtol=1e-5, atol=1e-5 (tests/test_distributed.py:
+    the combine adds in another order). Returns the sum cells whose bits
+    differ and their largest difference in ulps."""
+    if (got.t0_ms, got.n_windows) != (host.t0_ms, host.n_windows) or \
+            not np.array_equal(np.asarray(got.key_ids, object),
+                               np.asarray(host.key_ids, object)) or \
+            got.key_tokens != host.key_tokens or not np.array_equal(
+                got.type_counts, host.type_counts):
+        raise AssertionError(f"{what}: keys, tokens, geometry or histogram "
+                             f"differ from the host route's")
+    bad = {f: n for f, n in stats_mismatches(got.stats, host.stats).items()
+           if f in ("count", "min", "max") and n}
+    if bad:
+        raise AssertionError(f"{what}: grids differ from the host route's "
+                             f"{bad}")
+    for f in ("sum", "mean"):
+        np.testing.assert_allclose(
+            getattr(got.stats, f).numpy(), getattr(host.stats, f).numpy(),
+            rtol=MESH_TOL, atol=MESH_TOL, equal_nan=True,
+            err_msg=f"{what} {f}")
+    a = got.stats.sum.numpy().view(np.int32).astype(np.int64)
+    b = host.stats.sum.numpy().view(np.int32).astype(np.int64)
+    return int((a != b).sum()), int(np.abs(a - b).max())
+
+
+def mesh_load(dev, ex, query, want_total):
+    """(g)'s load: MESH_LOAD clients sending the open-range `query` (never
+    cached, so every one takes the mesh route) through the executor's
+    READ_WORKERS workers, the log fixed; every result holds `want_total`
+    measurements. The last run lifts the one-replay-a-card gate
+    (parallel/distributed.py `_replay_gate`) to show what it holds back.
+    Each run: latency percentiles, queries/s, and the peak device memory
+    above what was resident."""
+    import contextlib
+
+    import sitewhere_tpu_torch.parallel.distributed as dist_mod
+
+    gate = dist_mod._replay_gate
+    runs = {}
+    for n_clients, gated in MESH_LOAD:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        if not gated:
+            dist_mod._replay_gate = lambda device: contextlib.nullcontext()
+        try:
+            samples, sheds, _, _, wall = run_clients(ex, query, n_clients, 1)
+        finally:
+            dist_mod._replay_gate = gate
+        lat = [s[0] for obs in samples for s in obs]
+        if any(s[1] != "mesh" or s[4] != want_total
+               for obs in samples for s in obs):
+            raise AssertionError("(g) a loaded query left the mesh route "
+                                 "or lost rows")
+        runs[f"{n_clients}_{'gated' if gated else 'ungated'}"] = {
+            "queries": len(lat), "wall_s": wall, "qps": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_ms": float(np.percentile(lat, 99) * 1e3),
+            "p99_of_samples": len(lat), "sheds": sheds,
+            "peak_above_resident_bytes":
+                torch.cuda.max_memory_allocated(dev) - resident}
+    return runs
+
+
+def mesh_route(dev, rlog, card):
+    """(g): the mesh route over the whole log: the monolithic query with an
+    explicit SHARDS-shard mesh on the card under each combine, against the
+    host route over the same rows (see assert_mesh_matches_host; (c)'s
+    writer sealed more chunks since (b)), against the same
+    call with the segment sum's plain version (bits), and against the CPU
+    on the first MESH_CPU_WINDOWS windows (bits); one open-range query
+    through an executor whose planner's provider answers the mesh, routed
+    "mesh" and counted, then concurrent clients through it (mesh_load).
+    The segment-sum kernel's launches count from 0 over the path up to the
+    load. Then the fold and the combine at the query's inputs by
+    CUDA events, each beside the bound of its bytes."""
+    import sitewhere_tpu_torch.analytics.windows as windows_mod
+    import sitewhere_tpu_torch.parallel.distributed as dist_mod
+    from sitewhere_tpu_torch.analytics import WindowedAnalyticsEngine
+    from sitewhere_tpu_torch.ops.segsum import (
+        segment_row_sum, segment_row_sum_plain)
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+    from sitewhere_tpu_torch.serving import (
+        QueryExecutor, QueryPlanner, WindowQuery)
+
+    mesh = make_mesh(SHARDS, device=dev)
+    engine = WindowedAnalyticsEngine(rlog.log, device=dev)
+    kw = dict(window_ms=READ_WINDOW_MS, with_type_histogram=True)
+    out, reports = {"shards": SHARDS}, {}
+    t0 = time.perf_counter()
+    host = engine.measurement_windows(READ_TENANT, **kw)
+    out["host"] = {"wall_s": time.perf_counter() - t0,
+                   **{k + "_s": v for k, v in host.timings.items()},
+                   "rows": rlog.rows, "measurements": rlog.cum[-1]}
+    torch.cuda.synchronize()
+    segment_row_sum.launches = 0
+    for combine in ("psum", "ring"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        with _Wrapped(dist_mod, ("block_partials", f"_combine_{combine}")) \
+                as parts:
+            t0 = time.perf_counter()
+            report = engine.measurement_windows(READ_TENANT, mesh=mesh,
+                                                combine=combine, **kw)
+            wall = time.perf_counter() - t0
+            calls = dict(parts.first)
+        peak = torch.cuda.max_memory_allocated(dev)
+        bits, ulps = assert_mesh_matches_host(report, host,
+                                              f"(g) mesh {combine}")
+        reports[combine] = (report, calls)
+        out[combine] = {
+            "wall_s": wall,
+            **{k + "_s": v for k, v in report.timings.items()},
+            "peak_device_bytes": peak,
+            "peak_above_resident_bytes": peak - resident,
+            "sum_cells_not_bit_equal_to_host": bits,
+            "sum_max_ulps_from_host": ulps}
+    planner = QueryPlanner(rlog.log, mesh_provider=lambda: mesh)
+    ex = QueryExecutor(WindowedAnalyticsEngine(rlog.log, planner=planner,
+                                               device=dev), planner,
+                       workers=READ_WORKERS, queue_depth_budget=READ_DEPTH)
+    try:
+        routed = ex.report()["mesh_routed_total"]
+        query = WindowQuery(tenant=READ_TENANT, **kw)
+        served = ex.query(query, timeout=600.0)
+        if served["span"]["route"] != "mesh" or \
+                ex.report()["mesh_routed_total"] != routed + 1:
+            raise AssertionError(f"(g) the executor's query took "
+                                 f"{served['span']['route']}, not the mesh")
+        assert_reports_bits_equal(served["report"], reports["psum"][0],
+                                  "(g) executor's mesh query vs explicit")
+        out["launches"] = segment_row_sum.launches
+        out["load"] = mesh_load(dev, ex, query,
+                                int(host.stats.count.sum()))
+    finally:
+        ex.stop()
+    if not out["launches"]:
+        raise AssertionError("(g) the mesh route never launched the "
+                             "segment-sum kernel")
+    out["executor_route"] = served["span"]["route"]
+    plain = {}
+    windows_mod.segment_row_sum = segment_row_sum_plain
+    try:
+        for combine in ("psum", "ring"):
+            plain[combine] = engine.measurement_windows(
+                READ_TENANT, mesh=mesh, combine=combine, **kw)
+    finally:
+        windows_mod.segment_row_sum = segment_row_sum
+    for combine, got in plain.items():
+        assert_reports_bits_equal(reports[combine][0], got,
+                                  f"(g) mesh {combine}, kernel vs plain")
+    epoch = rlog.packer.epoch_base_ms
+    small = dict(window_ms=READ_WINDOW_MS, start_ms=epoch,
+                 end_ms=epoch + MESH_CPU_WINDOWS * READ_WINDOW_MS - 1)
+    cpu_engine = WindowedAnalyticsEngine(rlog.log, device="cpu")
+    cpu_mesh = make_mesh(SHARDS, device="cpu")
+    for combine in ("psum", "ring"):
+        got = engine.measurement_windows(READ_TENANT, mesh=mesh,
+                                         combine=combine, **small)
+        t0 = time.perf_counter()
+        ref = cpu_engine.measurement_windows(READ_TENANT, mesh=cpu_mesh,
+                                             combine=combine, **small)
+        out[f"cpu_{combine}_s"] = time.perf_counter() - t0
+        assert_reports_bits_equal(got, ref, f"(g) mesh {combine} card vs "
+                                  f"CPU on {MESH_CPU_WINDOWS} windows")
+    out["cpu_check"] = {"windows": MESH_CPU_WINDOWS,
+                        "rows": int(got.totals()["events"]),
+                        "keys": got.num_keys, "K": got.stats.num_keys,
+                        "W": got.stats.num_windows}
+    del plain, got, ref, host
+    # the fold and each combine at the monolithic query's own inputs
+    (args, fold_kw), = [reports["psum"][1]["block_partials"]]
+    rows = args[0].numel()
+    cells = SHARDS * reports["psum"][0].stats.count.numel()
+    fold_bytes = rows * sum(a.element_size() for a in args) + cells * 16
+    fold_ms = time_cuda(lambda: dist_mod.block_partials(*args, **fold_kw),
+                        reps=10, warmup=2)
+    out["fold"] = {"rows": rows, "cells": cells, "ms": fold_ms,
+                   "bytes": fold_bytes,
+                   "bound_ms": fold_bytes / H100_HBM_BYTES_S * 1e3,
+                   "bound_by": "bytes"}
+    out["fold"]["bound_share"] = out["fold"]["bound_ms"] / fold_ms
+    combine_bytes = cells * 16 + cells // SHARDS * 20
+    for combine in ("psum", "ring"):
+        (cargs, ckw), = [reports[combine][1][f"_combine_{combine}"]]
+        fn = getattr(dist_mod, f"_combine_{combine}")
+        ms = time_cuda(lambda: fn(*cargs, **ckw), reps=10, warmup=2)
+        bound = combine_bytes / H100_HBM_BYTES_S * 1e3
+        out[f"combine_{combine}"] = {
+            "ms": ms, "bytes": combine_bytes, "bound_ms": bound,
+            "bound_by": "bytes", "bound_share": bound / ms}
+    del reports, args, cargs
+    torch.cuda.empty_cache()
+    log(f"[read] (g) mesh route, {SHARDS} shards on the card, each combine "
+        f"== the host route (counts, min, max bits; sums and means rtol="
+        f"{MESH_TOL}, atol={MESH_TOL}) == the plain segment sum's bits == "
+        f"the CPU's bits on {MESH_CPU_WINDOWS} windows; the executor's "
+        f"open-range query routed mesh: {json.dumps(out)} on {card}")
+    return out
+
+
 def phase_read_side(dev, card, main_ref):
     """The read side at full size. Its main path is the monolithic query
     (b) and the serving tier (c), driven with the segment-sum kernel's
-    count set to 0 just before and read just after; then the device ops
-    and the kernel against their plain versions (a), reads beside a
-    capturing engine (d), the bus replay (e), a wide-row tenant (f) and an
-    hourly query over chatty devices."""
+    count set to 0 just before and read just after; then the mesh route
+    (g, its own count from 0), the device ops and the kernel against their
+    plain versions (a), reads beside a capturing engine (d), the bus
+    replay (e), a wide-row tenant (f) and an hourly query over chatty
+    devices."""
     from sitewhere_tpu_torch.ops.segsum import segment_row_sum
 
     t_phase = time.perf_counter()
@@ -3367,6 +3611,7 @@ def phase_read_side(dev, card, main_ref):
         raise AssertionError("the read side's main path never launched the "
                              "segment-sum kernel")
     try:
+        readings["mesh"] = mesh_route(dev, rlog, card)
         readings["ops"] = window_ops_vs_plain(dev, calls, card)
         readings["beside_step"] = reads_beside_the_step(dev, ex, query,
                                                         main_ref, card)
@@ -4214,24 +4459,19 @@ class _Landing:
     times itself, so readings() takes it out of the service's own per-blob
     accounting."""
 
-    def __init__(self, dev, epoch, records, partitions):
+    events_per_blob = BATCH
+
+    def __init__(self, dev, epoch, records, partitions, engine=None):
         from sitewhere_tpu_torch.feeders import FeederService
         from sitewhere_tpu_torch.runtime.bus import EventBus
         from sitewhere_tpu_torch.runtime.busnet import BusServer
         from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry
 
-        self.engine = feeder_engine(dev, epoch)
+        self.engine = engine if engine is not None \
+            else feeder_engine(dev, epoch)
         self.steps, self.per_blob = [], []
         self.blob = None
-        stage_blob = self.engine.stage_blob
-
-        def staging(blob, **kw):
-            # the blob the hook materializes: the service stages a blob and
-            # runs its hook in turn under its step lock
-            self.blob = blob
-            return stage_blob(blob, **kw)
-
-        self.engine.stage_blob = staging
+        self._see_staged_blobs()
         self.metrics = MetricsRegistry()
         self.landed = self.metrics.counter("feeder.blobs")
         self.bus = EventBus(partitions=partitions)
@@ -4242,32 +4482,51 @@ class _Landing:
                                      on_outputs=self._hook)
         self.publish(records)
 
+    def _see_staged_blobs(self):
+        """Keep the blob the service stages (it stages a blob and runs its
+        hook in turn under its step lock), for the hook."""
+        stage_blob = self.engine.stage_blob
+
+        def staging(blob, **kw):
+            self.blob = blob
+            return stage_blob(blob, **kw)
+
+        self.engine.stage_blob = staging
+
     def _hook(self, engine, outputs, _rec):
-        """Materializes the landed blob's alerts; notes the service's
+        """Notes the landed blob's alerts (`_alerts`), the service's
         accounting as it stands (every blob before this one) and its own
         wall and thread CPU."""
-        from sitewhere_tpu_torch.ops.pack import blob_to_batch_np
-
         svc = self.service
         t0, c0 = time.perf_counter(), time.thread_time()
         before = (svc.blob_handle_s, svc.blob_step_s, svc.blob_cpu_s)
-        batch = blob_to_batch_np(self.blob)
-        last, engine._flight_last = engine._flight_last, None
-        try:
-            got = engine.materialize_alerts(batch, outputs)
-        finally:
-            engine._flight_last = last
-        self.steps.append((_blob_key(self.blob), _alert_keys(got)))
+        self.steps.append((_blob_key(self.blob),
+                           self._alerts(engine, outputs)))
         end = time.perf_counter()
         self.per_blob.append({"before": before, "hook_s": end - t0,
                               "hook_cpu_s": time.thread_time() - c0,
                               "end": end})
 
+    def _alerts(self, engine, outputs):
+        """The landed blob's alerts, materialized off its flight record."""
+        from sitewhere_tpu_torch.ops.pack import blob_to_batch_np
+
+        batch = blob_to_batch_np(self.blob)
+        last, engine._flight_last = engine._flight_last, None
+        try:
+            return _alert_keys(engine.materialize_alerts(batch, outputs))
+        finally:
+            engine._flight_last = last
+
     def publish(self, records):
-        topic = self.bus.topic(FEEDER_TOPIC)
-        n = len(topic.partitions)
         for r, data in enumerate(records):
-            topic.partitions[r % n].append(f"r{r}".encode(), data)
+            self.publish_at(r, data)
+
+    def publish_at(self, r, data):
+        """Record r on partition r % partitions."""
+        topic = self.bus.topic(FEEDER_TOPIC)
+        topic.partitions[r % len(topic.partitions)].append(
+            f"r{r}".encode(), data)
 
     def wait(self, n_steps, what, procs=()):
         deadline = time.perf_counter() + FEEDER_TIMEOUT_S
@@ -4299,9 +4558,10 @@ class _Landing:
         cpu = svc.blob_cpu_s - first[2]
         hook = sum(x["hook_s"] for x in b[1:])
         hook_cpu = sum(x["hook_cpu_s"] for x in b[1:])
+        per_blob = self.events_per_blob
         return {"blobs": len(b), "wall_s": wall,
-                "events_per_s": len(b) * BATCH / (b[-1]["end"] - t_ready),
-                "events_per_s_after_first": n * BATCH
+                "events_per_s": len(b) * per_blob / (b[-1]["end"] - t_ready),
+                "events_per_s_after_first": n * per_blob
                 / (b[-1]["end"] - b[0]["end"]),
                 "first_blob_ms": (first[1] - b[0]["hook_s"]) * 1e3,
                 # two clock differences a blob: the service's, the hook's
@@ -4902,6 +5162,10 @@ ROUTER_BENCH = (65536, 8, 8192)      # the router micro-bench's shape
 ROUTER_REPS = 7
 SERVE_SHARDS = 8
 SERVE_DEVICES = 64
+# (f): the feeders' sharded landing at these worker-thread counts, and the
+# skewed record's events (one per-shard batch, all on one device)
+LANDING_THREADS = (1, 2)
+SHARD_SKEW_EVENTS = BATCH // SHARDS
 
 
 def shard_traffic(packer, seed):
@@ -5272,16 +5536,267 @@ def router_bench(card):
     return out
 
 
+def landing_engine(dev, epoch):
+    """Phase 12's device-routing sharded engine of phase 3's world, its
+    params built before any traffic, with a flight recorder."""
+    from sitewhere_tpu_torch.runtime.flight import FlightRecorder
+
+    engine = build_world(dev, "auto", epoch, shards=SHARDS,
+                         device_routing=True,
+                         alert_lane_capacity=SHARD_LANES)
+    engine.flight = FlightRecorder(capacity=64)
+    engine._ensure_params()
+    return engine
+
+
+def landing_records(epoch):
+    """FEEDER_RECORDS records of SHARD_EVENTS wire frames of phase 3's
+    traffic, record r holding the devices of class r % FEEDER_CLASSES by
+    (d // SHARDS), so every shard gets its even share of a record and
+    records that share devices share a partition at 1 or 2 workers; then
+    the skewed record, SHARD_SKEW_EVENTS frames of dev-1 (class 0, as its
+    position FEEDER_RECORDS is), which no device-route lane holds."""
+    rng = np.random.default_rng(SEED + 710)
+    records = [encode_delivery(rng, epoch, N_REGISTERED, SHARD_EVENTS, 0,
+                               device_class=r % FEEDER_CLASSES,
+                               class_stride=SHARDS)[1]
+               for r in range(FEEDER_RECORDS)]
+    skew = encode_delivery(rng, epoch, 1, SHARD_SKEW_EVENTS, 0)[1]
+    return records, skew
+
+
+def inline_sharded_landing(dev, epoch, records, skew, card):
+    """The records through FastWireIngest + submit on one landing engine:
+    each uniform record takes the device route (its flat blob is the key),
+    the skewed one the host route; the lanes' digest a record, the state
+    before the sweep and the sweep's transitions."""
+    from sitewhere_tpu_torch.parallel.engine import DeviceRoutedView
+    from sitewhere_tpu_torch.sources.fastlane import FastWireIngest
+
+    engine = landing_engine(dev, epoch)
+    ingest = FastWireIngest(engine.packer)
+    alerts, keys, walls = {}, [], []
+    for data in records + [skew]:
+        res = ingest.ingest(data)
+        if len(res.batches) != 1:
+            raise AssertionError("a landing record is not one batch")
+        t0 = time.perf_counter()
+        view, out = engine.submit_routed(res.batches[0])
+        if data is skew:
+            if isinstance(view, DeviceRoutedView) or \
+                    engine.device_route_fallbacks != 1:
+                raise AssertionError("the skewed record took the device "
+                                     "route inline")
+            continue
+        if not isinstance(view, DeviceRoutedView):
+            raise AssertionError("a uniform record left the device route")
+        key = _blob_key(view.blob)
+        alerts[key] = lane_digest(engine, view, out)
+        keys.append(key)
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    if engine.pending_overflow:
+        raise AssertionError("the inline landing left an overflow backlog")
+    ref = {"alerts": alerts, "keys": keys,
+           "state": engine.canonical_state(),
+           "missing": sorted(engine.presence_sweep())}
+    readings = {"events_per_s_after_first": (len(walls) - 1) * SHARD_EVENTS
+                / sum(walls[1:]),
+                "record_ms_p50": statistics.median(walls[1:]) * 1e3,
+                "fired_rows": sum(a[0] for a in alerts.values())}
+    log(f"[sharded landing] inline FastWireIngest + submit: "
+        f"{json.dumps(readings)} on {card}")
+    del engine
+    return ref, readings
+
+
+class _ShardedLanding(_Landing):
+    """A landing host over a device-routing sharded engine: the hook keeps
+    the blob the service stages through `stage_prepared` and digests the
+    step's lanes (`lane_digest`) instead of materializing ~29,000 alerts."""
+
+    events_per_blob = SHARD_EVENTS
+
+    def _see_staged_blobs(self):
+        stage_prepared = self.engine.stage_prepared
+
+        def staging(prepared, **kw):
+            self.blob = prepared.blob
+            return stage_prepared(prepared, **kw)
+
+        self.engine.stage_prepared = staging
+
+    def _alerts(self, engine, outputs):
+        from sitewhere_tpu_torch.parallel.engine import DeviceRoutedView
+
+        return lane_digest(engine, DeviceRoutedView(self.blob, engine.router),
+                           outputs)
+
+
+def sharded_landing_run(dev, epoch, records, skew, ref, n, card):
+    """(f) at `n` worker threads: the uniform records land on the device
+    route, each once with the inline run's flat blob and lanes, flight
+    records of the landing's segments only; then the skewed record, which
+    the worker's guard sends down the counted spill; B1 SHARDS launches a
+    landed record, one capture a static configuration, state and presence
+    transitions equal the inline run's."""
+    what = f"(f) sharded landing, {n} worker thread(s)"
+    engine = landing_engine(dev, epoch)
+    lb = _ShardedLanding(dev, epoch, records, n, engine=engine)
+    spills = lb.metrics.counter("feeder.guard_spills")
+    try:
+        reset_launch_counts(engine)
+        t0 = time.perf_counter()
+        workers = _thread_workers(lb.server.port, n, f"s{n}")
+        t_ready = time.perf_counter()
+        for w in workers:
+            w.start()
+        try:
+            lb.wait(len(records), what)
+            readings = lb.readings(t_ready, time.perf_counter() - t0)
+            lb.publish_at(len(records), skew)
+            lb.wait(len(records) + 1, what + ", the skewed record")
+        finally:
+            for w in workers:
+                w.stop()
+        torch.cuda.synchronize()
+        launches = launch_counts(engine)["points_in_zones"]
+        keys = [k for k, _ in lb.steps]
+        if sorted(keys) != sorted(ref["keys"]):
+            raise AssertionError(f"{what}: landed blobs are not the inline "
+                                 f"flat blobs, each once")
+        for key, digest in lb.steps:
+            if digest != ref["alerts"][key]:
+                raise AssertionError(f"{what}: a blob's lanes differ from "
+                                     f"the inline step's")
+        if spills.value != 1:
+            raise AssertionError(f"{what}: {spills.value} guard spills")
+        if launches != SHARDS * (len(records) + 1):
+            raise AssertionError(f"{what}: B1 launched {launches} times for "
+                                 f"{len(records) + 1} records")
+        if not engine.graph_captures == len(engine._graphs) <= 2:
+            raise AssertionError(f"{what}: {engine.graph_captures} captures "
+                                 f"of {len(engine._graphs)} keys")
+        recs = engine.flight.export(last_n=len(keys) + 1)["records"][:-1]
+        extra = {st for r in recs for st in r["stages"]} - LANDING_SEGMENTS
+        if extra:
+            raise AssertionError(f"{what}: flight records hold {extra}")
+        if engine.pending_overflow:
+            raise AssertionError(f"{what}: rows left in the overflow "
+                                 f"backlog")
+        assert_tree_bits_equal(ref["state"], engine.canonical_state(),
+                               f"{what} canonical state")
+        if sorted(engine.presence_sweep()) != ref["missing"]:
+            raise AssertionError(f"{what}: presence transitions differ")
+        readings.update(guard_spills=spills.value, b1_launches=launches,
+                        graph_captures=engine.graph_captures,
+                        device_route_fallbacks=engine.device_route_fallbacks)
+        log(f"[sharded landing] {what} over busnet == inline (blobs, lanes, "
+            f"state, presence; the skewed record spilled once; B1 "
+            f"{launches} launches for {len(records) + 1} records): "
+            f"{json.dumps(readings)} on {card}")
+        return readings, launches
+    finally:
+        lb.close()
+        del lb, engine
+        torch.cuda.empty_cache()
+
+
+def sharded_landing(dev, card, epoch):
+    """(f): the feeders' sharded landing at 1 and 2 worker threads against
+    the inline run. Returns the readings and B1's launches."""
+    t0 = time.perf_counter()
+    records, skew = landing_records(epoch)
+    out = {"records": len(records), "events_a_record": SHARD_EVENTS,
+           "skewed_events": SHARD_SKEW_EVENTS,
+           "encode_s": time.perf_counter() - t0}
+    ref, out["inline"] = inline_sharded_landing(dev, epoch, records, skew,
+                                                card)
+    launches = 0
+    for n in LANDING_THREADS:
+        out[f"threads_{n}"], k = sharded_landing_run(
+            dev, epoch, records, skew, ref, n, card)
+        launches += k
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _feeder_process(port, tmp, name="serve-feeder"):
+    """`python -m sitewhere_tpu_torch serve --feeder` against the bus edge
+    at `port`, up (its hello and leases done) when this returns."""
+    import re
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sitewhere_tpu_torch", "serve", "--feeder",
+         "--feeder-connect", f"127.0.0.1:{port}", "--feeder-name", name,
+         "--data-dir", f"{tmp}/{name}"], cwd=REPO_ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    while True:
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError("serve --feeder did not come up:\n"
+                                 + "".join(lines))
+        lines.append(line)
+        if re.search(r"feeder '.*' serving", line):
+            return proc
+
+
+def _stop(proc, what):
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}:\n{proc.stdout.read()}")
+
+
+def _window_cells(keys):
+    """{key id: (count, sum, mean, min, max)} of a windows answer."""
+    return {k["id"]: tuple(tuple(k[f]) for f in ("count", "sum", "mean",
+                                                   "min", "max"))
+            for k in keys}
+
+
+def _cpu_window_cells(ids, date, values, window_ms, shards):
+    """The same answer from the port on the CPU: the rows' report over an
+    `shards`-shard mesh, as the REST route renders it."""
+    from sitewhere_tpu_torch.analytics.engine import WindowedAnalyticsEngine
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+
+    report = WindowedAnalyticsEngine._build_report(
+        np.asarray(ids, np.int64), np.full(len(ids), date, np.int64),
+        np.asarray(values, np.float32), window_ms=window_ms, start_ms=None,
+        end_ms=None, max_windows=1024, device="cpu",
+        mesh=make_mesh(shards, device="cpu"))
+
+    def col(grid, row):
+        return tuple(v if v == v and abs(v) != float("inf") else None
+                     for v in (float(x) for x in
+                               grid[row, :report.n_windows]))
+
+    return {int(report.key_ids[r]): (
+        tuple(int(c) for c in report.stats.count[r, :report.n_windows]),
+        *(col(getattr(report.stats, f), r)
+          for f in ("sum", "mean", "min", "max")))
+        for r in range(report.num_keys)}
+
+
 def serve_sharded_drive(device_arg, shards=SERVE_SHARDS, env_extra=None,
-                        timeout_s=300.0):
+                        timeout_s=300.0, feeders=False):
     """`python -m sitewhere_tpu_torch serve --shards N` as a user runs it:
     boot with a bus edge, provision SERVE_DEVICES devices over REST, send
     one decoded-events request a device over the edge into the sharded
     step, read every device's state back over REST (its last measurement
-    must be the one sent), and exit 0 on SIGTERM."""
+    must be the one sent), and exit 0 on SIGTERM. With `feeders`, the
+    instance also mounts the feeder fleet's landing (`--feeders`) and
+    routes every window query of one row or more to its mesh: one `serve
+    --feeder` process lands a wire frame a device (every state must show
+    it), then a window query over REST must take the mesh route and answer
+    what the port on the CPU answers for the persisted rows."""
     import os
     import re
-    import signal
 
     import msgpack
 
@@ -5293,11 +5808,14 @@ def serve_sharded_drive(device_arg, shards=SERVE_SHARDS, env_extra=None,
     from sitewhere_tpu_torch.runtime.busnet import BusClient
 
     env = dict(os.environ, PYTHONUNBUFFERED="1", **(env_extra or {}))
+    args = ["--feeders"] if feeders else []
+    if feeders:
+        env["SWTPU_SERVING__MESH_ROW_THRESHOLD"] = "1"
     with tempfile.TemporaryDirectory(prefix="chip-serve-") as tmp:
         proc = subprocess.Popen(
             [sys.executable, "-m", "sitewhere_tpu_torch", "serve",
              "--port", "0", "--bus-port", "0", "--device", device_arg,
-             "--shards", str(shards), "--data-dir", f"{tmp}/data"],
+             "--shards", str(shards), "--data-dir", f"{tmp}/data", *args],
             cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True, env=env)
         try:
@@ -5305,6 +5823,8 @@ def serve_sharded_drive(device_arg, shards=SERVE_SHARDS, env_extra=None,
             patterns = {"url": r"REST gateway : (http://\S+)",
                         "bus": r"bus edge     : tcp://[^:]+:(\d+)",
                         "shards": r"shards       : (\d+)"}
+            if feeders:
+                patterns["frames"] = r"feeder fleet : topic (\S+)"
             while (len(seen) < len(patterns)
                    and time.perf_counter() - t0 < timeout_s):
                 line = proc.stdout.readline()
@@ -5346,45 +5866,98 @@ def serve_sharded_drive(device_arg, shards=SERVE_SHARDS, env_extra=None,
                         use_bin_type=True))
             finally:
                 client.close()
-            ingested, pending = {}, list(tokens)
-            while pending and time.perf_counter() - t_ingest < timeout_s:
-                token = pending[0]
-                try:
-                    state = rest.get(f"/api/devicestates/{token}")
-                except SiteWhereClientError as exc:
-                    if exc.status != 404:   # no state until its step ran
-                        raise
-                    time.sleep(0.2)
-                    continue
-                got = state.get("last_measurements", {}).get("temp")
-                if got is None:
-                    time.sleep(0.2)
-                    continue
-                ingested[token] = float(got[1])
-                pending.pop(0)
+
+            def states(want, since):
+                got, pending = {}, list(tokens)
+                while pending and time.perf_counter() - since < timeout_s:
+                    token = pending[0]
+                    try:
+                        state = rest.get(f"/api/devicestates/{token}")
+                    except SiteWhereClientError as exc:
+                        if exc.status != 404:   # no state until its step
+                            raise
+                        time.sleep(0.2)
+                        continue
+                    value = state.get("last_measurements", {}).get("temp")
+                    if value is None or float(value[1]) != want[token]:
+                        time.sleep(0.2)
+                        continue
+                    got[token] = float(value[1])
+                    pending.pop(0)
+                assert not pending, f"{len(pending)} devices never folded"
+                return got
+
+            ingested = states(values, t_ingest)
             ingest_s = time.perf_counter() - t_ingest
-            assert not pending, f"{len(pending)} devices never folded"
-            wrong = {t: v for t, v in ingested.items() if v != values[t]}
-            assert not wrong, f"states differ from what was sent: {wrong}"
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=120)
-            assert rc == 0, f"serve exited {rc}:\n{proc.stdout.read()}"
+            out = {"shards": int(seen["shards"]), "boot_s": boot_s,
+                   "ingest_and_read_s": ingest_s, "events": len(tokens),
+                   "ingested": len(ingested),
+                   "state_value": ingested[tokens[-1]],
+                   "last_value": values[tokens[-1]],
+                   "device": topology["device"]}
+            if feeders:
+                out.update(_serve_feeder_and_window(
+                    rest, seen, tmp, tokens, values, now, shards, states))
+            _stop(proc, "serve")
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=30)
-    last = tokens[-1]
-    return {"shards": int(seen["shards"]), "boot_s": boot_s,
-            "ingest_and_read_s": ingest_s, "events": len(tokens),
-            "ingested": len(ingested), "state_value": ingested[last],
-            "last_value": values[last],
-            "device": topology["device"]}
+    return out
+
+
+def _serve_feeder_and_window(rest, seen, tmp, tokens, values, now, shards,
+                             states):
+    """serve_sharded_drive's feeder landing and mesh-routed window query
+    (its `feeders` half)."""
+    from sitewhere_tpu_torch.runtime.busnet import BusClient
+    from sitewhere_tpu_torch.transport.wire import (
+        MessageType, WireCodec, encode_frame)
+
+    t0 = time.perf_counter()
+    feeder = _feeder_process(seen["bus"], tmp)
+    try:
+        landed = {token: 100.0 + i for i, token in enumerate(tokens)}
+        client = BusClient("127.0.0.1", int(seen["bus"]))
+        t_land = time.perf_counter()
+        try:
+            for token in tokens:
+                client.publish(seen["frames"], token.encode(), encode_frame(
+                    MessageType.MEASUREMENT, WireCodec.encode_measurement(
+                        token, now + 1, "temp", landed[token])))
+        finally:
+            client.close()
+        states(landed, t_land)
+        land_s = time.perf_counter() - t_land
+        _stop(feeder, "serve --feeder")
+    finally:
+        if feeder.poll() is None:
+            feeder.kill()
+            feeder.wait(timeout=30)
+    t_query = time.perf_counter()
+    answer = rest.get("/api/analytics/windows?window_ms=60000&keys=256")
+    query_s = time.perf_counter() - t_query
+    if answer["serving"]["route"] != "mesh":
+        raise AssertionError(f"the window query took "
+                             f"{answer['serving']['route']}, not the mesh")
+    got = _window_cells(answer["keys"])
+    ids = [k["id"] for k in answer["keys"]]
+    by_id = {k["id"]: values[k["token"]] for k in answer["keys"]}
+    want = _cpu_window_cells(ids, now, [by_id[i] for i in ids],
+                             answer["window_ms"], shards)
+    if len(got) != len(tokens) or got != want:
+        raise AssertionError(f"the mesh-routed window answer differs from "
+                             f"the CPU's: {len(got)} keys")
+    return {"feeder_landed": len(tokens), "feeder_land_and_read_s": land_s,
+            "feeder_s": time.perf_counter() - t0, "window_route": "mesh",
+            "window_keys": len(got), "window_query_s": query_s}
 
 
 def phase_sharded(dev, card):
     """Phase 12: the sharded path on the card (see the module docstring).
     Returns the summary; its `b1_launches` and `rule_launches` are the
-    kernels' launches on the sharded path."""
+    kernels' launches on the sharded path, `landing["launches"]` B1's on
+    the feeders' sharded landing."""
     t_phase = time.perf_counter()
     epoch = int(time.time() * 1000) - EPOCH_LAG_MS
     single, single_ref, single_sum = None, None, None
@@ -5416,10 +5989,12 @@ def phase_sharded(dev, card):
     del single
     stateful = sharded_stateful(dev, card, epoch)
     elastic = sharded_elastic(dev, card, device_eng, traffic, epoch)
-    del engines
+    del engines, device_eng
+    torch.cuda.empty_cache()
+    landing = sharded_landing(dev, card, epoch)
     router = router_bench(card)
     t0 = time.perf_counter()
-    serve = serve_sharded_drive("cuda")
+    serve = serve_sharded_drive("cuda", feeders=True)
     serve["wall_s"] = time.perf_counter() - t0
     if serve["device"]["type"] != "cuda":
         raise AssertionError(f"serve ran on {serve['device']}")
@@ -5431,8 +6006,8 @@ def phase_sharded(dev, card):
                        profiles.items()},
         "busy_ms_per_step": {k: p["device_busy_ms_per_step"] for k, p in
                              profiles.items()},
-        "stateful": stateful, "elastic": elastic, "router": router,
-        "serve": serve,
+        "stateful": stateful, "elastic": elastic, "landing": landing,
+        "router": router, "serve": serve,
         "b1_launches": (runs["host"]["b1_launches"]
                         + runs["device"]["b1_launches"]),
         "rule_launches": stateful["launches"]["eval_rule_programs"],
@@ -5441,7 +6016,9 @@ def phase_sharded(dev, card):
         f"device route p50 {runs['device']['step_ms_p50']:.2f} ms / p99 "
         f"{runs['device']['step_ms_p99']:.2f} ms, host route p50 "
         f"{runs['host']['step_ms_p50']:.2f} ms, single engine p50 "
-        f"{single_sum['step_ms_p50']:.2f} ms, on {card}")
+        f"{single_sum['step_ms_p50']:.2f} ms, sharded landing "
+        f"{landing['threads_1']['events_per_s_after_first']:.0f} events/s "
+        f"after the first blob at 1 worker, on {card}")
     return summary
 
 
@@ -5470,6 +6047,17 @@ def main() -> int:
         torch.cuda.set_device(dev)
         card, _ = phase_card()
         phase_sharded(dev, card)
+        return 0
+    if sys.argv[1:] == ["--read-only"]:
+        # phase 9 alone, after the phase 3 it reads (prints no result line)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        card, _ = phase_card()
+        engine, batches, _, _, alerts, state = phase_main_path(dev, card)
+        main_ref = {"batches": batches, "alerts": alerts, "state": state,
+                    "epoch_base_ms": engine.packer.epoch_base_ms}
+        del engine
+        phase_read_side(dev, card, main_ref)
         return 0
     try:
         dev = torch.device("cuda", 0)
@@ -5512,6 +6100,7 @@ def main() -> int:
         "launches_instance_path": instance_launches["points_in_zones"],
         "launches_feeder_path": feeders["launches_feeder_path"],
         "launches_sharded_path": sharded["b1_launches"],
+        "launches_sharded_feeder_path": sharded["landing"]["launches"],
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],
@@ -5533,6 +6122,7 @@ def main() -> int:
         "replaces": "sitewhere_tpu/analytics/windows.py:63",
         "launches": read["segment_row_sum_launches"],
         "launches_instance_path": instance_launches["segment_row_sum"],
+        "launches_mesh_path": read["mesh"]["launches"],
         **{k: segsum[k] for k in ("mismatches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "rows", "segments",

@@ -419,10 +419,6 @@ def cmd_serve(args) -> int:
         if value is not None and value is not False and value != "":
             return _refuse(f"{key} asks for {what}, which this package "
                            f"does not have yet: ROADMAP {item}")
-    if cfg.get("feeders.enabled") and int(cfg.get("mesh.shards") or 1) > 1:
-        return _refuse("feeders.enabled with mesh.shards > 1 asks for the "
-                       "feeders' sharded landing, which this package does "
-                       "not have yet: ROADMAP A6e")
     try:
         resolve_device(cfg.get("pipeline.device") or "cuda")
     except RuntimeError as exc:

@@ -12,9 +12,10 @@ Two replay sources:
   * an `EventBus` topic — decodes enriched payloads per record and feeds
     the same ops; the literal Kafka-replay flavor.
 
-The sharded path (the JAX package's `parallel/distributed.py`
-`sharded_windowed_stats`) is not ported yet: a mesh, given or chosen by
-the planner, raises rather than being answered on one device.
+A mesh, given or chosen by the planner, takes window-sharded replay
+(parallel/distributed.py `sharded_windowed_stats`): the rows split over
+the mesh's shards, each shard's [K, W] grid folded, the grids combined on
+the mesh's device, which must be the engine's.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch
 from sitewhere_tpu_torch.analytics.windows import (
     WindowedStats, compact_keys, dense_key_span, event_type_histogram,
     to_device, to_host, windowed_stats)
-from sitewhere_tpu_torch.device import DeviceLike, own_stream, resolve_device
+from sitewhere_tpu_torch.device import (
+    DeviceLike, own_stream, resolve_device, same_device)
 from sitewhere_tpu_torch.model.event import DeviceEventType
 from sitewhere_tpu_torch.persist.eventlog import EventFilter
 
@@ -106,8 +108,9 @@ class WindowedAnalyticsEngine:
     """Windowed replay over the columnar event log, on `device`.
 
     With a `planner` (serving/planner.py) attached, `mesh=None` means
-    "planner-decided"; a planner that chooses a mesh, like an explicit
-    mesh, raises (the sharded path is not ported)."""
+    "planner-decided": large scans take the planner's mesh, small ones
+    the single-device ops. An explicit mesh takes the sharded path either
+    way; a mesh on another device than the engine's raises."""
 
     def __init__(self, event_log, planner=None, device: DeviceLike = "cuda"):
         self.event_log = event_log
@@ -121,20 +124,20 @@ class WindowedAnalyticsEngine:
                             area_id: Optional[str] = None,
                             max_windows: int = 4096,
                             with_type_histogram: bool = False,
-                            mesh=None) -> WindowReport:
+                            mesh=None, combine: str = "psum"
+                            ) -> WindowReport:
         """Per-device windowed stats over measurement values: filter ->
-        column scan -> one pass of the device ops."""
+        column scan -> one pass of the device ops (sharded over `mesh`,
+        its grids combined by `combine`, when a mesh is given or chosen)."""
         flt = EventFilter(event_type=DeviceEventType.MEASUREMENT,
                           mm_name=mm_name, area_id=area_id,
                           start_date=start_ms, end_date=end_ms)
         if mesh is None and self.planner is not None:
             mesh = self.planner.choose_mesh(tenant, flt)
-        if mesh is not None:
-            # never answer a mesh query on one device instead
-            raise NotImplementedError(
-                "mesh-sharded windowed replay (sharded_windowed_stats) "
-                "comes with the sharded path's analytics: ROADMAP A6c; "
-                "this engine serves single-device queries only")
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"mesh on {mesh.device}, engine on "
+                             f"{self.device}: a query's grids stay on the "
+                             f"engine's device")
         t_scan = time.perf_counter()
         # key on the int32 device_idx column, not the token strings; tokens
         # resolve afterwards, once per unique key, from each key's first
@@ -176,7 +179,7 @@ class WindowedAnalyticsEngine:
             device_idx, cols["event_date"], cols["value"],
             window_ms=window_ms, start_ms=start_ms, end_ms=end_ms,
             max_windows=max_windows, hist_cols=hist_cols,
-            device=self.device, timings=timings)
+            device=self.device, timings=timings, mesh=mesh, combine=combine)
         t_tokens = time.perf_counter()
         if report.num_keys and len(device_idx):
             # first-occurrence row per key id: a reversed fancy assignment
@@ -208,8 +211,8 @@ class WindowedAnalyticsEngine:
                       max_windows: int, device: DeviceLike,
                       hist_cols: Optional[Dict[str, np.ndarray]] = None,
                       tokens: Optional[List[str]] = None,
-                      timings: Optional[Dict[str, float]] = None
-                      ) -> WindowReport:
+                      timings: Optional[Dict[str, float]] = None,
+                      mesh=None, combine: str = "psum") -> WindowReport:
         device = resolve_device(device)
         timings = {} if timings is None else timings
         t = time.perf_counter()
@@ -259,8 +262,17 @@ class WindowedAnalyticsEngine:
             _sync(device)
             timings["h2d"] = time.perf_counter() - t
             t = time.perf_counter()
-            stats = windowed_stats(*on_dev, window_ms=1, num_keys=K,
-                                   n_windows=W, device=device)
+            if mesh is not None:
+                # window-sharded replay over the mesh's shards (imported
+                # here: parallel/ imports this package)
+                from sitewhere_tpu_torch.parallel.distributed import (
+                    sharded_windowed_stats)
+                stats = sharded_windowed_stats(
+                    *on_dev, window_ms=1, num_keys=K, n_windows=W,
+                    mesh=mesh, combine=combine)
+            else:
+                stats = windowed_stats(*on_dev, window_ms=1, num_keys=K,
+                                       n_windows=W, device=device)
             hist = (None if h_dev is None else event_type_histogram(
                 *h_dev, window_ms=1, n_types=_N_EVENT_TYPES, n_windows=W,
                 device=device))

@@ -26,6 +26,10 @@ device applies writes:
   max keep the NaN's bits as they are.
 * With a single input row, XLA stores the row as it is (no flush, no
   quieting) into its cell of the sum, min and max grids; so does this.
+
+`block_partials` folds S contiguous blocks of rows in one pass, each as a
+call of its own would fold it (the per-shard grids of the sharded path,
+parallel/distributed.py); `windowed_stats` is its one-block case.
 """
 
 from __future__ import annotations
@@ -168,30 +172,33 @@ def _nan_rows(seg: torch.Tensor, val: torch.Tensor, S: int, nan: torch.Tensor
     return last, first(nan & ~neg), first(nan & neg)
 
 
-def windowed_stats(keys, ts_rel, value, valid, *, window_ms: int,
-                   num_keys: int, n_windows: int,
-                   device: DeviceLike = "cuda") -> WindowedStats:
-    """count/sum/mean/min/max of `value` per (key, time-bucket).
-
-    Args:
-      keys:    int32 [B] dense key indices in [0, num_keys)
-      ts_rel:  int  [B] ms relative to the window origin (host-rebased;
-               cast to int32 as the reference casts it)
-      value:   f32  [B]
-      valid:   bool [B]
-      window_ms: bucket width (floor division)
-      num_keys / n_windows: grid shape
-      device:  where the op runs and the grids live
-    """
+def block_partials(keys, ts_rel, value, valid, *, window_ms: int,
+                   num_keys: int, n_windows: int, n_blocks: int = 1,
+                   device: DeviceLike = "cuda"
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The grids of `n_blocks` contiguous equal blocks of rows, each
+    folded on its own as `windowed_stats` folds a call of that many rows:
+    (count int32, sum, min, max f32 bits as int32), each
+    [n_blocks * K * W], block b's cells at `b * K * W`. One pass for all
+    blocks: a row's segment is offset by its block's cells, so one sort
+    and one segment sum serve them all. Cells without rows hold
+    count 0 and unspecified bits. The row count must be a multiple of
+    `n_blocks`."""
     dev = resolve_device(device)
     K, W = int(num_keys), int(n_windows)
-    S = K * W
     keys = _as_tensor(keys, torch.int32, dev)
     ts_rel = _as_tensor(ts_rel, torch.int32, dev)
     value = _as_tensor(value, torch.float32, dev)
     valid = _as_tensor(valid, torch.bool, dev)
-    single_row = value.numel() == 1
+    rows = value.numel() // n_blocks
+    if rows * n_blocks != value.numel():
+        raise ValueError(f"{value.numel()} rows do not split into "
+                         f"{n_blocks} equal blocks")
+    S = n_blocks * K * W
     in_range, seg = _segments(keys, ts_rel, valid, int(window_ms), K, W)
+    if n_blocks > 1 and rows:
+        block = torch.arange(value.numel(), device=dev) // rows
+        seg = seg + block * (K * W)
     seg = seg[in_range]
     raw = value[in_range]
     val = flush_denormals(raw)
@@ -221,19 +228,55 @@ def windowed_stats(keys, ts_rel, value, valid, *, window_ms: int,
             first_pos >= 0, bits[first_pos.clamp(min=0)], pick), vmin)
         vmax = torch.where(has, torch.where(
             first_neg >= 0, bits[first_neg.clamp(min=0)], pick), vmax)
-    if single_row and seg.numel() == 1:
+    if rows == 1 and seg.numel():
+        # each block is a lone row: stored as it is where it lands
         raw_bits = raw.view(torch.int32)
         vsum = vsum.index_copy(0, seg, raw_bits)
         vmin = vmin.index_copy(0, seg, raw_bits)
         vmax = vmax.index_copy(0, seg, raw_bits)
+    return count, vsum, vmin, vmax
 
-    empty = count == 0
+
+def finalize_mean(count: torch.Tensor, vsum: torch.Tensor) -> torch.Tensor:
+    """f32 bits (int32) of `sum / max(count, 1)` as XLA's CPU code divides
+    (operands and result flushed; a NaN sum quieted), the canonical NaN
+    where count == 0."""
     fsum = vsum.view(torch.float32)
     mean = flush_denormals(flush_denormals(fsum) /
                            torch.clamp(count, min=1).to(torch.float32))
     mean = torch.where(torch.isnan(fsum), _quiet(vsum),
                        mean.view(torch.int32))
-    mean = torch.where(empty, _CANONICAL_NAN, mean)
+    return torch.where(count == 0, _CANONICAL_NAN, mean)
+
+
+def windowed_stats(keys, ts_rel, value, valid, *, window_ms: int,
+                   num_keys: int, n_windows: int,
+                   device: DeviceLike = "cuda") -> WindowedStats:
+    """count/sum/mean/min/max of `value` per (key, time-bucket).
+
+    Args:
+      keys:    int32 [B] dense key indices in [0, num_keys)
+      ts_rel:  int  [B] ms relative to the window origin (host-rebased;
+               cast to int32 as the reference casts it)
+      value:   f32  [B]
+      valid:   bool [B]
+      window_ms: bucket width (floor division)
+      num_keys / n_windows: grid shape
+      device:  where the op runs and the grids live
+    """
+    K, W = int(num_keys), int(n_windows)
+    count, vsum, vmin, vmax = block_partials(
+        keys, ts_rel, value, valid, window_ms=window_ms, num_keys=K,
+        n_windows=W, device=device)
+    return grids_of(count, vsum, finalize_mean(count, vsum), vmin, vmax,
+                    K, W)
+
+
+def grids_of(count, vsum, mean, vmin, vmax, K: int, W: int
+             ) -> WindowedStats:
+    """WindowedStats [K, W] from flat grids (f32 grids as int32 bits);
+    min and max take the canonical NaN where count == 0."""
+    empty = count == 0
     vmin = torch.where(empty, _CANONICAL_NAN, vmin)
     vmax = torch.where(empty, _CANONICAL_NAN, vmax)
 

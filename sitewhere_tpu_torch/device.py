@@ -28,6 +28,18 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether `a` and `b` name one device ("cuda" is the current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == \
+        (current if b.index is None else b.index)
+
+
 _local = threading.local()
 
 

@@ -27,8 +27,7 @@ Five ops, mounted on the landing host's BusServer via ``register_op``
     offset extent it covers (the exactly-once watermark), the age
     sidecar in cross-process form (age-so-far entries, re-stamped at the
     receiver — perf_counter stamps never cross a process boundary raw),
-    and the host-route guard verdict (always "fits" from a single-engine
-    pack; a sharded landing reads it). Epoch-fenced per
+    and the feeder's host-route guard verdict. Epoch-fenced per
     partition: the request carries ``fence=feeder:p<N>`` so a zombie
     feeder's blobs bounce off the raised floor after takeover.
 
@@ -98,6 +97,7 @@ def partition_resource(partition: int) -> str:
 
 def blob_message(blob: np.ndarray, *, n_events: int, partition: int,
                  seq: int, extent: Sequence[int], epoch: int,
+                 fits_device_route: bool = True,
                  age: Optional[AgeSidecar] = None,
                  advance: bool = True, chunk: int = 0) -> dict:
     """Build the ``feeder_blob`` request body. ``extent`` is the
@@ -120,7 +120,7 @@ def blob_message(blob: np.ndarray, *, n_events: int, partition: int,
         "partition": int(partition),
         "seq": int(seq),
         "extent": [int(extent[0]), int(extent[1])],
-        "fits_device_route": True,
+        "fits_device_route": bool(fits_device_route),
         "age": sidecar_to_wire(age),
         "advance": bool(advance),
         "chunk": int(chunk),

@@ -11,11 +11,10 @@ replica's position (``feeder_journal``), and NEW measurement/alert-type
 tokens are allocated authoritatively on the landing host
 (``feeder_intern`` — one round trip per new TOKEN, never per event).
 Replaying the journal reproduces the authoritative table slot-for-slot
-(gap slots included), so a replica lookup returns the same index the
-landing host's would — the whole bit-identity argument. Device interning
-is sequential (one shard class): a hello naming more shard classes comes
-from a sharded engine and is refused (the feeders' sharded landing,
-ROADMAP A6e).
+(congruence gaps included: a sharded engine's device interner places a
+token in its shard's class, `dev_shard_classes` in the hello), so a
+replica lookup returns the same index the landing host's would — the
+whole bit-identity argument.
 
 Device tokens are never interned by ingest on either side: an unknown
 device must stay index 0 so the pipeline flags it unregistered
@@ -53,13 +52,6 @@ class ReplicaPacker:
     _NAMES = ("devices", "measurements", "alert_types")
 
     def __init__(self, hello: dict, client, metrics=GLOBAL_METRICS):
-        classes = int(hello.get("dev_shard_classes", 1))
-        if hello.get("engine", "single") != "single" or classes != 1:
-            raise NotImplementedError(
-                f"the landing engine is sharded (engine "
-                f"{hello.get('engine')!r}, {classes} device shard classes): "
-                f"its route-layout pack comes with the feeders' sharded "
-                f"landing, ROADMAP A6e")
         self.client = client
         self.hello = dict(hello)
         self._metrics = metrics
@@ -83,7 +75,9 @@ class ReplicaPacker:
 
     def _build_interners(self) -> None:
         h = self.hello
-        self.devices = TokenInterner(int(h["dev_capacity"]), "devices")
+        self.devices = TokenInterner(
+            int(h["dev_capacity"]), "devices",
+            shard_classes=int(h.get("dev_shard_classes", 1)))
         self.measurements = TokenInterner(
             int(h["mm_capacity"]), "measurements")
         self.alert_types = TokenInterner(
@@ -98,7 +92,9 @@ class ReplicaPacker:
     def _rebuild(self, name: str) -> TokenInterner:
         h = self.hello
         if name == "devices":
-            self.devices = TokenInterner(int(h["dev_capacity"]), "devices")
+            self.devices = TokenInterner(
+                int(h["dev_capacity"]), "devices",
+                shard_classes=int(h.get("dev_shard_classes", 1)))
             self.packer.devices = self.devices
             return self.devices
         if name == "measurements":

@@ -1,8 +1,7 @@
 """Landing-host blob-ingest endpoint: the feeder fleet's landing zone.
 
-Counterpart of `sitewhere_tpu/feeders/service.py` for one engine on one
-card (a sharded engine lands with the feeders' sharded landing, ROADMAP
-A6e, and is refused).
+Counterpart of `sitewhere_tpu/feeders/service.py`, for one engine or a
+`ShardedPipelineEngine` (S shards on one card) on the port's card.
 Mounts the ``feeder_*`` op family on the serve process's BusServer
 (runtime/busnet.py ``register_op``). With feeders attached, the landing
 host's per-step work on this path is H2D-into-StagingRing + the captured
@@ -12,6 +11,15 @@ segments. Blob handlers run on busnet's connection threads, one at a time
 under ``_step_lock``, so the engine's first capture of a static
 configuration may happen on one of them (the engine captures on its own
 reserved stream, pipeline/graph.py ``capture_stream``).
+
+Sharded landing: a feeder packs a sharded engine's blob in the device-
+routing flat layout (`[rows, S*B]`, worker.py `_pack_blob`) and says
+whether the host-route guard found that it fits every shard's lanes. A
+blob that fits stages through the ring (the ordered grant, as one
+engine's blobs take it) and dispatches as it is: the step routes it in
+its prologue. One that does not is the counted spill
+(`feeder.guard_spills`): unpacked to columns and submitted down the host
+route, whose overflow the engine parks for its next step.
 
 Exactly-once across takeover: every blob names the [start, end)
 partition-offset extent it covers. The service keeps a per-partition
@@ -63,6 +71,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from sitewhere_tpu_torch.feeders import protocol
+from sitewhere_tpu_torch.ops.pack import _VALID_SHIFT, blob_to_batch_np
 from sitewhere_tpu_torch.runtime.eventage import (age_histogram, observe_summary,
                                             sidecar_from_wire)
 from sitewhere_tpu_torch.runtime.metrics import GLOBAL_METRICS
@@ -99,6 +108,7 @@ class FeederService:
         self._shed_counter = metrics.counter("feeder.shed")
         self._replay_counter = metrics.counter("feeder.replay_dropped")
         self._overlap_counter = metrics.counter("feeder.extent_overlap")
+        self._spill_counter = metrics.counter("feeder.guard_spills")
         self._takeover_counter = metrics.counter("takeover.count")
         self._age_hist = age_histogram(metrics)
         # per-partition exclusive end offset of applied extents — the
@@ -123,14 +133,11 @@ class FeederService:
         from sitewhere_tpu_torch.parallel.engine import \
             ShardedPipelineEngine
         from sitewhere_tpu_torch.pipeline.engine import PipelineEngine
-        # the sharded engine IS a PipelineEngine: refuse it by name, or its
-        # blobs would land down the single-engine path
-        if (isinstance(engine, ShardedPipelineEngine)
-                or not isinstance(engine, PipelineEngine)):
-            raise NotImplementedError(
-                f"feeders land on one PipelineEngine; a "
-                f"{type(engine).__name__} (a sharded engine) lands with the "
-                f"feeders' sharded landing: ROADMAP A6e")
+        if not isinstance(engine, PipelineEngine):
+            raise TypeError(f"feeders land on the port's PipelineEngine or "
+                            f"ShardedPipelineEngine, not a "
+                            f"{type(engine).__name__}")
+        self._sharded = isinstance(engine, ShardedPipelineEngine)
         for op, fn in ((protocol.OP_HELLO, self._op_hello),
                        (protocol.OP_LEASE, self._op_lease),
                        (protocol.OP_JOURNAL, self._op_journal),
@@ -143,16 +150,15 @@ class FeederService:
     def _op_hello(self, req: dict) -> dict:
         """The packing contract a feeder needs for a bit-identical remote
         pack, plus fleet wiring (topic, group, lease TTL)."""
-        packer = self.engine.packer
+        engine = self.engine
+        packer = engine.packer
         n_parts = len(self.server.bus.topic(self.frames_topic).partitions)
-        return {
+        resp = {
             "ok": True,
-            "engine": "single",
+            "engine": "sharded" if self._sharded else "single",
             "batch_size": packer.batch_size,
             "epoch_base_ms": packer.epoch_base_ms,
             "dev_capacity": packer.devices.capacity,
-            # the device interner's classes (a replica refuses > 1 until
-            # the sharded landing, ROADMAP A6e)
             "dev_shard_classes": packer.devices.shard_classes,
             "mm_capacity": packer.measurements.capacity,
             "at_capacity": packer.alert_types.capacity,
@@ -164,6 +170,15 @@ class FeederService:
                              and getattr(self.admission, "_shedding",
                                          False)),
         }
+        if self._sharded:
+            resp.update(
+                n_shards=engine.n_shards,
+                per_shard_batch=engine.batch_size,
+                device_routing=bool(engine.device_routing),
+                route_lane_capacity=int(engine.route_lane_capacity),
+                fixed_wire_rows=int(getattr(engine.router,
+                                            "fixed_wire_rows", 0) or 0))
+        return resp
 
     # -- op: lease ----------------------------------------------------------
 
@@ -318,7 +333,10 @@ class FeederService:
             order = self._order
             self._order += 1
             s0 = time.perf_counter()
-            events = self._step_single(blob, n_events, age, order)
+            if self._sharded:
+                events = self._step_sharded(blob, req, age, order)
+            else:
+                events = self._step_single(blob, n_events, age, order)
             s1 = time.perf_counter()
             if req.get("advance", True):
                 # compute from the fresh in-lock value — never from a
@@ -355,6 +373,34 @@ class FeederService:
         if self.on_outputs is not None:
             self.on_outputs(engine, outputs, rec)
         return n_events
+
+    def _step_sharded(self, blob: np.ndarray, req: dict, age,
+                      order: int) -> int:
+        """Sharded landing: the feeder's guard verdict picks the path.
+        Fits -> the blob IS the device-routing flat layout; stage it
+        through the ring and dispatch (no per-event host work). Does not
+        fit (skew past a lane's capacity) -> the counted spill: unpack to
+        columns and take the host-arena route through submit()."""
+        from sitewhere_tpu_torch.parallel.engine import _PreparedStep
+
+        engine = self.engine
+        fits = bool(req.get("fits_device_route", True)) \
+            and engine.device_routing
+        if not fits:
+            self._spill_counter.inc()
+            batch = blob_to_batch_np(np.ascontiguousarray(blob))
+            n = int(np.asarray(batch.valid).sum())
+            engine.submit(batch, age=age)
+            return n
+        rec = engine.flight.begin_step(engine=engine.name)
+        rec.age = age
+        prepared = _PreparedStep("device", np.ascontiguousarray(blob),
+                                 flight=rec)
+        staged = engine.stage_prepared(prepared, order=order)
+        _, outputs = engine.dispatch_staged(staged)
+        if self.on_outputs is not None:
+            self.on_outputs(engine, outputs, rec)
+        return int(((blob[0, :] >> _VALID_SHIFT) & 1).sum())
 
     # -- introspection ------------------------------------------------------
 

@@ -1,14 +1,16 @@
 """Feeder worker: lease-owned partitions -> ready-to-stage wire blobs.
 
-Counterpart of `sitewhere_tpu/feeders/worker.py` for a single-engine
-landing host: it packs the engine's own wire layout. A hello from a
-sharded engine (its route-layout pack) is refused naming ROADMAP A6e. The
+Counterpart of `sitewhere_tpu/feeders/worker.py`. For one engine it
+packs that engine's wire layout; for a sharded engine the device-routing
+flat layout (`[rows, S*B]`, padded to the global batch), with the
+host-route guard's verdict on whether every shard's lanes hold it. The
 worker does no device work: it decodes, interns and packs on the host and
 never touches CUDA.
 
 One worker (thread in-proc, process under ``serve --feeder``) owns a set
 of TTL-leased source partitions and runs the whole per-event pipeline
-locally — decode, interner-replica token resolution, pack — then ships
+locally — decode, interner-replica token resolution, pack, host-route
+guard — then ships
 each blob to the landing host's ``feeder_blob`` endpoint
 and commits the covered offsets ONLY after the ack. The commit-after-ack
 order is the exactly-once half the landing-side watermark needs: a worker
@@ -48,7 +50,9 @@ import numpy as np
 
 from sitewhere_tpu_torch.feeders import protocol
 from sitewhere_tpu_torch.feeders.replica import ReplicaPacker
-from sitewhere_tpu_torch.ops.pack import batch_to_blob
+from sitewhere_tpu_torch.ops.pack import batch_to_blob, wire_variant_for
+from sitewhere_tpu_torch.ops.route import host_fits_device_route
+from sitewhere_tpu_torch.parallel.router import routable_variant
 from sitewhere_tpu_torch.runtime.busnet import BusClient, StaleEpochBusError
 from sitewhere_tpu_torch.runtime.eventage import AgeSidecar
 from sitewhere_tpu_torch.runtime.faults import FaultError, fault_point
@@ -327,16 +331,18 @@ class FeederWorker:
         commit past this group; skip_to (the watermark from an overlap
         verdict) tells the caller to advance the partition's commit to
         it before rewinding."""
+        sharded = self.hello.get("engine") == "sharded"
         for i, batch in enumerate(batches):
             final = i == len(batches) - 1
-            blob = batch_to_blob(batch)
+            blob, fits = self._pack_blob(batch, sharded)
             n = int(np.asarray(batch.valid).sum())
             self.seq += 1
             try:
                 resp = self.client.call(protocol.OP_BLOB, **protocol.blob_message(
                     blob, n_events=n, partition=partition, seq=self.seq,
-                    extent=extent, epoch=self.epoch, age=age,
-                    advance=final, chunk=i))
+                    extent=extent, epoch=self.epoch,
+                    fits_device_route=fits, age=age, advance=final,
+                    chunk=i))
             except StaleEpochBusError:
                 # fenced: a successor took this partition over — drop the
                 # lease and never commit (our rows land via its replay)
@@ -368,6 +374,31 @@ class FeederWorker:
             self.blobs_shipped += 1
             self.events_shipped += n
         return True, None
+
+    def _pack_blob(self, batch, sharded: bool):
+        """Batch -> the wire layout the engine would have packed inline,
+        plus the host-route guard's verdict (sharded only)."""
+        if not sharded:
+            return batch_to_blob(batch), True
+        S = int(self.hello["n_shards"])
+        per_shard = int(self.hello["per_shard_batch"])
+        G = S * per_shard
+        fits = True
+        if self.hello.get("device_routing"):
+            fits = bool(host_fits_device_route(
+                np.asarray(batch.device_idx), np.asarray(batch.valid), S,
+                per_shard, int(self.hello["route_lane_capacity"])))
+        rows, _ = routable_variant(*wire_variant_for(batch), per_shard)
+        fixed = int(self.hello.get("fixed_wire_rows") or 0)
+        if fixed:
+            rows = fixed
+        small = batch_to_blob(batch, wire_rows=rows)
+        n = batch.device_idx.shape[0]
+        if n == G:
+            return small, fits
+        buf = np.zeros((small.shape[0], G), np.int32)
+        buf[:, :n] = small
+        return buf, fits
 
     def _die(self) -> None:
         """The injected process death: no commits, no lease release, no
@@ -419,4 +450,3 @@ class FeederWorker:
         if not self._dead:
             self.release_leases()
         self.client.close()
-

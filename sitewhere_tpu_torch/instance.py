@@ -16,8 +16,9 @@ deterministically.
 with shard-congruent device interning, as the reference builds it. A mesh
 that is not a single-controller `ShardMesh` (a multi-host one) and the
 data-plane cluster hooks belong to the multi-host data plane (ROADMAP A6d)
-and raise. The query planner's mesh provider answers None until sharded
-analytics (A6c), so every window query keeps the host route. The
+and raise. The query planner's mesh provider answers the sharded engine's
+mesh, else `live_mesh()` (None until A6d), so a sharded instance's large
+window queries take the mesh route (parallel/distributed.py). The
 control-plane cluster (parallel/cluster.py ControlPlaneCluster) installs
 itself as `cluster_hooks` before start(): tenant engines then register
 their registries with its gossip.
@@ -186,7 +187,7 @@ class SiteWhereInstance(LifecycleComponent):
         # planner-routed measurement-window reads — host kernel for small
         # scans on `device` — behind an incremental [K, W] grid cache and
         # bounded read admission, so dashboard pollers never stall ingest.
-        # No replay mesh until sharded analytics (_serving_mesh).
+        # Large scans of a sharded instance take its mesh (_serving_mesh).
         from sitewhere_tpu_torch.analytics.engine import WindowedAnalyticsEngine
         from sitewhere_tpu_torch.serving import (
             QueryExecutor, QueryPlanner, WindowGridCache)
@@ -376,12 +377,15 @@ class SiteWhereInstance(LifecycleComponent):
         return SqliteStore(os.path.join(self.data_dir, f"{kind}.db"))
 
     def _serving_mesh(self):
-        """Planner mesh provider: None, so every query stays on the host
-        route. The reference hands the planner a sharded engine's mesh (its
-        shard axis is the replay axis); the port's analytics engine serves
-        no mesh until sharded analytics (ROADMAP A6c), and must never be
-        handed one."""
-        return None
+        """Planner mesh provider: the pipeline's own mesh when the hot path
+        runs sharded (its shard axis is the replay axis too, on the
+        instance's device), else the process-wide live mesh
+        (parallel/distributed.py `live_mesh`: None until A6d)."""
+        mesh = getattr(self.pipeline_engine, "mesh", None)
+        if mesh is not None:
+            return mesh
+        from sitewhere_tpu_torch.parallel.distributed import live_mesh
+        return live_mesh()
 
     def _make_engine(self, tenant: Tenant) -> TenantEngine:
         store_factory: Optional[Callable] = None

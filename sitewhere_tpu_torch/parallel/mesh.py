@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
@@ -57,6 +58,13 @@ class ShardMesh:
     @property
     def size(self) -> int:
         return self.n_shards
+
+    @property
+    def devices(self) -> np.ndarray:
+        """The device of each shard, as a JAX mesh's `devices` array."""
+        out = np.empty(self.n_shards, dtype=object)
+        out[:] = [self.device] * self.n_shards
+        return out
 
     def __repr__(self) -> str:
         return f"ShardMesh(n_shards={self.n_shards}, device={self.device})"

@@ -39,6 +39,22 @@ from sitewhere_tpu_torch.ops.pack import _BASE_LANES, EventBatch
 # routed layouts need at least that per-shard width
 _ROUTABLE_PACKED_MIN = _BASE_LANES
 
+
+
+def routable_variant(rows: int, ts_base: int, per_shard_batch: int):
+    """(wire rows, ts base) of a routed layout: the packed variant
+    downgrades to compact when the PER-SHARD width cannot hold the
+    lane-embedded ts base (11 lanes). A feeder's remote pack of a sharded
+    engine's blob (feeders/worker.py) downgrades as the inline path
+    does."""
+    from sitewhere_tpu_torch.ops.pack import (
+        WIRE_ROWS_COMPACT, WIRE_ROWS_PACKED)
+
+    if rows == WIRE_ROWS_PACKED and per_shard_batch < _ROUTABLE_PACKED_MIN:
+        return WIRE_ROWS_COMPACT, 0
+    return rows, ts_base
+
+
 _I32_COLS = ("device_idx", "tenant_idx", "event_type", "ts", "mm_idx",
              "alert_type_idx", "alert_level")
 _F32_COLS = ("value", "lat", "lon", "elevation")
@@ -225,15 +241,7 @@ class ShardRouter:
                            "indices are in range")
 
     def _routable_variant(self, rows: int, ts_base: int):
-        """Downgrade the packed variant when the PER-SHARD width cannot
-        hold the lane-embedded ts base (11 lanes)."""
-        from sitewhere_tpu_torch.ops.pack import (
-            WIRE_ROWS_COMPACT, WIRE_ROWS_PACKED)
-
-        if rows == WIRE_ROWS_PACKED \
-                and self.per_shard_batch < _ROUTABLE_PACKED_MIN:
-            return WIRE_ROWS_COMPACT, 0
-        return rows, ts_base
+        return routable_variant(rows, ts_base, self.per_shard_batch)
 
     def global_to_local(self, device_idx: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray]:

@@ -2,8 +2,8 @@
 
 Reads that never stall ingest: a planner normalizes every
 `measurement_windows`-shaped request and routes it host-vs-mesh by
-estimated scan size (serving/planner.py; the mesh route raises until
-the sharded path is ported), an incremental window cache
+estimated scan size (serving/planner.py; the mesh route is
+window-sharded replay, parallel/distributed.py), an incremental window cache
 reuses finalized `[K, W]` grids across dashboard polls by folding only
 the segments sealed since the cached watermark (serving/wincache.py),
 and a bounded executor runs it all behind per-tenant read admission

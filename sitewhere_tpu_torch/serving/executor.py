@@ -143,7 +143,7 @@ class QueryExecutor:
                 end_ms=query.end_ms, area_id=query.area_id,
                 max_windows=query.max_windows,
                 with_type_histogram=query.with_type_histogram,
-                mesh=plan.mesh)
+                mesh=plan.mesh, combine=query.combine)
         done_s = time.perf_counter()
         total_s = done_s - admitted_s
         self.latency_hist.observe(total_s, tenant=query.tenant)

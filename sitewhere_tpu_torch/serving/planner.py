@@ -9,9 +9,12 @@ keys on (serving/wincache.py), and (c) a routing decision:
 
   * **small scans**, and every scan when no `mesh_provider` is given,
     take the route "host": the engine's own single-device ops;
-  * **large scans** with a `mesh_provider` take the route "mesh", the
-    sharded path. That path is not ported to this package yet, so the
-    engine raises for it instead of answering on one device.
+  * **large scans** with a `mesh_provider` take the route "mesh":
+    window-sharded replay (parallel/distributed.py) over the provider's
+    mesh, the replay rows split over the shard axis and the partial grids
+    combined on the mesh's device (`WindowQuery.combine` = "psum" |
+    "ring", chosen per query). A provider that answers None, or raises,
+    leaves the scan on "host".
 
 The routing estimate is the eventlog's per-segment skip index
 (`estimate_rows` — O(segments), no column reads), so planning cost is
@@ -43,6 +46,7 @@ class WindowQuery:
     area_id: Optional[str] = None
     max_windows: int = 4096
     with_type_histogram: bool = False
+    combine: str = "psum"
 
     def filter(self) -> EventFilter:
         return EventFilter(event_type=DeviceEventType.MEASUREMENT,
@@ -70,8 +74,10 @@ class QueryPlanner:
     """Routes normalized queries over one event log + optional mesh.
 
     `mesh_provider` is a zero-arg callable returning the live mesh (or
-    None when the process runs single-device); an error it raises reaches
-    the caller, never a quiet single-device answer. Row estimates come
+    None when the process runs single-device) — typically
+    `parallel.distributed.live_mesh` or a lambda closing over the
+    instance's pipeline mesh; a provider that raises routes the scan
+    "host", the single-device ops on the same device. Row estimates come
     from the log's segment skip index; stores without `estimate_rows`
     (wide-row datastores) degrade to host routing and no caching."""
 
@@ -100,7 +106,13 @@ class QueryPlanner:
         est = self.estimate_rows(tenant, flt)
         if est < self.mesh_row_threshold:
             return None
-        return self.mesh_provider()
+        return self._provided_mesh()
+
+    def _provided_mesh(self):
+        try:
+            return self.mesh_provider()
+        except Exception:
+            return None
 
     def plan(self, query: WindowQuery) -> QueryPlan:
         flt = query.filter()
@@ -108,7 +120,7 @@ class QueryPlanner:
         mesh = None
         if self.mesh_provider is not None and \
                 est >= self.mesh_row_threshold:
-            mesh = self.mesh_provider()
+            mesh = self._provided_mesh()
         cacheable = query.cacheable and \
             hasattr(self.event_log, "tenant_if_exists")
         return QueryPlan(route="mesh" if mesh is not None else "host",

@@ -342,21 +342,31 @@ def test_bus_replay_equal_to_jax():
 
 
 def test_mesh_is_refused_not_answered_on_one_device(twin_logs):
-    """The sharded path is not ported: an explicit mesh, and a mesh the
-    planner chooses, raise instead of a single-device answer."""
+    """An explicit mesh, and a mesh the planner chooses, take sharded
+    analytics on the port as on the JAX package: each report equals the
+    JAX engine's over a JAX mesh of as many shards, bit for bit (the name
+    is the refusal's this test replaced)."""
+    import sitewhere_tpu.serving as jserving
+    from sitewhere_tpu.parallel.mesh import make_mesh as jax_mesh
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
     from sitewhere_tpu_torch.serving import QueryPlanner
 
+    jax_engine = jengine.WindowedAnalyticsEngine(twin_logs["jax"])
     engine = tengine.WindowedAnalyticsEngine(twin_logs["port"],
                                              device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded path"):
-        engine.measurement_windows("t", mesh="MESH")
-    engine.planner = QueryPlanner(twin_logs["port"],
-                                  mesh_provider=lambda: "MESH",
-                                  mesh_row_threshold=1)
-    with pytest.raises(NotImplementedError, match="sharded path"):
-        engine.measurement_windows("t")
-    engine.planner = QueryPlanner(twin_logs["port"])   # no mesh: host
-    assert engine.measurement_windows("t").num_keys > 0
+    assert_reports_equal(
+        engine.measurement_windows("t", mesh=make_mesh(4, device="cpu"),
+                                   combine="ring"),
+        jax_engine.measurement_windows("t", mesh=jax_mesh(4),
+                                       combine="ring"))
+    jax_engine.planner = jserving.QueryPlanner(
+        twin_logs["jax"], mesh_provider=lambda: jax_mesh(8),
+        mesh_row_threshold=1)
+    engine.planner = QueryPlanner(
+        twin_logs["port"], mesh_provider=lambda: make_mesh(8, device="cpu"),
+        mesh_row_threshold=1)
+    assert_reports_equal(engine.measurement_windows("t"),
+                         jax_engine.measurement_windows("t"))
 
 
 @pytest.mark.parametrize("entry", ["windowed_stats", "event_type_histogram",

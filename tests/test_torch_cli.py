@@ -9,10 +9,11 @@ DIVERGES (the port's behaviour, asserted instead):
     missing; the native library has no pure-Python fallback mode.
 
 The networked serve modes (`--feeders --bus-port`, `--feeder`,
-`--cluster-peers`, `--supervise`) and the sharded pipeline (`--shards N`,
-tests/test_torch_sharded_instance.py) boot on `--device cpu`; only the
-multi-host SPMD cluster (ROADMAP A6d) and the feeder landing on a sharded
-pipeline (A6e) are refused, naming their item.
+`--cluster-peers`, `--supervise`), the sharded pipeline (`--shards N`,
+tests/test_torch_sharded_instance.py) and the feeder landing on it
+(`--shards N --feeders`) boot on `--device cpu`; only the multi-host SPMD
+cluster (ROADMAP A6d) is refused, naming its item, with or without the
+sharded landing beside it.
 """
 
 import re
@@ -75,11 +76,12 @@ def test_check_passes_without_native_runtime():
 
 
 @pytest.mark.parametrize("args,item", [
-    # ids as when six modes were refused: the other four boot (below),
-    # and `--shards 2` alone boots too (test_torch_sharded_instance.py)
+    # ids as when six modes were refused: the other five boot (below;
+    # `--shards 2` in test_torch_sharded_instance.py)
     pytest.param(("--cluster-coordinator", "127.0.0.1:1234"), "A6d",
                  id="args3-A6"),
-    pytest.param(("--shards", "2", "--feeders", "--bus-port", "0"), "A6e",
+    pytest.param(("--cluster-coordinator", "127.0.0.1:1234", "--shards",
+                  "2", "--feeders", "--bus-port", "0"), "A6d",
                  id="args4-A6"),
 ])
 def test_left_out_serve_modes_exit_naming_their_roadmap_item(args, item):
@@ -122,7 +124,7 @@ def _serve_until(args, pattern, tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["feeders", "feeder", "cluster-peers",
-                                  "supervise"])
+                                  "supervise", "shards-feeders"])
 def test_networked_serve_modes_boot_on_the_cpu(mode, tmp_path):
     if mode == "feeder":
         # a worker needs the landing host's edge: the reference's message
@@ -131,8 +133,9 @@ def test_networked_serve_modes_boot_on_the_cpu(mode, tmp_path):
         assert "serve --feeder requires --feeder-connect host:port" \
             in out.stderr
         return
-    if mode == "feeders":
-        m, rc = _serve_until(("--feeders", "--bus-port", "0"),
+    if mode in ("feeders", "shards-feeders"):
+        shards = ("--shards", "2") if mode == "shards-feeders" else ()
+        m, rc = _serve_until(("--feeders", "--bus-port", "0", *shards),
                              r"feeder fleet : topic (\S+)", tmp_path)
         assert m.group(1).endswith("feeder-frames"), m.group(0)
     elif mode == "cluster-peers":

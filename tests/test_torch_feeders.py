@@ -1,16 +1,11 @@
-"""The feeder fleet's single-engine landing on the port: the reference's
+"""The feeder fleet's landing on the port: the reference's
 tests/test_feeders.py scenarios run on `sitewhere_tpu_torch.feeders` (the
-engines on the CPU), and the packages held against each other: a JAX
-worker landing on a port service, a port worker landing on a JAX service
-and a port worker on a port service, each against an inline jitted JAX
-engine fed the same frames. Tolerance: none (f32 compared as bit
-patterns).
-
-DIVERGES (the port's behaviour, asserted instead):
-  TestEndToEndSharded: a sharded engine lands with the feeders' sharded
-    landing (ROADMAP A6e); the port's service refuses the port's own
-    sharded engine, and its worker refuses a hello from one (the
-    route-layout pack), both naming A6e.
+engines on the CPU), the sharded landing (TestEndToEndSharded) included,
+and the packages held against each other: a JAX worker landing on a port
+service, a port worker landing on a JAX service and a port worker on a
+port service, each against an inline jitted JAX engine fed the same
+frames, for one engine and for a sharded one. Tolerance: none (f32
+compared as bit patterns).
 """
 
 import dataclasses
@@ -19,17 +14,9 @@ import time
 import numpy as np
 import pytest
 
-from test_torch_scenarios import load_reference
-
-DIVERGES = {"TestEndToEndSharded"}
+from test_torch_scenarios import cpu_meshes, load_reference
 
 REFERENCE_TESTS = load_reference(globals(), "test_feeders", replacements=[
-    # the port's interner is sequential (one shard class) and its engine
-    # runs where it is told
-    ('''                              max_zone_vertices=4,
-                              shard_classes=shard_classes)''',
-     '''                              max_zone_vertices=4)
-'''),
     ("    engine = PipelineEngine(tensors, batch_size=batch_size)",
      '    engine = PipelineEngine(tensors, batch_size=batch_size, '
      'device="cpu")'),
@@ -45,57 +32,75 @@ REFERENCE_TESTS = load_reference(globals(), "test_feeders", replacements=[
     for b1, b2 in zip(a, b):
         for l1, l2 in ((getattr(b1, f.name), getattr(b2, f.name))
                        for f in fields(b1)):'''),
-], diverges=DIVERGES)
+])
+
+
+@pytest.fixture(autouse=True)
+def _cpu_meshes(monkeypatch):
+    cpu_meshes(monkeypatch)
 
 
 def test_every_reference_scenario_runs():
     assert len(REFERENCE_TESTS) == 17
 
 
-class TestEndToEndSharded:
-    def test_sharded_engine_is_refused_naming_a6(self, tmp_path):
-        """The port's own sharded engine, a PipelineEngine subclass, is
-        refused by name: its blobs must not land down the single-engine
-        path."""
-        from sitewhere_tpu_torch.parallel import (
-            ShardedPipelineEngine, make_mesh)
-        from sitewhere_tpu_torch.registry.tensors import RegistryTensors
+class TestEndToEndSharded(TestEndToEndSharded):  # noqa: F811
+    """The reference's sharded landing scenarios (inherited, run as
+    written) and the packages held against each other on it. The two
+    methods below keep the names of the refusals they replaced."""
 
-        engine = ShardedPipelineEngine(
-            RegistryTensors(max_devices=64, max_zones=4, max_zone_vertices=4,
-                            shard_classes=4),
-            mesh=make_mesh(4, device="cpu"), per_shard_batch=16,
-            name="torch-feeder-sharded")
-        lb_bus = EventBus(partitions=1)
-        server = BusServer(lb_bus)
-        try:
-            with pytest.raises(NotImplementedError, match="ROADMAP A6e"):
-                FeederService(engine, server, "frames")
-            # nothing was mounted on the edge
-            assert "feeder_hello" not in server._server.op_handlers
-        finally:
-            server._server.server_close()
-            lb_bus.close()
+    def test_sharded_engine_is_refused_naming_a6(self, tmp_path):
+        """The port's service takes its sharded engine, and its hello
+        describes the sharded landing as the JAX service's does over a JAX
+        sharded engine of the same world (the name is the refusal's
+        this test replaced)."""
+        import test_feeders as jtf
+
+        hellos = []
+        for world, loopback in ((jtf._world_sharded, jtf._Loopback),
+                                (_world_sharded, _Loopback)):
+            lb = loopback(world(), tmp_path / f"h{len(hellos)}")
+            try:
+                hellos.append(lb.service._op_hello({}))
+            finally:
+                lb.close()
+        want, got = hellos
+        assert got["engine"] == "sharded" and got["n_shards"] == 4
+        assert {k: v for k, v in got.items() if k != "topic"} == \
+            {k: v for k, v in want.items() if k != "topic"}
 
     def test_sharded_hello_is_refused_naming_a6(self, tmp_path):
-        """What a JAX sharded landing host says in its hello: its engine
-        kind and its shard-congruent device interning."""
-        engine = _world_single()
-        lb = _Loopback(engine, tmp_path)
-        hello = FeederService._op_hello(lb.service, {})
-        try:
-            for sharded in ({"engine": "sharded", "dev_shard_classes": 4,
-                             "n_shards": 4, "per_shard_batch": 16},
-                            {"dev_shard_classes": 4}):
-                lb.server.register_op(
-                    "feeder_hello", lambda req, s=sharded: {**hello, **s})
-                w = lb.worker()
-                with pytest.raises(NotImplementedError,
-                                   match="ROADMAP A6e"):
-                    w.connect()
-                w.client.close()
-        finally:
-            lb.close()
+        """A port worker lands on a JAX sharded service and a JAX worker
+        on the port's: both landing engines' canonical state equals an
+        inline JAX sharded engine fed the same frames, bit for bit (the
+        name is the refusal's this test replaced)."""
+        import test_feeders as jtf
+
+        frames = jtf._stream(128, seed=9)
+        inline = jtf._world_sharded()
+        for batch in jfast.FastWireIngest(inline.packer).ingest(
+                jtf._wire(frames)).batches:
+            inline.submit(batch)
+        inline.drain_pending()
+        want = _state(inline, "jax")
+        for worker_mod, world, loopback, side in (
+                (tfeeders, jtf._world_sharded, jtf._Loopback, "jax"),
+                (jfeeders, _world_sharded, _Loopback, "port")):
+            remote = world()
+            lb = loopback(remote, tmp_path / side)
+            try:
+                lb.publish(frames)
+                w = worker_mod.FeederWorker("127.0.0.1", lb.server.port,
+                                            "w0", epoch=1)
+                assert _drain(w) == 128
+                w.stop()
+                remote.drain_pending()
+            finally:
+                lb.close()
+            got = _state(remote, side)
+            assert sorted(got) == sorted(want)
+            for name in want:
+                assert_bits_equal(want[name], got[name], f"{side} {name}")
 
 
 # -- the packages held against each other -------------------------------------

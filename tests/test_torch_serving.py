@@ -64,14 +64,6 @@ class _CPUCache(tserving.WindowGridCache):
         return super().query(tlog, device=device, **kw)
 
 
-# where the port departs from the reference on purpose: the scenario's body
-# runs as it is and must raise this instead. A mesh provider that fails
-# reaches the caller; the port never answers a would-be mesh query on one
-# device in its place.
-DIVERGES = {("TestPlanner", "test_mesh_provider_failure_degrades_to_host"):
-            (RuntimeError, "no devices")}
-
-
 def test_every_reference_scenario_is_covered():
     assert len(SERVING_SCENARIOS) == 18
 
@@ -90,12 +82,7 @@ def test_serving_scenario_on_the_port(cls, name, monkeypatch):
     monkeypatch.setattr(jevent, "DeviceEventType", tevent.DeviceEventType)
     fn = getattr(getattr(ref_serving, cls)(), name)
     assert not inspect.signature(fn).parameters
-    if (cls, name) in DIVERGES:
-        error, match = DIVERGES[cls, name]
-        with pytest.raises(error, match=match):
-            fn()
-    else:
-        fn()
+    fn()
 
 
 # -- both stacks over the same appends -------------------------------------------
@@ -182,54 +169,104 @@ def test_served_results_equal_the_jax_stack():
         both(lambda s: s.executor.stop())
 
 
+def _mesh_stacks():
+    """Both packages' log, engine and executor over the same rows (values
+    spanning decades), each planner's provider answering an 8-shard mesh
+    of its own package for every scan."""
+    from sitewhere_tpu.parallel.mesh import make_mesh as jax_mesh
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+
+    rows = [(f"dev-{i % 13}", 7 * i, 1.37 ** (i % 29) - 11.0)
+            for i in range(600)]
+    out = {}
+    for pkg, ev, elog, srv, engine, mesh in (
+            ("jax", jevent, jeventlog, jserving,
+             jengine.WindowedAnalyticsEngine, lambda: jax_mesh(8)),
+            ("port", tevent, teventlog, tserving, _CPUEngine,
+             lambda: make_mesh(8, device="cpu"))):
+        log = elog.ColumnarEventLog()
+        log.append_events("t1", [ev.DeviceMeasurement(
+            name="temp", value=v, device_id=tok, event_date=T0 + dt)
+            for tok, dt, v in rows], ref_serving._Interner())
+        log.flush_tenant("t1")
+        planner = srv.QueryPlanner(log, mesh_provider=mesh,
+                                   mesh_row_threshold=1)
+        out[pkg] = srv.QueryExecutor(engine(log), planner, workers=1)
+    return out
+
+
+QUERY_CLASSES = {"jax": jserving.WindowQuery, "port": tplanner.WindowQuery}
+
+
 def test_mesh_route_raises_through_the_executor():
-    """A planner with a mesh provider routes a large scan to "mesh"; the
-    port's engine refuses it and the error reaches the caller."""
-    log = teventlog.ColumnarEventLog()
-    ref_serving._append(log, "t1", ref_serving._Interner(),
-                        [("dev-1", 10, 1.0), ("dev-2", 20, 2.0)])
-    ex = tserving.QueryExecutor(
-        _CPUEngine(log), tserving.QueryPlanner(
-            log, mesh_provider=lambda: "MESH", mesh_row_threshold=1),
-        workers=1)
+    """A planner with a mesh provider routes a large scan to "mesh" and the
+    executor counts it; the report equals the JAX executor's over a JAX
+    mesh, bit for bit, under both combines (the name is the refusal's this
+    test replaced)."""
+    stacks = _mesh_stacks()
+    routed = {pkg: ex.report()["mesh_routed_total"]
+              for pkg, ex in stacks.items()}
     try:
-        with pytest.raises(NotImplementedError, match="sharded path"):
-            ex.query(tplanner.WindowQuery(tenant="t1"), timeout=10.0)
-        # without a provider the same query is served on the engine
-        ex.planner = tserving.QueryPlanner(log)
-        out = ex.query(tplanner.WindowQuery(tenant="t1"), timeout=10.0)
-        assert out["plan"].route == "host"
-        assert out["report"].totals()["events"] == 2
+        for combine in ("psum", "ring"):
+            out = {pkg: ex.query(QUERY_CLASSES[pkg](
+                tenant="t1", window_ms=500, combine=combine), timeout=30.0)
+                for pkg, ex in stacks.items()}
+            for pkg in out:
+                assert out[pkg]["plan"].route == "mesh", pkg
+            assert_reports_equal(out["port"]["report"],
+                                 out["jax"]["report"])
+        for pkg, ex in stacks.items():
+            assert ex.report()["mesh_routed_total"] == routed[pkg] + 2
+    finally:
+        for ex in stacks.values():
+            ex.stop()
+
+
+def test_a_planner_mesh_on_another_device_fails_the_query():
+    """A provider that answers a mesh on another device than the engine's:
+    the query raises ValueError naming both devices, and nothing moves the
+    engine's grids there (a sharded instance answers its own engine's
+    mesh; `live_mesh` answers None)."""
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+
+    ex = _mesh_stacks()["port"]
+    try:
+        ex.planner.mesh_provider = lambda: make_mesh(8, device="meta")
+        query = tplanner.WindowQuery(tenant="t1", window_ms=500)
+        assert ex.planner.plan(query).route == "mesh"
+        with pytest.raises(ValueError, match="mesh on meta, engine on cpu"):
+            ex.query(query, timeout=30.0)
     finally:
         ex.stop()
 
 
 def test_a_failing_mesh_provider_reaches_the_caller():
-    """The planner does not swallow a mesh provider's error: plan,
-    choose_mesh, the engine's planner-decided mesh and the executor all
-    raise it, for a scan large enough to go to the mesh."""
-    log = teventlog.ColumnarEventLog()
-    ref_serving._append(log, "t1", ref_serving._Interner(),
-                        [("dev-1", 10, 1.0), ("dev-2", 20, 2.0)])
+    """A mesh provider that raises routes the scan "host" on both packages
+    (plan, choose_mesh, the engine's planner-decided mesh and the
+    executor), and the host answers equal, bit for bit (the name is the
+    divergence's this test replaced)."""
+    stacks = _mesh_stacks()
 
     def boom():
         raise RuntimeError("mesh provider down")
 
-    planner = tserving.QueryPlanner(log, mesh_provider=boom,
-                                    mesh_row_threshold=1)
-    query = tplanner.WindowQuery(tenant="t1")
-    with pytest.raises(RuntimeError, match="mesh provider down"):
-        planner.plan(query)
-    with pytest.raises(RuntimeError, match="mesh provider down"):
-        planner.choose_mesh("t1", query.filter())
-    with pytest.raises(RuntimeError, match="mesh provider down"):
-        _CPUEngine(log, planner=planner).measurement_windows("t1")
-    ex = tserving.QueryExecutor(_CPUEngine(log), planner, workers=1)
     try:
-        with pytest.raises(RuntimeError, match="mesh provider down"):
-            ex.query(query, timeout=10.0)
-        # below the threshold the provider is not asked
-        planner.mesh_row_threshold = 10**9
-        assert ex.query(query, timeout=10.0)["plan"].route == "host"
+        reports = {}
+        for pkg, ex in stacks.items():
+            routed = ex.report()["mesh_routed_total"]
+            ex.planner.mesh_provider = boom
+            query = QUERY_CLASSES[pkg](tenant="t1", window_ms=500)
+            assert ex.planner.plan(query).route == "host"
+            assert ex.planner.choose_mesh("t1", query.filter()) is None
+            ex.engine.planner = ex.planner
+            direct = ex.engine.measurement_windows("t1", window_ms=500)
+            out = ex.query(query, timeout=30.0)
+            assert out["plan"].route == "host"
+            assert ex.report()["mesh_routed_total"] == routed
+            reports[pkg] = (direct, out["report"])
+        for direct, served in reports.values():
+            assert_reports_equal(direct, served)
+        assert_reports_equal(reports["port"][1], reports["jax"][1])
     finally:
-        ex.stop()
+        for ex in stacks.values():
+            ex.stop()

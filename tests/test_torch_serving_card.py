@@ -1,5 +1,5 @@
 """The read side on the card: the window ops, the replay engine's report,
-the cache's delta fold and the mesh refusal, on each device, the card's
+the cache's delta fold and the mesh route, on each device, the card's
 results held against the CPU's.
 
 Every case runs on the CPU and, marked `cuda`, on the card (skipped
@@ -192,16 +192,42 @@ def test_cache_delta_fold_on_each_device(device):
 
 @pytest.mark.parametrize("device", DEVICES)
 def test_mesh_route_raises_on_each_device(device):
+    """The mesh route on each device (the name is the refusal's this test
+    replaced): an explicit 8-shard mesh and the planner's mesh through the
+    executor give the same bits, under each combine; counts, min and max
+    equal the host route's, sums and means within the reference's
+    rtol=1e-5, atol=1e-5; on the card, every bit equal to the CPU's."""
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+
     dev = _device(device)
     log, interner = ColumnarEventLog(), _Interner()
-    _append(log, interner, np.random.default_rng(1), 50)
+    _append(log, interner, np.random.default_rng(1), 500)
     engine = WindowedAnalyticsEngine(log, device=dev)
-    with pytest.raises(NotImplementedError, match="sharded path"):
-        engine.measurement_windows("t1", mesh="MESH")
+    cpu_engine = WindowedAnalyticsEngine(log, device="cpu")
+    host = engine.measurement_windows("t1")
+    mesh = make_mesh(8, device=dev)
     ex = QueryExecutor(engine, QueryPlanner(
-        log, mesh_provider=lambda: "MESH", mesh_row_threshold=1), workers=1)
+        log, mesh_provider=lambda: mesh, mesh_row_threshold=1), workers=1)
     try:
-        with pytest.raises(NotImplementedError, match="sharded path"):
-            ex.query(WindowQuery(tenant="t1"), timeout=30.0)
+        for combine in ("psum", "ring"):
+            got = engine.measurement_windows("t1", mesh=mesh,
+                                             combine=combine)
+            served = ex.query(WindowQuery(tenant="t1", combine=combine),
+                              timeout=30.0)
+            assert served["span"]["route"] == "mesh"
+            bad = stats_mismatches(got.stats, served["report"].stats)
+            assert not any(bad.values()), (combine, bad)
+            a, b = got.stats.to("cpu"), host.stats.to("cpu")
+            for f in ("count", "min", "max"):
+                assert torch.equal(getattr(a, f).view(torch.int32),
+                                   getattr(b, f).view(torch.int32)), f
+            for f in ("sum", "mean"):
+                np.testing.assert_allclose(
+                    getattr(a, f).numpy(), getattr(b, f).numpy(),
+                    rtol=1e-5, atol=1e-5, equal_nan=True)
+            want = cpu_engine.measurement_windows(
+                "t1", mesh=make_mesh(8, device="cpu"), combine=combine)
+            bad = stats_mismatches(got.stats, want.stats)
+            assert not any(bad.values()), (combine, bad)
     finally:
         ex.stop()
