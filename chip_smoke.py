@@ -113,10 +113,11 @@ Phases (any failure prints its error and exits non-zero, with no result):
      rtol=1e-5, atol=1e-5; bit-equal to the same call with the segment
      sum's plain version and to the CPU on the first MESH_CPU_WINDOWS
      windows; an open-range query through an executor whose planner's
-     provider answers the mesh routes "mesh" and is counted; then 1 and
-     16 clients send it at once through READ_WORKERS workers, with the
-     one-replay-a-card gate and, once, without it (latency, queries/s,
-     peak device memory); the segment-sum kernel's launches counted from
+     provider answers the mesh routes "mesh" and is counted; then
+     MESH_LOAD's 1 and 16 clients send it at once through READ_WORKERS
+     workers, with the one-replay-a-card gate (latency, queries/s, peak
+     device memory; the ungated run is cut); the segment-sum kernel's
+     launches counted from
      0; the query's wall and split, the fold and each combine by CUDA
      events beside their byte bounds, and the peak device memory.
      `python3 chip_smoke.py --read-only` runs phase 3 and phase 9 (no
@@ -206,6 +207,48 @@ Phases (any failure prints its error and exits non-zero, with no result):
      events/s and the handoff a blob under phase 11's names.
      `python3 chip_smoke.py --sharded-only` runs phase 12 alone (no
      result line).
+ 13. the multi-host data plane (parallel/cluster.py, the engine on a
+     multi-process mesh): two child processes (`--cluster-child`, every
+     kernel built by the parent first, each child killed at its deadline)
+     join a gloo world over a TCP store on 127.0.0.1, both on the one
+     card, SHARDS shards of phase 12's world, SHARDS / 2 a process.
+     (a) Each feeds its ClusterStepLoop CLUSTER_EVENTS events a tick
+     (CLUSTER_WARMUP + CLUSTER_TICKS + CLUSTER_PROFILED ticks) of the
+     devices whose rows enter through it ((d // S) % 2: for half of them
+     not the owner); the other host's rows come back through
+     take_foreign, go over the bus edge and fold on their owner; then the
+     drain and the stop vote. Each host's local blocks are bit-equal to a
+     single-process SHARDS-shard engine (host route, full layout) fed
+     every tick's whole batch, the alerts of both set-equal to its,
+     `processed` the same global total on both and equal to the rows fed,
+     every forwarded row folded once, B1 S/2 launches a tick a host (counted
+     from the loop's start to its stop), one capture a host. The tick
+     walls, the all_reduce and vote seconds and `processed` come from the
+     loop's, the control's and the engine's own counters. Printed: tick wall
+     p50/p99, events/s over both, the all_reduce and the vote a tick, rows
+     forwarded and the lag from the forwarding tick to the folding one,
+     host 0's device busy and idle over the profiled ticks (a fed tick's
+     and a tick's worth of rows' busy beside the per-tick figure). (d)
+     Both call
+     sharded_windowed_stats on CLUSTER_QUERY_ROWS rows (K, W =
+     CLUSTER_QUERY_K, CLUSTER_QUERY_W) under psum and ring: identical
+     grids on both, equal to the single-process call on the card and to it
+     with the segment sum's plain version; the fold, the all-gather and
+     the combine beside their byte bounds. (c) Each saves its host-shards
+     checkpoint, then folds records past it from its bus; host 1 is
+     killed and host 0's watchdog must exit 13 within CLUSTER_FAIL_AFTER_S
+     of the kill (plus its CLUSTER_WATCHDOG_CHECK_S check and the last
+     heartbeat's delivery): it fires that long after the last heartbeat it
+     received; both boot again, restore
+     (blocks bit-equal to the save) and replay (blocks bit-equal to
+     before the kill); write_assembled of the two checkpoints restores
+     onto a single-process engine bit-equal to (a)'s reference. (b) Two
+     `serve --cluster-coordinator` processes on the card, the same world
+     provisioned on each over REST, SERVE_CLUSTER_RECORDS records
+     published to each host's edge for its peer's devices: each folds on
+     its owner, its threshold alert persists there and reads back over the
+     owner's REST API; both exit 0 on SIGTERM. `python3 chip_smoke.py
+     --cluster-only` runs phase 13 alone (no result line).
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -215,6 +258,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import pickle
 import statistics
 import subprocess
 import sys
@@ -291,8 +335,11 @@ HOUR_MS = 3_600_000
 MESH_TOL = 1e-5
 MESH_CPU_WINDOWS = 2
 # (g)'s load: (clients, whether the one-replay-a-card gate is on), each
-# client at least one open-range query through READ_WORKERS workers
-MESH_LOAD = ((1, True), (16, True), (16, False))
+# client at least one open-range query through READ_WORKERS workers. The
+# ungated 16-client run is cut, so that the script with phase 13 stays
+# inside its time (its finding, the gate cut the peak 3.2-4.1x, is in
+# PERF.md §6)
+MESH_LOAD = ((1, True), (16, True))
 H100_F32_FLOPS = 67e12        # NVIDIA H100 SXM data sheet, non-tensor f32
 # the latency of one dependent f32 add on the H100's SMs, in SM clock cycles
 # (the floor of a bit-equal row-order fold: one add after the other)
@@ -785,12 +832,13 @@ def phase_kernel_vs_plain(dev, card):
 def build_world(dev, geofence_impl, epoch_base_ms=None, *,
                 max_devices=MAX_DEVICES, n_registered=N_REGISTERED,
                 n_zones=N_ZONES, n_verts=N_VERTS, batch=BATCH, shards=0,
-                **engine_kw):
+                mesh=None, **engine_kw):
     """Phase 3's world (the sizes are keywords so the card tests can build
     it small): registry, zones, threshold and geofence rules, a started
     engine on `dev`. With `shards`, the engine is a ShardedPipelineEngine
     of that many shards on `dev`, `batch` events a flat batch
-    (per-shard batch `batch // shards`)."""
+    (per-shard batch `batch // shards`), over `mesh` when one is given
+    (a multi-process mesh: this process's block of its shards)."""
     from sitewhere_tpu_torch.model import AlertLevel
     from sitewhere_tpu_torch.pipeline import (
         GeofenceRule, PipelineEngine, ThresholdRule)
@@ -816,7 +864,8 @@ def build_world(dev, geofence_impl, epoch_base_ms=None, *,
         from sitewhere_tpu_torch.parallel import (
             ShardedPipelineEngine, make_mesh)
         engine = ShardedPipelineEngine(
-            reg, mesh=make_mesh(shards, device=dev),
+            reg, mesh=mesh if mesh is not None
+            else make_mesh(shards, device=dev),
             per_shard_batch=batch // shards, **kw)
     else:
         engine = PipelineEngine(reg, batch_size=batch, device=dev, **kw)
@@ -3406,7 +3455,7 @@ def mesh_load(dev, ex, query, want_total):
     """(g)'s load: MESH_LOAD clients sending the open-range `query` (never
     cached, so every one takes the mesh route) through the executor's
     READ_WORKERS workers, the log fixed; every result holds `want_total`
-    measurements. The last run lifts the one-replay-a-card gate
+    measurements. A run marked ungated lifts the one-replay-a-card gate
     (parallel/distributed.py `_replay_gate`) to show what it holds back.
     Each run: latency percentiles, queries/s, and the peak device memory
     above what was resident."""
@@ -3628,12 +3677,15 @@ def phase_read_side(dev, card, main_ref):
 # -- phase 10: the instance behind `serve` -----------------------------------------
 
 INSTANCE_REST_DEVICES = 64
-# 40 payloads of 4,096 events: 163,840 events, 20 batches of the default
+# 24 payloads of 4,096 events: 98,304 events, 12 batches of the default
 # configuration, sent back to back to the running instance as a gateway
-# sends them
-INSTANCE_PAYLOADS = 40
+# sends them. Cut from 40 payloads, 4 of them beside the pollers, so that
+# the script with phase 13 stays inside its time on a slower host (the
+# ingest and the CPU twin's replay scale with the payloads, and 4 beside
+# the pollers took 81-218 s)
+INSTANCE_PAYLOADS = 24
 INSTANCE_PAYLOAD_EVENTS = 4096        # events a wire payload
-INSTANCE_POLLED = 4                   # payloads sent beside the REST pollers
+INSTANCE_POLLED = 2                   # payloads sent beside the REST pollers
 INSTANCE_CLIENTS = 8                  # REST pollers beside the ingest
 # each poller's pause between requests, a dashboard's refresh: pollers in
 # a tight loop hold the interpreter lock so much that the inbound consumer
@@ -4865,19 +4917,33 @@ def _gpu_processes():
 
 
 class _HostLog:
-    """A supervised serve process's output, read on a thread."""
+    """A child process (`python -u ARGS` from the repo's root) whose output
+    a thread collects: `wait_for` blocks for a marker line, `result` parses
+    its RESULT line, `finish` waits for a clean exit."""
 
-    def __init__(self, proc):
-        self.proc, self.lines = proc, []
-        self.thread = threading.Thread(target=self._read, daemon=True)
-        self.thread.start()
+    def __init__(self, args, what, env=None):
+        self.what = what
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", *args], cwd=REPO_ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self._cond = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
 
     def _read(self):
         for line in self.proc.stdout:
-            self.lines.append(line)
+            with self._cond:
+                self.lines.append(line)
+                self._cond.notify_all()
+        with self._cond:
+            self._cond.notify_all()
 
     def text(self):
         return "".join(self.lines)
+
+    def tail(self, n=60):
+        return "".join(self.lines[-n:])
 
     def count(self, what):
         return self.text().count(what)
@@ -4886,6 +4952,43 @@ class _HostLog:
         import re
 
         return [int(m) for m in re.findall(r"child pid=(\d+)", self.text())]
+
+    def wait_for(self, marker, deadline):
+        with self._cond:
+            while True:
+                for line in self.lines:
+                    if line.startswith(marker):
+                        return line
+                if (self.proc.poll() is not None
+                        and not self._reader.is_alive()):
+                    raise AssertionError(f"{self.what} exited "
+                                         f"{self.proc.returncode} before "
+                                         f"{marker}:\n{self.tail()}")
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise AssertionError(f"{self.what}: no {marker} by its "
+                                         f"deadline:\n{self.tail()}")
+                self._cond.wait(timeout=min(left, 1.0))
+
+    def result(self, deadline):
+        return json.loads(self.wait_for("RESULT ", deadline)[len("RESULT "):])
+
+    def finish(self, deadline):
+        """Wait for a clean exit; a child that fails or outlives its
+        deadline fails the phase."""
+        try:
+            rc = self.proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{self.what} outlived its deadline:\n"
+                                 f"{self.tail()}")
+        self._reader.join(timeout=10)
+        if rc != 0:
+            raise AssertionError(f"{self.what} exited {rc}:\n{self.tail()}")
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
 
 
 def _until(predicate, what, logs, timeout_s=CLUSTER_WAIT_S):
@@ -4982,17 +5085,15 @@ def control_plane_drill(dev, card, tmp):
     t0 = time.perf_counter()
     try:
         for i in range(n):
-            sups.append(subprocess.Popen(
-                [sys.executable, "-u", "-m", "sitewhere_tpu_torch", "serve",
+            logs.append(_HostLog(
+                ["-m", "sitewhere_tpu_torch", "serve",
                  "--supervise", "--supervise-backoff", "1", "--config", cfg,
                  "--cluster-num-processes", str(n),
                  "--cluster-process-id", str(i), "--cluster-peers", peers,
                  "--bus-port", str(bus_ports[i]),
                  "--port", str(rest_ports[i]),
-                 "--data-dir", f"{tmp}/host-{i}"], cwd=REPO_ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                env=env))
-            logs.append(_HostLog(sups[-1]))
+                 "--data-dir", f"{tmp}/host-{i}"], f"host {i}", env=env))
+            sups.append(logs[-1].proc)
         boots = [None] * n
 
         def serving():
@@ -5151,7 +5252,9 @@ SHARDS = 8
 # ~115 rows around B), so phase 3's 131,072 rows would spill to the host
 # route every step; at 15/16 of it every shard and every lane fits
 SHARD_EVENTS = BATCH * 15 // 16
-SHARD_WARMUP, SHARD_STEPS = 3, 10
+# cut from 10 timed steps, so that the script with phase 13 stays inside
+# its time
+SHARD_WARMUP, SHARD_STEPS = 3, 6
 SHARD_LAYOUTS = ("compact", "full", "packed")
 SHARD_STATEFUL_STEPS = 2
 # alert lanes that hold every fire of a step (the default 128 would keep a
@@ -6022,6 +6125,768 @@ def phase_sharded(dev, card):
     return summary
 
 
+# -- phase 13: the multi-host data plane --------------------------------------
+
+# two processes on the one card, each holding SHARDS / 2 shards of phase
+# 12's world; each feeds 15/16 of its half of S x B a tick, so that a tick's
+# own rows and the peer's forwarded ones fit a shard's rows together
+CLUSTER_PROCS = 2
+CLUSTER_EVENTS = SHARD_EVENTS // CLUSTER_PROCS
+CLUSTER_WARMUP, CLUSTER_TICKS, CLUSTER_PROFILED = 3, 10, 2
+# a tick's traffic is dated CLUSTER_TICK_MS after the last's (no two ticks
+# share a timestamp, whichever step a forwarded row folds in)
+CLUSTER_TICK_MS = 1100
+CLUSTER_CHILD_S = 300          # a child's deadline
+CLUSTER_HEARTBEAT_S, CLUSTER_STALE_S = 0.5, 3.0
+CLUSTER_FAIL_AFTER_S = 10.0    # (c): the watchdog's gang-exit bound
+CLUSTER_WATCHDOG_CHECK_S = 0.1  # how often the watchdog looks
+CLUSTER_REPLAY_BATCHES, CLUSTER_REPLAY_ROWS = 2, 4096
+# (d): the multi-process mesh query's rows, keys and windows
+CLUSTER_QUERY_ROWS, CLUSTER_QUERY_K, CLUSTER_QUERY_W = 4_194_304, 131_072, 16
+CLUSTER_QUERY_WINDOW_MS = 60_000
+CLUSTER_QUERY_REPS = 3
+# the file whose creation lets the restore pair leave its wait
+CLUSTER_GO = "go-restore"
+# (b): decoded records each host gets for its peer's devices
+SERVE_CLUSTER_RECORDS = 64
+SERVE_CLUSTER_DEVICES = 160
+
+
+def cluster_traffic(packer):
+    """Every tick's flat batch of phase 3's traffic (SHARD_EVENTS events,
+    tick t dated t * CLUSTER_TICK_MS after the first): what the single
+    reference engine takes a tick, and what the hosts share out."""
+    return [synthetic_batch(packer, N_REGISTERED, SHARD_EVENTS,
+                            SEED + 1300 + t, t_off_ms=t * CLUSTER_TICK_MS)
+            for t in range(CLUSTER_WARMUP + CLUSTER_TICKS
+                           + CLUSTER_PROFILED)]
+
+
+def entering_host(device_idx, n_shards):
+    """The host a device's rows enter through: (d // S) % 2, so that for
+    half the devices it is not the owner ((d % S) // (S / 2))."""
+    return (np.asarray(device_idx) // n_shards) % CLUSTER_PROCS
+
+
+def host_share(batch, pid, n_shards):
+    """The rows of `batch` that enter through host `pid`, in order."""
+    from sitewhere_tpu_torch.parallel.engine import ShardedPipelineEngine
+
+    valid = np.asarray(batch.valid)
+    rows = np.nonzero(valid & (entering_host(batch.device_idx, n_shards)
+                               == pid))[0]
+    return ShardedPipelineEngine._slice_flat(batch, rows)
+
+
+def cluster_query_rows():
+    """(d)'s replay rows: keys, in-range window offsets, values spanning
+    eleven decades, 10% invalid."""
+    rng = np.random.default_rng(SEED + 1313)
+    n, K, W = CLUSTER_QUERY_ROWS, CLUSTER_QUERY_K, CLUSTER_QUERY_W
+    return (rng.integers(0, K, n).astype(np.int32),
+            rng.integers(0, W * CLUSTER_QUERY_WINDOW_MS, n).astype(np.int32),
+            (rng.standard_normal(n) * 10.0 ** rng.integers(-5, 6, n))
+            .astype(np.float32),
+            rng.random(n) > 0.1)
+
+
+def stats_digest(stats):
+    """sha256 of every grid's bytes (f32 as bit patterns)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in ("count", "sum", "mean", "min", "max"):
+        h.update(getattr(stats, f).contiguous().view(torch.int32)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _cluster_pair(role, tmp, epoch, dev):
+    coord, bus0, bus1 = _free_port(), _free_port(), _free_port()
+    return [_HostLog([__file__, "--cluster-child", role, str(pid),
+                    f"127.0.0.1:{coord}", str(bus0), str(bus1), tmp,
+                    str(epoch), str(dev)], f"cluster child {role} {pid}")
+            for pid in range(CLUSTER_PROCS)]
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def cluster_child_main(argv):
+    """One host of phase 13's data plane (`--cluster-child ROLE PID COORD
+    BUS0 BUS1 DIR EPOCH DEVICE`): ROLE `run` does (a), (d) and (c)'s save and
+    post-checkpoint records, then waits to be killed (host 1) or for its
+    watchdog (host 0); ROLE `restore` boots from the checkpoint and
+    replays. Prints RESULT {json}; writes its blocks under DIR."""
+    import os
+
+    import torch.distributed as dist
+
+    from sitewhere_tpu_torch.ops.segsum import segment_row_sum
+    from sitewhere_tpu_torch.parallel.cluster import (
+        FOREIGN_ROWS_GROUP, ClusterControl, ClusterStepLoop,
+        ForeignRowForwarder, ForeignRowsConsumer, PeerWatchdog,
+        ProcessStateReporter, TopologyAggregator, encode_rows,
+        foreign_rows_topic)
+    from sitewhere_tpu_torch.parallel.distributed import (
+        initialize, make_global_mesh, sharded_windowed_stats)
+    from sitewhere_tpu_torch.persist.checkpoint import PipelineCheckpointer
+    from sitewhere_tpu_torch.runtime.bus import EventBus, TopicNaming
+    from sitewhere_tpu_torch.runtime.busnet import BusClient, BusServer
+
+    role, pid, coord = argv[0], int(argv[1]), argv[2]
+    ports, tmp, epoch = [int(argv[3]), int(argv[4])], argv[5], int(argv[6])
+    peer = 1 - pid
+    out = {"pid": pid, "role": role}
+    dev = torch.device(argv[7])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    if role == "restore":
+        # booted while host 0 of the first pair waits out its watchdog;
+        # its bus directory is free once the parent writes the go file
+        go = time.monotonic() + CLUSTER_CHILD_S
+        while not os.path.exists(f"{tmp}/{CLUSTER_GO}"):
+            if time.monotonic() > go:
+                raise AssertionError("no go file by the deadline")
+            time.sleep(0.02)
+    t0 = time.perf_counter()
+    initialize(coord, num_processes=CLUSTER_PROCS, process_id=pid)
+    mesh = make_global_mesh(n_shards=SHARDS, device=dev)
+    engine = build_world(dev, "auto", epoch, shards=SHARDS, mesh=mesh,
+                         alert_lane_capacity=SHARD_LANES)
+    out["boot_s"] = time.perf_counter() - t0
+    assert engine.is_multiprocess and not engine.device_routing
+    lo = engine.local_shards[0]
+
+    naming = TopicNaming(instance="chip-cluster")
+    topic = foreign_rows_topic(naming)
+    bus = EventBus(partitions=1, data_dir=f"{tmp}/bus{pid}")
+    server = BusServer(bus, host="127.0.0.1", port=ports[pid])
+    server.start()
+    peers = {peer: BusClient("127.0.0.1", ports[peer])}
+    forwarder = ForeignRowForwarder(pid, peers, naming, local_bus=bus)
+    control = ClusterControl(mesh)
+    alerts, fwd_ticks, fold_ticks = [], [], []
+    loop = None
+
+    def forward(batch):
+        forwarder.forward(engine, batch)
+        fwd_ticks.append(loop.tick_count)
+
+    def on_fatal(exc):
+        print(f"[cluster {pid}] step loop died: {exc!r}", flush=True)
+        os._exit(13)
+
+    loop = ClusterStepLoop(engine, control=control, idle_interval_s=0.002,
+                           on_alerts=lambda a: alerts.extend(_alert_keys(a)),
+                           forward_foreign=forward, on_fatal=on_fatal)
+
+    def owns(token):
+        return engine.owns(engine.packer.devices.lookup(token))
+
+    consumer = ForeignRowsConsumer(
+        bus, naming, engine, loop, owner_check=owns,
+        on_folded=lambda records: fold_ticks.extend(
+            loop.tick_count for _ in records))
+    def peer_lost(stale):
+        print(f"PEER_LOSS {time.time()!r}", flush=True)
+        os._exit(13)
+
+    aggregator = TopologyAggregator(bus, naming,
+                                    stale_after_s=CLUSTER_STALE_S)
+    reporter = ProcessStateReporter(
+        pid, bus, naming, peers, build_state=lambda: {"tick": loop.tick_count},
+        interval_s=CLUSTER_HEARTBEAT_S)
+    watchdog = PeerWatchdog(aggregator, [peer],
+                            fail_after_s=CLUSTER_FAIL_AFTER_S,
+                            check_interval_s=CLUSTER_WATCHDOG_CHECK_S,
+                            on_peer_loss=peer_lost)
+    for part in (aggregator, reporter, watchdog):
+        part.start()
+
+    def folded():
+        """Wait until every record of the foreign topic has folded (its
+        consumer committed past it) and nothing is queued or parked."""
+        deadline = time.monotonic() + 120
+        group = bus.consumer(topic, FOREIGN_ROWS_GROUP)
+        while (sum(group.committed) < sum(bus.topic(topic).end_offsets())
+               or loop._q or engine.pending_overflow
+               or loop._pending_tickets):
+            if loop.fatal is not None:
+                raise AssertionError(f"loop died: {loop.fatal!r}")
+            if time.monotonic() > deadline:
+                raise AssertionError("forwarded rows never folded")
+            time.sleep(0.01)
+
+    def run_ticks(batches):
+        for batch in batches:
+            if not loop.feed(batch).wait(120):
+                raise AssertionError("a tick's rows never folded")
+
+    def blocks():
+        return engine.local_state_shards()[1]
+
+    ckpt = PipelineCheckpointer(f"{tmp}/ckpt{pid}")
+    group = bus.consumer(topic, FOREIGN_ROWS_GROUP)
+    if role == "restore":
+        t = time.perf_counter()
+        offsets = ckpt.restore(engine)
+        out["restore_s"] = time.perf_counter() - t
+        for key, saved in offsets.items():
+            name, _, gid = key.rpartition("@")
+            g = bus.consumer(name, gid)
+            g.committed = list(saved)
+            g.seek_to_committed()
+        want = np.load(f"{tmp}/a{pid}.npz")
+        got = blocks()
+        for name in want.files:
+            if not np.array_equal(want[name].view(np.uint8),
+                                  got[name].view(np.uint8)):
+                raise AssertionError(f"restored block {name} differs")
+        dist.barrier()
+        t = time.perf_counter()
+        consumer.start()
+        loop.start()
+        folded()
+        out["replay_s"] = time.perf_counter() - t
+        out["replayed_rows"] = consumer.consumed_rows
+        out["replay_ticks"] = loop.tick_count
+        dist.barrier()
+        loop.stop()
+        want = np.load(f"{tmp}/before{pid}.npz")
+        got = blocks()
+        for name in want.files:
+            if not np.array_equal(want[name].view(np.uint8),
+                                  got[name].view(np.uint8)):
+                raise AssertionError(f"replayed block {name} differs from "
+                                     f"the one before the kill")
+        out["blocks_equal_after_replay"] = True
+        print("RESULT " + json.dumps(out), flush=True)
+        for part in (watchdog, reporter, aggregator, consumer):
+            part.stop()
+        server.stop()
+        return 0
+
+    # (a) the data plane at full width
+    traffic = cluster_traffic(engine.packer)
+    shares = [host_share(b, pid, SHARDS) for b in traffic]
+    expect_in = sum(int(((entering_host(b.device_idx, SHARDS) == peer)
+                         & (np.asarray(b.device_idx) % SHARDS // 4 == pid)
+                         & np.asarray(b.valid)).sum()) for b in traffic)
+    dist.barrier()
+    reset_launch_counts(engine)
+    consumer.start()
+    loop.start()
+    run_ticks(shares[:CLUSTER_WARMUP])
+    _sync(dev)
+    t_start = time.perf_counter()
+    run_ticks(shares[CLUSTER_WARMUP:CLUSTER_WARMUP + CLUSTER_TICKS])
+    t_end = time.perf_counter()
+    if pid == 0 and dev.type == "cuda":
+        t_prof = time.perf_counter()
+        prof_wall, _, _, busy_ms, idle = device_profile(
+            lambda: run_ticks(shares[CLUSTER_WARMUP + CLUSTER_TICKS:]))
+        t_prof_end = time.perf_counter()
+    else:
+        run_ticks(shares[CLUSTER_WARMUP + CLUSTER_TICKS:])
+    while consumer.consumed_rows < expect_in:
+        if loop.fatal is not None:
+            raise AssertionError(f"loop died: {loop.fatal!r}")
+        time.sleep(0.01)
+    folded()
+    dist.barrier()
+    loop.stop()
+    if loop.fatal is not None:
+        raise AssertionError(f"loop died: {loop.fatal!r}")
+    # every tick steps once: S/2 B1 launches a tick, counted from the
+    # loop's start to its stop (no tick straddles the count)
+    b1 = launch_counts(engine)["points_in_zones"]
+    if dev.type == "cuda" and b1 != engine.n_local * loop.tick_count:
+        raise AssertionError(f"B1 launched {b1} times over "
+                             f"{loop.tick_count} ticks of {engine.n_local} "
+                             f"shards")
+    if len(loop.history) != loop.tick_count:
+        raise AssertionError("the loop's tick history was cut")
+    timed = [t for t in loop.history
+             if t.start_s >= t_start and t.start_s + t.wall_s <= t_end]
+    worked = [t for t in timed if t.batches]
+    walls = [t.wall_s * 1e3 for t in worked]
+    fed = sum(int(np.asarray(s.valid).sum()) for s in shares)
+    lag = [f - s for s, f in zip(fwd_ticks, fold_ticks)]
+    out["a"] = {
+        "ticks_timed": len(timed), "ticks_with_work": len(worked),
+        "ticks_total": loop.tick_count,
+        "tick_ms_p50": float(np.percentile(walls, 50)),
+        "tick_ms_p99": float(np.percentile(walls, 99)),
+        "timed_events": sum(int(np.asarray(s.valid).sum()) for s in
+                            shares[CLUSTER_WARMUP:CLUSTER_WARMUP
+                                   + CLUSTER_TICKS]),
+        "timed_wall_s": t_end - t_start,
+        "all_reduce_ms_per_tick": 1e3 * engine.sum_reduce_s
+        / max(1, engine.sum_reduces),
+        "vote_ms_per_tick": 1e3 * control.vote_s / max(1, control.votes),
+        "fed_rows": fed, "forwarded_rows": forwarder.forwarded,
+        "consumed_rows": consumer.consumed_rows, "expected_in": expect_in,
+        "dead_lettered": forwarder.dead_lettered,
+        "misrouted": consumer.misrouted_rows,
+        "lag_ticks_p50": float(np.percentile(lag, 50)) if lag else None,
+        "lag_ticks_max": max(lag) if lag else None,
+        "forward_messages": len(fwd_ticks), "folded_messages": len(lag),
+        "processed_total": loop.processed,
+        "processed": [t.processed for t in loop.history],
+        "b1_launches": b1, "captures": engine.graph_captures,
+        "graph_keys": len(engine._graphs), "alerts": len(alerts)}
+    if pid == 0 and dev.type == "cuda":
+        # the profiled ticks: the CLUSTER_PROFILED fed ones and every tick
+        # between them that folded a trickle of forwarded rows
+        prof = [t for t in loop.history
+                if t.start_s >= t_prof and t.start_s + t.wall_s <= t_prof_end]
+        rows = sum(t.rows for t in prof)
+        measured = busy_ms != "not measured"
+        out["a"]["profile"] = {
+            "ticks": len(prof),
+            "ticks_with_work": sum(1 for t in prof if t.rows),
+            "rows_folded": rows,
+            "wall_ms": prof_wall, "device_busy_ms": busy_ms,
+            "device_busy_ms_per_fed_tick": (
+                busy_ms / CLUSTER_PROFILED if measured else busy_ms),
+            "device_busy_ms_per_tick_of_rows": (
+                busy_ms * CLUSTER_EVENTS / max(1, rows) if measured
+                else busy_ms),
+            "device_idle_share": idle}
+    np.savez(f"{tmp}/a{pid}.npz", **blocks())
+    with open(f"{tmp}/alerts{pid}.pkl", "wb") as fh:
+        pickle.dump(alerts, fh)
+
+    # (d) the multi-process mesh query (its own gloo group)
+    rows = cluster_query_rows()
+    d = {"rows": CLUSTER_QUERY_ROWS, "K": CLUSTER_QUERY_K,
+         "W": CLUSTER_QUERY_W}
+    segment_row_sum.launches = 0
+    for combine in ("psum", "ring"):
+        splits = []
+        for _ in range(1 + CLUSTER_QUERY_REPS):
+            timings = {}
+            st = sharded_windowed_stats(
+                *rows, window_ms=CLUSTER_QUERY_WINDOW_MS,
+                num_keys=CLUSTER_QUERY_K, n_windows=CLUSTER_QUERY_W,
+                mesh=mesh, combine=combine, timings=timings)
+            splits.append(timings)
+        d[combine] = {"digest": stats_digest(st),
+                      **{f"{k}_ms": 1e3 * statistics.median(
+                          s[f"{k}_s"] for s in splits[1:])
+                         for k in ("fold", "gather", "combine")}}
+        del st
+    d["segsum_launches"] = segment_row_sum.launches
+    out["d"] = d
+    torch.cuda.empty_cache()
+
+    # (c) the host-shards checkpoint, then records past it
+    t = time.perf_counter()
+    out["save_path"] = ckpt.save(engine, consumer_groups=[group])
+    out["save_s"] = time.perf_counter() - t
+    dist.barrier()
+    loop.start()
+    rng = np.random.default_rng(SEED + 1400 + pid)
+    for r in range(CLUSTER_REPLAY_BATCHES):
+        batch = synthetic_batch(
+            engine.packer, N_REGISTERED, CLUSTER_REPLAY_ROWS,
+            SEED + 1500 + 10 * r + pid,
+            t_off_ms=(len(traffic) + r) * CLUSTER_TICK_MS)
+        mine = np.nonzero(np.asarray(batch.valid) & np.array(
+            [engine.owns(int(i)) for i in np.asarray(batch.device_idx)]))[0]
+        bus.publish(topic, str(pid).encode(),
+                    encode_rows(engine, batch, mine))
+    del rng
+    folded()
+    dist.barrier()
+    loop.stop()
+    np.savez(f"{tmp}/before{pid}.npz", **blocks())
+    print("RESULT " + json.dumps(out), flush=True)
+    print("READY_TO_DIE", flush=True)
+    # host 1 is killed here; host 0's watchdog exits 13 when it goes stale
+    time.sleep(CLUSTER_CHILD_S)
+    return 3
+
+
+def cluster_reference(dev, epoch):
+    """The single-process SHARDS-shard engine (host route, full layout) on
+    the card over every tick's whole batch: each device's rows in the order
+    the hosts fold them. Returns (engine, sorted alert keys, processed)."""
+    from sitewhere_tpu_torch.ops.pack import WIRE_ROWS
+
+    engine = build_world(dev, "auto", epoch, shards=SHARDS,
+                         device_routing=False,
+                         alert_lane_capacity=SHARD_LANES)
+    engine.router.fixed_wire_rows = WIRE_ROWS
+    alerts, processed = [], 0
+    from sitewhere_tpu_torch.ops.pack import empty_batch
+
+    traffic = cluster_traffic(engine.packer)
+    while traffic or engine.pending_overflow:
+        view, out = engine.submit(traffic.pop(0) if traffic
+                                  else empty_batch(1))
+        processed += int(out.processed)
+        alerts += _alert_keys(engine.materialize_alerts(view, out))
+    return engine, sorted(alerts), processed
+
+
+def serve_cluster_drive(device_arg, tmp, card):
+    """(b): two `serve --cluster-coordinator` processes on the card, the
+    same world provisioned on both over REST (registry gossip off, so no
+    boot race), SERVE_CLUSTER_RECORDS decoded records published to each
+    host's edge for its peer's devices; each must fold on its owner, fire
+    and persist the owner's threshold alert and read back over the owner's
+    REST API; both exit 0 on SIGTERM."""
+    import re
+    import zlib
+
+    import msgpack
+
+    from sitewhere_tpu_torch.client.rest import SiteWhereClientError
+    from sitewhere_tpu_torch.model.common import _asdict
+    from sitewhere_tpu_torch.model.event import (
+        DeviceEventBatch, DeviceMeasurement)
+    from sitewhere_tpu_torch.runtime.bus import TopicNaming
+    from sitewhere_tpu_torch.runtime.busnet import BusClient
+
+    coord, bus0, bus1 = _free_port(), _free_port(), _free_port()
+    config = f"{tmp}/serve-cluster.json"
+    with open(config, "w") as fh:
+        json.dump({
+            "cluster": {"registry_gossip": False,
+                        "heartbeat_s": CLUSTER_HEARTBEAT_S,
+                        "stale_after_s": CLUSTER_STALE_S,
+                        "fail_after_s": CLUSTER_FAIL_AFTER_S},
+            "persist": {"checkpoint_interval_s": None},
+            "rules": [{"type": "threshold", "token": "hot",
+                       "measurement_name": "temp", "operator": ">",
+                       "threshold": 50.0}]}, fh)
+    t0 = time.perf_counter()
+    hosts = [_HostLog(["-m", "sitewhere_tpu_torch", "serve", "--config",
+                     config, "--device", device_arg, "--port", "0",
+                     "--cluster-coordinator", f"127.0.0.1:{coord}",
+                     "--cluster-num-processes", "2",
+                     "--cluster-process-id", str(pid),
+                     "--cluster-peers",
+                     f"0=127.0.0.1:{bus0},1=127.0.0.1:{bus1}",
+                     "--bus-port", str([bus0, bus1][pid]),
+                     "--data-dir", f"{tmp}/serve{pid}"],
+                    f"serve --cluster-coordinator host {pid}")
+             for pid in range(2)]
+    deadline = time.monotonic() + CLUSTER_CHILD_S
+    try:
+        urls, boots, n_shards = [], [], None
+        for h in hosts:
+            urls.append(re.search(r"REST gateway : (http://\S+)",
+                                  h.wait_for("  REST gateway", deadline))
+                        .group(1))
+            mesh_line = h.wait_for("  mesh", deadline)
+            n_shards = int(re.search(r"(\d+) shards", mesh_line).group(1))
+            boots.append(time.perf_counter() - t0)
+        rests = [rest_client(u) for u in urls]
+        tokens = [f"cdev-{i}" for i in range(SERVE_CLUSTER_DEVICES)]
+        owner = {t: (zlib.crc32(t.encode()) % n_shards) // (n_shards // 2)
+                 for t in tokens}
+        t_prov = time.perf_counter()
+        for rest in rests:
+            rest.create_device_type({"token": "cdt", "name": "C"})
+            for i, token in enumerate(tokens):
+                rest.create_device({"token": token,
+                                    "device_type_token": "cdt"})
+                rest.create_assignment({"token": f"cas-{i}",
+                                        "device_token": token})
+        # settled: both hosts live in each other's topology
+        while True:
+            procs = [r.get("/api/instance/topology").get("processes", {})
+                     for r in rests]
+            if all({"0", "1"} <= set(p) and not any(
+                    v.get("stale") for v in p.values()) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"hosts never settled: {procs}")
+            time.sleep(0.2)
+        provision_s = time.perf_counter() - t_prov
+        instance_id = rests[0].get("/api/instance/topology")["instance_id"]
+        topic = TopicNaming(instance=instance_id) \
+            .event_source_decoded_events("default")
+        sent = {}
+        now = int(time.time() * 1000)
+        for pid in range(2):
+            theirs = [t for t in tokens if owner[t] != pid]
+            assert len(theirs) >= SERVE_CLUSTER_RECORDS, len(theirs)
+            client = BusClient("127.0.0.1", [bus0, bus1][pid])
+            try:
+                for k, token in enumerate(theirs[:SERVE_CLUSTER_RECORDS]):
+                    value = 60.0 + k + 0.5 * pid
+                    batch = DeviceEventBatch(
+                        device_token=token, measurements=[DeviceMeasurement(
+                            name="temp", value=value, event_date=now + k)])
+                    sent[token] = (value, time.perf_counter())
+                    client.publish(topic, token.encode(), msgpack.packb({
+                        "sourceId": "chip-cluster", "deviceToken": token,
+                        "kind": "DeviceEventBatch",
+                        "request": _asdict(batch), "metadata": {}},
+                        use_bin_type=True))
+            finally:
+                client.close()
+        fold_s, pending = {}, list(sent)
+        while pending:
+            token = pending[0]
+            value, t_pub = sent[token]
+            rest = rests[owner[token]]
+            try:
+                state = rest.get(f"/api/devicestates/{token}")
+                got = state.get("last_measurements", {}).get("temp")
+            except SiteWhereClientError as exc:
+                if exc.status != 404:
+                    raise
+                got = None
+            if got is not None and float(got[1]) == value:
+                fold_s[token] = time.perf_counter() - t_pub
+                pending.pop(0)
+                continue
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{len(pending)} records never folded "
+                                     f"on their owner")
+            time.sleep(0.05)
+        alerts = 0
+        for i, token in enumerate(tokens):
+            if token not in sent:
+                continue
+            res = rests[owner[token]].list_alerts(f"cas-{i}")
+            if not res.get("numResults", res.get("num_results", 0)):
+                raise AssertionError(f"no persisted alert for {token} on "
+                                     f"its owner")
+            alerts += 1
+        for h in hosts:
+            h.proc.send_signal(__import__("signal").SIGTERM)
+        for h in hosts:
+            h.finish(time.monotonic() + 120)
+        lat = sorted(fold_s.values())
+        return {"boot_s": boots, "provision_s": provision_s,
+                "shards": n_shards, "records": len(sent),
+                "alerts_persisted": alerts,
+                "publish_to_fold_ms_p50": 1e3 * float(np.percentile(lat, 50)),
+                "publish_to_fold_ms_p99": 1e3 * float(np.percentile(lat, 99))}
+    finally:
+        for h in hosts:
+            h.kill()
+
+
+def phase_cluster(dev, card):
+    """Phase 13: the multi-host data plane on the card (see the module
+    docstring). Returns the summary; its `b1_launches` and
+    `segsum_launches` are the kernels' launches on the cluster path."""
+    from sitewhere_tpu_torch.analytics import windows as windows_mod
+    from sitewhere_tpu_torch.ops.segsum import segment_row_sum_plain
+    from sitewhere_tpu_torch.parallel.distributed import (
+        sharded_windowed_stats)
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+    from sitewhere_tpu_torch.persist.checkpoint import (
+        PipelineCheckpointer, write_assembled)
+
+    t_phase = time.perf_counter()
+    epoch = int(time.time() * 1000) - EPOCH_LAG_MS
+    summary = {"processes": CLUSTER_PROCS, "shards": SHARDS}
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="chip-cluster-") as tmp:
+        deadline = time.monotonic() + CLUSTER_CHILD_S
+        run = _cluster_pair("run", tmp, epoch, dev)
+        again = []
+        try:
+            results = [c.result(deadline) for c in run]
+            for c in run:
+                c.wait_for("READY_TO_DIE", deadline)
+            walls["run_pair_s"] = time.perf_counter() - t_phase
+            # the restore pair boots up to its go file meanwhile
+            again = _cluster_pair("restore", tmp, epoch, dev)
+            # (c) hard-kill host 1; host 0's watchdog must gang-exit 13
+            t_kill, t_kill_wall = time.perf_counter(), time.time()
+            run[1].kill()
+            exited = {}
+
+            def wait_exit():
+                exited["rc"] = run[0].proc.wait()
+                exited["s"] = time.perf_counter() - t_kill
+
+            waiter = threading.Thread(target=wait_exit, daemon=True)
+            waiter.start()
+            # (a)'s single-process reference, while host 0 waits
+            t = time.perf_counter()
+            ref_engine, ref_alerts, ref_processed = cluster_reference(
+                dev, epoch)
+            walls["reference_s"] = time.perf_counter() - t
+            waiter.join(timeout=max(
+                0.0, t_kill + CLUSTER_FAIL_AFTER_S + 5 - time.perf_counter()))
+            if "rc" not in exited:
+                raise AssertionError("host 0 outlived its peer by "
+                                     f"{CLUSTER_FAIL_AFTER_S + 5} s")
+            if exited["rc"] != 13:
+                raise AssertionError(f"host 0 exited {exited['rc']}, not 13")
+            exit_s = exited["s"]
+            fired_s = float(run[0].wait_for("PEER_LOSS", deadline)
+                            .split()[1]) - t_kill_wall
+            # the watchdog fires fail_after_s after the peer's last
+            # heartbeat reached it, at its next check; that heartbeat left
+            # before the kill and is delivered within a poll (<= 0.4 s)
+            bound = CLUSTER_FAIL_AFTER_S + CLUSTER_WATCHDOG_CHECK_S + 0.4
+            if fired_s > bound:
+                raise AssertionError(f"host 0's watchdog fired {fired_s:.2f}"
+                                     f" s after its peer's kill")
+            # (c) the restore pair restores the checkpoints, replays past
+            t = time.perf_counter()
+            open(f"{tmp}/{CLUSTER_GO}", "w").close()
+            deadline = time.monotonic() + CLUSTER_CHILD_S
+            restored = [c.result(deadline) for c in again]
+            for c in again:
+                c.finish(deadline)
+            walls["restore_pair_after_go_s"] = time.perf_counter() - t
+        finally:
+            for c in run + again:
+                c.kill()
+        got_alerts = []
+        _, ref_blocks = ref_engine.local_state_shards()
+        for pid, res in enumerate(results):
+            a = res["a"]
+            if a["processed_total"] != ref_processed:
+                raise AssertionError(f"host {pid}: processed "
+                                     f"{a['processed_total']} != "
+                                     f"{ref_processed}")
+            if a["dead_lettered"] or a["misrouted"]:
+                raise AssertionError(f"host {pid}: rows parked")
+            if a["consumed_rows"] != a["expected_in"]:
+                raise AssertionError(f"host {pid}: folded "
+                                     f"{a['consumed_rows']} forwarded rows "
+                                     f"of {a['expected_in']}")
+            if dev.type == "cuda" and a["captures"] != 1:
+                raise AssertionError(f"host {pid}: {a['captures']} captures")
+            blocks = np.load(f"{tmp}/a{pid}.npz")
+            for name in blocks.files:
+                want = ref_blocks[name][4 * pid:4 * pid + 4]
+                if not np.array_equal(blocks[name].view(np.uint8),
+                                      want.view(np.uint8)):
+                    raise AssertionError(f"host {pid}: block {name} "
+                                         f"differs from the single engine")
+            with open(f"{tmp}/alerts{pid}.pkl", "rb") as fh:
+                got_alerts += pickle.load(fh)
+        if results[0]["a"]["processed"] != results[1]["a"]["processed"]:
+            raise AssertionError("the hosts read different processed sums")
+        if sorted(got_alerts) != ref_alerts:
+            raise AssertionError("the hosts' alerts differ from the single "
+                                 "engine's")
+        fed = sum(r["a"]["fed_rows"] for r in results)
+        if fed != ref_processed:
+            raise AssertionError(f"{fed} rows fed, {ref_processed} folded")
+        # (c) the assembled checkpoints onto a single-process engine
+        t = time.perf_counter()
+        assembled = write_assembled([r["save_path"] for r in results],
+                                    f"{tmp}/assembled")
+        assemble_s = time.perf_counter() - t
+        single = build_world(dev, "auto", epoch, shards=SHARDS,
+                             device_routing=False,
+                             alert_lane_capacity=SHARD_LANES)
+        t = time.perf_counter()
+        PipelineCheckpointer(f"{tmp}/assembled").restore(single, assembled)
+        assembled_restore_s = time.perf_counter() - t
+        assert_tree_bits_equal(ref_engine.canonical_state(),
+                               single.canonical_state(),
+                               "[cluster] assembled restore")
+        del single
+        # (d) against the single-process call, kernel and plain version
+        rows = cluster_query_rows()
+        mesh = make_mesh(SHARDS, device=dev)
+        t = time.perf_counter()
+        d_ref = {}
+        for combine in ("psum", "ring"):
+            kw = dict(window_ms=CLUSTER_QUERY_WINDOW_MS,
+                      num_keys=CLUSTER_QUERY_K, n_windows=CLUSTER_QUERY_W,
+                      mesh=mesh, combine=combine)
+            d_ref[combine] = stats_digest(sharded_windowed_stats(*rows, **kw))
+            kernel = windows_mod.segment_row_sum
+            windows_mod.segment_row_sum = segment_row_sum_plain
+            try:
+                plain = stats_digest(sharded_windowed_stats(*rows, **kw))
+            finally:
+                windows_mod.segment_row_sum = kernel
+            if plain != d_ref[combine]:
+                raise AssertionError(f"(d) {combine}: kernel and plain "
+                                     f"segment sum differ")
+            for pid, res in enumerate(results):
+                if res["d"][combine]["digest"] != d_ref[combine]:
+                    raise AssertionError(
+                        f"(d) {combine}: host {pid}'s grids differ from the "
+                        f"single-process call")
+        torch.cuda.empty_cache()
+        walls["query_checks_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        serve = serve_cluster_drive(dev.type, tmp, card)
+        walls["serve_s"] = time.perf_counter() - t
+    a0, a1 = results[0]["a"], results[1]["a"]
+    per_proc_cells = 4 * CLUSTER_QUERY_K * CLUSTER_QUERY_W
+    fold_bytes = (CLUSTER_QUERY_ROWS // 2 * 13 + per_proc_cells * 16)
+    gather_bytes = CLUSTER_PROCS * per_proc_cells * 16 * 2
+    combine_bytes = (SHARDS * CLUSTER_QUERY_K * CLUSTER_QUERY_W * 16
+                     + CLUSTER_QUERY_K * CLUSTER_QUERY_W * 20)
+    wall = max(a0["timed_wall_s"], a1["timed_wall_s"])
+    summary.update({
+        "a": {"tick_ms_p50": [a0["tick_ms_p50"], a1["tick_ms_p50"]],
+              "tick_ms_p99": [a0["tick_ms_p99"], a1["tick_ms_p99"]],
+              "events_per_s": (a0["timed_events"] + a1["timed_events"])
+              / wall,
+              "all_reduce_ms_per_tick": [a0["all_reduce_ms_per_tick"],
+                                         a1["all_reduce_ms_per_tick"]],
+              "vote_ms_per_tick": [a0["vote_ms_per_tick"],
+                                   a1["vote_ms_per_tick"]],
+              "forwarded_rows": [a0["forwarded_rows"], a1["forwarded_rows"]],
+              "fed_rows": [a0["fed_rows"], a1["fed_rows"]],
+              "lag_ticks_p50": [a0["lag_ticks_p50"], a1["lag_ticks_p50"]],
+              "lag_ticks_max": [a0["lag_ticks_max"], a1["lag_ticks_max"]],
+              "ticks": [a0["ticks_total"], a1["ticks_total"]],
+              "b1_launches": [a0["b1_launches"], a1["b1_launches"]],
+              "ticks_timed": [a0["ticks_timed"], a1["ticks_timed"]],
+              "captures": [a0["captures"], a1["captures"]],
+              "alerts": len(ref_alerts), "processed": ref_processed,
+              "profile_host0": a0.get("profile", "not measured"),
+              "boot_s": [r["boot_s"] for r in results]},
+        "b": serve,
+        "c": {"save_s": [r["save_s"] for r in results],
+              "host0_watchdog_fired_after_kill_s": fired_s,
+              "host0_exit_13_after_kill_s": exit_s,
+              "restore_s": [r["restore_s"] for r in restored],
+              "replay_s": [r["replay_s"] for r in restored],
+              "replayed_rows": [r["replayed_rows"] for r in restored],
+              "assemble_s": assemble_s,
+              "assembled_restore_s": assembled_restore_s},
+        "d": {"rows": CLUSTER_QUERY_ROWS,
+              "cells": CLUSTER_QUERY_K * CLUSTER_QUERY_W,
+              **{f"{c}_{k}": [r["d"][c][k] for r in results]
+                 for c in ("psum", "ring")
+                 for k in ("fold_ms", "gather_ms", "combine_ms")},
+              "fold_bound_ms": fold_bytes / H100_HBM_BYTES_S * 1e3,
+              "gather_bound_ms": gather_bytes / H100_HBM_BYTES_S * 1e3,
+              "combine_bound_ms": combine_bytes / H100_HBM_BYTES_S * 1e3,
+              "bound_by": "bytes",
+              "segsum_launches": [r["d"]["segsum_launches"]
+                                  for r in results]},
+    })
+    summary["b1_launches"] = sum(a["b1_launches"] for a in (a0, a1))
+    summary["segsum_launches"] = sum(r["d"]["segsum_launches"]
+                                     for r in results)
+    summary["walls"] = walls
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"[cluster] {json.dumps(summary)} on {card}")
+    log(f"[cluster] phase 13 took {summary['seconds']:.1f} s: tick p50 "
+        f"{a0['tick_ms_p50']:.1f} / {a1['tick_ms_p50']:.1f} ms, "
+        f"{summary['a']['events_per_s']:.0f} events/s over both hosts, "
+        f"host 0's watchdog fired {fired_s:.2f} s after host 1's kill, "
+        f"on {card}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
@@ -6040,6 +6905,16 @@ def main() -> int:
         torch.cuda.set_device(dev)
         card, _ = phase_card()
         phase_feeders(dev, card)
+        return 0
+    if sys.argv[1:2] == ["--cluster-child"]:
+        # one host of phase 13, spawned by phase_cluster
+        return cluster_child_main(sys.argv[2:])
+    if sys.argv[1:] == ["--cluster-only"]:
+        # phase 13 alone, for debugging it (prints no result line)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        card, _ = phase_card()
+        phase_cluster(dev, card)
         return 0
     if sys.argv[1:] == ["--sharded-only"]:
         # phase 12 alone, for debugging it (prints no result line)
@@ -6082,6 +6957,7 @@ def main() -> int:
         instance = phase_instance(dev, card, name)
         feeders = phase_feeders(dev, card)
         sharded = phase_sharded(dev, card)
+        cluster = phase_cluster(dev, card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6101,6 +6977,7 @@ def main() -> int:
         "launches_feeder_path": feeders["launches_feeder_path"],
         "launches_sharded_path": sharded["b1_launches"],
         "launches_sharded_feeder_path": sharded["landing"]["launches"],
+        "launches_cluster_path": cluster["b1_launches"],
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],
@@ -6123,6 +7000,7 @@ def main() -> int:
         "launches": read["segment_row_sum_launches"],
         "launches_instance_path": instance_launches["segment_row_sum"],
         "launches_mesh_path": read["mesh"]["launches"],
+        "launches_cluster_path": cluster["segsum_launches"],
         **{k: segsum[k] for k in ("mismatches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "rows", "segments",

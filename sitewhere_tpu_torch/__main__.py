@@ -24,9 +24,13 @@ feeder worker (`serve --feeder`: host work only, no card), the
 control-plane cluster (`--cluster-peers` without a coordinator), the
 gang-restart supervisor (`--supervise`) and usage telemetry
 (`telemetry.*`). `--shards N` runs the sharded pipeline (N shards of the
-device population on the one card). The multi-host SPMD cluster
-(`--cluster-coordinator`) comes with the multi-host data plane and exits
-non-zero naming ROADMAP A6d.
+device population on the one card). `--cluster-coordinator host:port` with
+`--cluster-num-processes`, `--cluster-process-id` and `--cluster-peers`
+boots one host of the multi-host data plane (parallel/cluster.py
+ClusterService): the processes join a gloo world at the coordinator,
+`--shards` counts the global shards (one a process when left at 1), and
+each process holds its block of them on its own `--device` (two processes
+on one card both use cuda:0).
 
 Configuration layers (runtime/config.py — the CLI uses the canonical
 ``DEFAULTS`` schema there): built-in defaults <- --config JSON file <-
@@ -55,7 +59,7 @@ def _build_config(config_path: Optional[str]):
     return Configuration(defaults=DEFAULTS, config_path=config_path)
 
 
-def _build_instance(cfg):
+def _build_instance(cfg, mesh=None):
     from sitewhere_tpu_torch.instance import SiteWhereInstance
 
     mode = cfg.get("pipeline.mode") or "throughput"
@@ -90,6 +94,7 @@ def _build_instance(cfg):
         admin_username=cfg.get("instance.admin_username"),
         admin_password=cfg.get("instance.admin_password"),
         shards=int(cfg.get("mesh.shards")),
+        mesh=mesh,
         # "auto" -> None: the engine decides by mesh shape/topology
         device_routing={"on": True, "off": False}.get(
             str(cfg.get("pipeline.device_routing") or "auto").lower()),
@@ -234,12 +239,6 @@ def _install_stop_handlers(stop: Optional[threading.Event] = None
     return stop
 
 
-# serve modes of later slices: (config key or flag, ROADMAP item, what)
-_LEFT_OUT = (
-    ("cluster.coordinator", "A6d", "the multi-host cluster"),
-)
-
-
 def _refuse(message: str) -> int:
     print(f"error: {message}", file=sys.stderr, flush=True)
     return 2
@@ -376,6 +375,88 @@ def _serve_control_plane(cfg) -> int:
     return 0
 
 
+def _serve_cluster(cfg) -> int:
+    """Boot one host of an N-process instance: join the gloo world at the
+    coordinator, build the instance over the GLOBAL mesh (this process's
+    block of `mesh.shards` shards on its device), and compose the cluster
+    services (lockstep step loop, busnet edge, foreign-row forwarding,
+    heartbeats/topology, peer watchdog) around it (parallel/cluster.py;
+    reference boot: Microservice.java:182-236). SIGTERM stops every host's
+    loop after the same tick through the stop vote."""
+    from sitewhere_tpu_torch.parallel.cluster import ClusterService
+    from sitewhere_tpu_torch.parallel.distributed import (
+        initialize, make_global_mesh)
+    from sitewhere_tpu_torch.web.server import RestServer
+
+    # handlers before the (slow) distributed boot — see cmd_serve
+    stop = _install_stop_handlers()
+
+    process_id = int(cfg.get("cluster.process_id"))
+    num_processes = int(cfg.get("cluster.num_processes"))
+    initialize(coordinator_address=cfg.get("cluster.coordinator"),
+               num_processes=num_processes, process_id=process_id)
+    # re-assert ours in case the process-group boot installed its own
+    _install_stop_handlers(stop)
+    # mesh.shards counts the global shards; left at 1, one a process (the
+    # reference's one device a host)
+    shards = int(cfg.get("mesh.shards"))
+    mesh = make_global_mesh(
+        n_shards=num_processes if shards == 1 else shards,
+        device=cfg.get("pipeline.device") or "cuda")
+    instance = _build_instance(cfg, mesh=mesh)
+    peers = _parse_peers(cfg.get("cluster.peers"))
+    edge_port = cfg.get("bus.edge_port")
+    cluster = ClusterService(
+        instance, process_id, num_processes,
+        peer_bus_addrs=peers,
+        bus_host=cfg.get("api.host"),
+        bus_port=int(edge_port) if edge_port is not None else 0,
+        heartbeat_s=float(cfg.get("cluster.heartbeat_s")),
+        stale_after_s=float(cfg.get("cluster.stale_after_s")),
+        fail_after_s=float(cfg.get("cluster.fail_after_s")),
+        presence_every_ticks=int(cfg.get("cluster.presence_every_ticks")),
+        exit_on_peer_loss=bool(cfg.get("cluster.exit_on_peer_loss")),
+        peer_loss_exit_code=int(cfg.get("cluster.peer_loss_exit_code")),
+        registry_gossip=bool(cfg.get("cluster.registry_gossip")))
+    cluster.start()
+    # config rules install AFTER cluster.start (the gossip hook is live,
+    # but every host boots the same config, so applies are idempotent
+    # replace-on-add at the peers)
+    _apply_rule_config(instance, cfg)
+    _apply_search_config(instance, cfg)
+    telemetry = _start_telemetry(cfg, instance)
+    rest = RestServer(instance, host=cfg.get("api.host"),
+                      port=int(cfg.get("api.port")),
+                      token_expiration_minutes=int(
+                          cfg.get("api.jwt_expiration_min")))
+    rest.start()
+
+    print(f"sitewhere-tpu cluster host {process_id}/{num_processes} "
+          f"instance '{instance.instance_id}' serving", flush=True)
+    print(f"  REST gateway : {rest.base_url}", flush=True)
+    print(f"  bus edge     : tcp://{cfg.get('api.host')}:"
+          f"{cluster.bus_port}", flush=True)
+    print(f"  mesh         : {mesh.n_shards} shards over {num_processes} "
+          f"hosts, shards {mesh.local_shards} on {mesh.device}",
+          flush=True)
+    if cfg.get("feeders.enabled"):
+        # the lockstep loop is the only feeder of a cluster host's engine,
+        # as in the reference's cluster serve
+        print("  feeders      : not mounted on a cluster host", flush=True)
+
+    _install_stop_handlers(stop)
+    try:
+        while not stop.wait(1.0):
+            if cluster.loop.fatal is not None:
+                return 1
+    finally:
+        rest.stop()
+        cluster.stop()
+        if telemetry is not None:
+            telemetry.stop()
+    return 0
+
+
 def cmd_serve(args) -> int:
     from sitewhere_tpu_torch.device import resolve_device
     from sitewhere_tpu_torch.runtime.busnet import BusServer
@@ -414,15 +495,12 @@ def cmd_serve(args) -> int:
         value = getattr(args, flag, None)
         if value is not None:
             cfg.set(key, value)
-    for key, item, what in _LEFT_OUT:
-        value = cfg.get(key)
-        if value is not None and value is not False and value != "":
-            return _refuse(f"{key} asks for {what}, which this package "
-                           f"does not have yet: ROADMAP {item}")
     try:
         resolve_device(cfg.get("pipeline.device") or "cuda")
     except RuntimeError as exc:
         return _refuse(f"{exc} (serve --device cpu; no CUDA fallback)")
+    if cfg.get("cluster.coordinator"):
+        return _serve_cluster(cfg)
     if cfg.get("cluster.peers") and cfg.get("cluster.process_id") is not None:
         # peers without a coordinator: control-plane-only cluster — N
         # independent single-card instances whose registries + tenant/
@@ -658,7 +736,8 @@ def main(argv=None) -> int:
                             "(default: contend for every partition)")
     serve.add_argument("--cluster-coordinator",
                        help="multi-host cluster coordinator host:port "
-                            "(ROADMAP A6d: refused)")
+                            "(process 0 hosts it); enables the multi-host "
+                            "data plane")
     serve.add_argument("--cluster-num-processes", type=int,
                        help="total processes in the cluster")
     serve.add_argument("--cluster-process-id", type=int,

@@ -13,15 +13,21 @@ deterministically.
 
 `shards > 1` (or a `ShardMesh`) selects the sharded engine
 (parallel/engine.py): S shards of the device population on the one card,
-with shard-congruent device interning, as the reference builds it. A mesh
-that is not a single-controller `ShardMesh` (a multi-host one) and the
-data-plane cluster hooks belong to the multi-host data plane (ROADMAP A6d)
-and raise. The query planner's mesh provider answers the sharded engine's
-mesh, else `live_mesh()` (None until A6d), so a sharded instance's large
-window queries take the mesh route (parallel/distributed.py). The
-control-plane cluster (parallel/cluster.py ControlPlaneCluster) installs
-itself as `cluster_hooks` before start(): tenant engines then register
-their registries with its gossip.
+with shard-congruent device interning, as the reference builds it. A
+multi-process mesh (parallel/distributed.py `make_global_mesh`) makes this
+instance one host of the multi-host data plane: its engine holds this
+process's shards, and `ClusterService` (parallel/cluster.py) installs
+itself as `cluster_hooks` before start(), so tenant engines route inbound
+records to their owner host and feed the lockstep step loop. The
+control-plane cluster (`ControlPlaneCluster`) installs itself the same
+way: tenant engines then register their registries with its gossip.
+
+The query planner's mesh provider answers the sharded engine's mesh on one
+controller, so a sharded instance's large window queries take the mesh
+route (parallel/distributed.py). A cluster host's provider answers None:
+a query there would enter a collective the other hosts do not (the
+reference's host waits out its collectives' timeout and raises), so its
+queries take the host route.
 """
 
 from __future__ import annotations
@@ -95,19 +101,19 @@ class SiteWhereInstance(LifecycleComponent):
         from sitewhere_tpu_torch.parallel.mesh import (
             ShardMesh, shard_axis_size)
         if mesh is not None and not isinstance(mesh, ShardMesh):
-            raise NotImplementedError(
-                "a device mesh other than a single-controller ShardMesh (a "
-                "multi-host mesh) comes with the multi-host data plane: "
-                "ROADMAP A6d")
+            raise TypeError(f"mesh must be a ShardMesh (parallel/mesh.py "
+                            f"or parallel/distributed.py), got "
+                            f"{type(mesh).__name__}")
         self.instance_id = instance_id
         self.data_dir = data_dir
         # observability.trace_sample_n: sample 1 in N ingest deliveries
         # into a journey span stitched across busnet hops (0 disables);
         # ingest services read this at construction (sources/fastlane.py)
         self.trace_sample_n = int(trace_sample_n or 0)
-        # multi-host deployment hooks (parallel/cluster.py
-        # ControlPlaneCluster installs itself here BEFORE start(); tenant
-        # engines register their registries with its gossip)
+        # multi-host deployment hooks (parallel/cluster.py ClusterService
+        # or ControlPlaneCluster installs itself here BEFORE start(); tenant
+        # engines wire them into their inbound processors and register
+        # their registries with the gossip)
         self.cluster_hooks = None
         self.naming = TopicNaming(instance=instance_id)
         self.metrics = GLOBAL_METRICS
@@ -378,14 +384,15 @@ class SiteWhereInstance(LifecycleComponent):
 
     def _serving_mesh(self):
         """Planner mesh provider: the pipeline's own mesh when the hot path
-        runs sharded (its shard axis is the replay axis too, on the
-        instance's device), else the process-wide live mesh
-        (parallel/distributed.py `live_mesh`: None until A6d)."""
+        runs sharded on one controller (its shard axis is the replay axis
+        too, on the instance's device), else None. A multi-process mesh
+        (a cluster host's, or the process-wide `live_mesh`) is never
+        answered: the query would enter its collective on this host
+        alone."""
         mesh = getattr(self.pipeline_engine, "mesh", None)
-        if mesh is not None:
+        if mesh is not None and not mesh.is_multiprocess:
             return mesh
-        from sitewhere_tpu_torch.parallel.distributed import live_mesh
-        return live_mesh()
+        return None
 
     def _make_engine(self, tenant: Tenant) -> TenantEngine:
         store_factory: Optional[Callable] = None

@@ -74,20 +74,10 @@ class TenantEngine(LifecycleComponent):
                                                 tenant.token)
         if registry_tensors is not None:
             registry_tensors.attach(self.registry, tenant.token)
-        if cluster is not None and getattr(cluster, "data_plane", True):
-            # inbound ownership routing and the lockstep step loop come
-            # with the multi-host data plane; a host never drops them
-            # quietly
-            raise NotImplementedError(
-                "data-plane cluster hooks (inbound ownership routing, the "
-                "lockstep step loop) come with the multi-host data plane: "
-                "ROADMAP A6d")
         if cluster is not None and getattr(cluster, "gossip", None) \
                 is not None:
-            # control-plane cluster (parallel/cluster.py): this tenant's
-            # registry mutations broadcast to peers; theirs apply here.
-            # Each host owns every device it ingests, so inbound keeps the
-            # direct single-host submit path.
+            # cluster (parallel/cluster.py): this tenant's registry
+            # mutations broadcast to peers; theirs apply here
             cluster.gossip.register_tenant_registry(tenant.token,
                                                     self.registry)
 
@@ -106,11 +96,19 @@ class TenantEngine(LifecycleComponent):
         EventPersistenceTriggers(bus, self.naming,
                                  tenant.token).attach(self.event_management)
 
-        # pipeline services
+        # pipeline services (cluster hooks route foreign-owned records to
+        # their owner host and feed the lockstep step loop — cluster.py).
+        # A control-plane-only cluster (data_plane=False: registry +
+        # provisioning replicate, but each host runs its own engine and
+        # owns every device locally) does not participate in ownership
+        # routing, so inbound keeps the direct single-host submit path.
+        inbound_cluster = (cluster if cluster is not None
+                           and getattr(cluster, "data_plane", True)
+                           else None)
         self.inbound = InboundProcessingService(
             bus, self.registry, events=self.event_management,
             engine=pipeline_engine, tenant=tenant.token, naming=self.naming,
-            batcher=batcher)
+            cluster=inbound_cluster, batcher=batcher)
         self.enrichment = PayloadEnrichment(bus, self.registry, tenant.token,
                                             self.naming)
         self.command_delivery = CommandDeliveryService(

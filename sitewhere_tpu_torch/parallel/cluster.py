@@ -1,8 +1,9 @@
-"""The control-plane cluster: N single-card hosts whose control plane
-converges over the networked bus edge.
+"""Multi-host cluster assembly: the control plane that converges over the
+networked bus edge, and the multi-host data plane.
 
-Counterpart of the mesh-free half of `sitewhere_tpu/parallel/cluster.py`,
-envelope for envelope (a JAX host and a port host gossip with each other).
+Counterpart of `sitewhere_tpu/parallel/cluster.py`, envelope for envelope
+(a JAX host and a port host gossip with each other, and read each other's
+forwarded rows).
 Reference deployment story: N OS processes (one per microservice replica)
 joined by a Kafka broker — boot in Microservice.java:182-236, cross-process
 consumption in kafka/MicroserviceKafkaConsumer.java:115-121, 20 s state
@@ -34,9 +35,36 @@ TopologyStateAggregator.java).
 `ControlPlaneCluster` composes them around one instance. Each host runs
 its OWN engine on its own card and owns every device it ingests; a killed
 host restarts alone (its supervisor) and rebuilds from durable state while
-the survivors keep serving. The multi-host SPMD cluster (lockstep step
-loop, foreign-row forwarding, ClusterService) is the multi-host data
-plane, ROADMAP A6d.
+the survivors keep serving.
+
+**The multi-host data plane** (`ClusterService`): the N processes are the
+hosts of one sharded engine, joined into a `torch.distributed` world over
+gloo (parallel/distributed.py); each holds its own block of shards on its
+own device (parallel/engine.py) and every process runs the same step in
+lockstep. What that contract demands:
+
+- **ClusterStepLoop** — every process must make the same collectives in
+  the same order. A free-running loop on each host runs exactly one step
+  per tick (an empty batch when idle — the step's sums pace the cluster:
+  fast hosts block in the all_reduce until the slowest arrives), with
+  presence sweeps on a deterministic tick cadence and a stop VOTE after
+  every tick (a host wants to stop; everyone exits after the same tick
+  once all shards voted), so no host ever hangs a peer's collective.
+- **Foreign-row forwarding** — each host stages only its local shards'
+  rows; rows its ingest accepted for devices owned by another host hand
+  back via `take_foreign()` and are forwarded over the owner's networked
+  bus edge (busnet), where its consumer folds them — the reference's
+  produce-to-the-partition-owner, at-least-once included (forward
+  failures park on a local dead-letter topic, never drop). The foreign-row
+  codec's msgpack bytes are the JAX package's, byte for byte.
+- **Ownership-routed inbound** — decoded events for foreign-owned devices
+  forward BEFORE persist (the owner persists + steps its own devices, so
+  the event log and device state agree on ownership).
+- **Failure model — gang restart.** One host dying breaks every
+  collective, so the whole cluster restarts and each host rebuilds from
+  its durable state (bus offsets + its `host-shards` checkpoint + replay).
+  The watchdog turns a peer stale past `fail_after_s` into a deliberate
+  exit with a distinct code (13) for the supervisor to restart the gang.
 """
 
 from __future__ import annotations
@@ -46,9 +74,11 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import msgpack
+import numpy as np
+import torch
 
 from sitewhere_tpu_torch.model.common import now_ms
 # the LWW stamp + host-independent content digest are the shared
@@ -57,6 +87,8 @@ from sitewhere_tpu_torch.model.common import now_ms
 from sitewhere_tpu_torch.multitenant.replication import (
     ProvisioningReplicator, content_digest as _content_digest,
     lww_stamp as _gossip_stamp)
+from sitewhere_tpu_torch.ops.pack import EventBatch, empty_batch
+from sitewhere_tpu_torch.parallel.engine import ShardedPipelineEngine
 from sitewhere_tpu_torch.runtime.bus import ConsumerHost, Record, TopicNaming
 from sitewhere_tpu_torch.runtime.busnet import BusClient, BusNetError
 from sitewhere_tpu_torch.runtime.metrics import GLOBAL_METRICS
@@ -64,6 +96,482 @@ from sitewhere_tpu_torch.runtime.recovery import (
     EpochFence, LeaseTable, elect_successor)
 
 LOGGER = logging.getLogger("sitewhere.cluster")
+
+FOREIGN_ROWS_SUFFIX = "inbound-foreign-rows"
+# consumer group folding forwarded rows; checkpoint.py captures its
+# offsets so a gang restart replays only the gap — keep in one place
+FOREIGN_ROWS_GROUP = "cluster-foreign-rows"
+
+
+def foreign_rows_topic(naming: TopicNaming) -> str:
+    """Global (cross-tenant) topic carrying forwarded foreign-owned rows;
+    rows embed their device token, which implies the tenant."""
+    return naming._global(FOREIGN_ROWS_SUFFIX)
+
+
+# ---------------------------------------------------------------------------
+# shutdown vote collective
+# ---------------------------------------------------------------------------
+
+class ClusterControl:
+    """The stop vote: one int32 sum over every process of its stop flag
+    times its local shard count, so every host reads the identical total
+    and all hosts exit their step loop after the SAME tick — the
+    lockstep-safe replacement for "just stop calling submit" (which would
+    hang the peers' collectives). One gloo all_reduce on the mesh's step
+    group (a host tensor); on one controller the count is local.
+    `votes` and `vote_s` count the collective votes and their seconds.
+    """
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.n_shards = mesh.size
+        self._local = list(mesh.local_shards)
+        self._multiprocess = len(self._local) < self.n_shards
+        self.votes = 0
+        self.vote_s = 0.0
+
+    def vote(self, flag: bool) -> int:
+        """Collective; every host must call once per tick. Returns the
+        number of shards whose host voted to stop."""
+        if not self._multiprocess:
+            return self.n_shards if flag else 0
+        import torch.distributed as dist
+
+        t = torch.tensor([len(self._local) if flag else 0],
+                         dtype=torch.int32)
+        t0 = time.perf_counter()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.mesh.step_group)
+        self.vote_s += time.perf_counter() - t0
+        self.votes += 1
+        return int(t[0])
+
+
+# ---------------------------------------------------------------------------
+# foreign-row codec
+# ---------------------------------------------------------------------------
+
+def encode_rows(engine, batch: EventBatch, sel: np.ndarray) -> bytes:
+    """Encode selected flat-batch rows as the self-describing msgpack
+    blob. Rows travel by device TOKEN (and measurement/alert-type names),
+    not interned indices — interning is per-process state that does not
+    survive restarts or necessarily agree across hosts."""
+    packer = engine.packer
+    cols = {
+        "tokens": [packer.devices.token_of(int(i)) or ""
+                   for i in np.asarray(batch.device_idx)[sel]],
+        "event_type": np.asarray(batch.event_type)[sel].tolist(),
+        "ts_ms": (np.asarray(batch.ts, np.int64)[sel]
+                  + np.int64(packer.epoch_base_ms)).tolist(),
+        "value": np.asarray(batch.value)[sel].tolist(),
+        "lat": np.asarray(batch.lat)[sel].tolist(),
+        "lon": np.asarray(batch.lon)[sel].tolist(),
+        "elevation": np.asarray(batch.elevation)[sel].tolist(),
+        "alert_level": np.asarray(batch.alert_level)[sel].tolist(),
+        "mm_names": [packer.measurements.token_of(int(m)) or ""
+                     for m in np.asarray(batch.mm_idx)[sel]],
+        "alert_types": [packer.alert_types.token_of(int(a)) or ""
+                        for a in np.asarray(batch.alert_type_idx)[sel]],
+    }
+    return msgpack.packb(cols, use_bin_type=True)
+
+
+def encode_foreign_rows(engine: ShardedPipelineEngine,
+                        batch: EventBatch) -> Dict[int, tuple]:
+    """Group a flat foreign batch (global device indices) by OWNER process:
+    {pid: (payload bytes, row count)}."""
+    valid = np.asarray(batch.valid)
+    rows = np.nonzero(valid)[0]
+    if rows.size == 0:
+        return {}
+    idx = np.asarray(batch.device_idx)[rows]
+    shard = idx % engine.n_shards
+    proc_of_shard = engine.mesh.process_of_shard
+    owner = proc_of_shard[shard]
+    out: Dict[int, tuple] = {}
+    for pid in np.unique(owner):
+        sel = rows[owner == np.int32(pid)]
+        out[int(pid)] = (encode_rows(engine, batch, sel), int(sel.size))
+    return out
+
+
+def decode_foreign_rows(engine, payload: bytes) -> List[EventBatch]:
+    """Inverse of encode_foreign_rows on the OWNER host: tokens and names
+    re-intern against the local registry/packer; unknown device tokens
+    intern to UNKNOWN (0) and surface as unregistered in the step. Returns
+    one or more fixed-size batches (chunked to the packer's batch size)."""
+    cols = msgpack.unpackb(payload, raw=False)
+    packer = engine.packer
+    n = len(cols["tokens"])
+    if n == 0:
+        return []
+    device_idx = np.asarray(
+        [packer.devices.lookup(t) for t in cols["tokens"]], np.int32)
+    mm_idx = np.asarray(
+        [packer.measurements.intern(m) if m else 0
+         for m in cols["mm_names"]], np.int32)
+    alert_type_idx = np.asarray(
+        [packer.alert_types.intern(a) if a else 0
+         for a in cols["alert_types"]], np.int32)
+    batches = []
+    B = packer.batch_size
+    for start in range(0, n, B):
+        end = min(n, start + B)
+        sl = slice(start, end)
+        batches.append(packer.pack_columns(
+            device_idx[sl],
+            np.asarray(cols["event_type"][start:end], np.int32),
+            np.asarray(cols["ts_ms"][start:end], np.int64),
+            mm_idx=mm_idx[sl],
+            value=np.asarray(cols["value"][start:end], np.float32),
+            lat=np.asarray(cols["lat"][start:end], np.float32),
+            lon=np.asarray(cols["lon"][start:end], np.float32),
+            elevation=np.asarray(cols["elevation"][start:end], np.float32),
+            alert_type_idx=alert_type_idx[sl],
+            alert_level=np.asarray(cols["alert_level"][start:end],
+                                   np.int32)))
+    return batches
+
+
+# ---------------------------------------------------------------------------
+# lockstep step loop
+# ---------------------------------------------------------------------------
+
+class FoldTicket:
+    """Durability receipt for rows fed to the step loop. `wait()` returns
+    True only when the rows genuinely folded (state advanced + foreign
+    rows forwarded); a loop death FAILS the ticket so the waiter RAISES —
+    the consumer's batch then redelivers instead of committing offsets for
+    rows that only ever reached volatile memory."""
+
+    __slots__ = ("_event", "_error")
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._error: Optional[BaseException] = None
+
+    def resolve(self) -> None:
+        self._event.set()
+
+    def fail(self, exc: BaseException) -> None:
+        self._error = exc
+        self._event.set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        if not self._event.wait(timeout):
+            return False
+        if self._error is not None:
+            raise RuntimeError(
+                f"step loop failed before folding: {self._error}")
+        return True
+
+
+# the ticks a ClusterStepLoop keeps a TickRecord of
+TICK_HISTORY = 1024
+
+
+class TickRecord(NamedTuple):
+    """One tick of a ClusterStepLoop: when it began (perf_counter
+    seconds), its wall without the vote, the fed batches and valid rows it
+    stepped, and the global `processed` its step read."""
+    start_s: float
+    wall_s: float
+    batches: int
+    rows: int
+    processed: int
+
+
+class ClusterStepLoop:
+    """Free-running collective step cadence for one host.
+
+    Each tick: drain queued local batches (or an empty heartbeat batch),
+    run ONE fused step, materialize this host's alerts, hand foreign rows
+    to the forwarder, optionally sweep presence on a deterministic tick
+    cadence, then run the shutdown-vote collective. Feeding is
+    backpressured two ways: the bounded queue blocks producers, and when
+    the engine's overflow backlog exceeds its bound the loop stops pulling
+    new work so the backlog drains through the lockstep ticks (the
+    multiprocess engine never runs extra drain steps — they would desync
+    the collective program order across hosts).
+
+    `feed()` returns a ticket (threading.Event) set once the rows are
+    durably accounted for: folded into device state (overflow empty) and
+    any foreign rows forwarded — consumers commit after the ticket fires
+    (at-least-once end to end).
+
+    `processed` sums every tick's global count; `history` keeps the last
+    TICK_HISTORY TickRecords.
+    """
+
+    def __init__(self, engine: ShardedPipelineEngine,
+                 control: Optional[ClusterControl] = None,
+                 idle_interval_s: float = 0.005,
+                 presence_every_ticks: int = 0,
+                 max_batches_per_tick: int = 16,
+                 queue_bound: int = 64,
+                 on_alerts: Optional[Callable] = None,
+                 on_presence_missing: Optional[Callable] = None,
+                 forward_foreign: Optional[Callable] = None,
+                 on_fatal: Optional[Callable] = None):
+        self.engine = engine
+        self.control = control or ClusterControl(engine.mesh)
+        self.idle_interval_s = idle_interval_s
+        self.presence_every_ticks = presence_every_ticks
+        self.max_batches_per_tick = max_batches_per_tick
+        self.queue_bound = queue_bound
+        self.on_alerts = on_alerts
+        self.on_presence_missing = on_presence_missing
+        self.forward_foreign = forward_foreign
+        self.on_fatal = on_fatal
+        self.tick_count = 0
+        self.processed = 0
+        self.history: deque = deque(maxlen=TICK_HISTORY)
+        self.fatal: Optional[BaseException] = None
+        self._q: deque = deque()
+        self._q_cond = threading.Condition()
+        self._pending_tickets: List[FoldTicket] = []
+        self._stop_requested = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._done = threading.Event()
+
+    # -- producer side -----------------------------------------------------
+    def feed(self, batch: EventBatch,
+             timeout_s: float = 30.0) -> FoldTicket:
+        """Queue a flat batch for the next tick; blocks while the queue is
+        full (backpressure). Returns the fold ticket."""
+        ticket = FoldTicket()
+        deadline = time.monotonic() + timeout_s
+        with self._q_cond:
+            if self._done.is_set():
+                raise RuntimeError("cluster step loop stopped")
+            while len(self._q) >= self.queue_bound:
+                if self._done.is_set():
+                    raise RuntimeError("cluster step loop stopped")
+                if time.monotonic() > deadline:
+                    raise TimeoutError("cluster feed queue full")
+                self._q_cond.wait(timeout=0.1)
+            self._q.append((batch, ticket))
+            self._q_cond.notify_all()
+        return ticket
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._done.clear()
+        self._stop_requested.clear()
+        self._thread = threading.Thread(target=self._run,
+                                        name="cluster-step-loop",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout_s: float = 60.0) -> None:
+        """Request a coordinated stop; returns once the loop exits (every
+        host's loop exits after the same tick via the vote collective)."""
+        self._stop_requested.set()
+        with self._q_cond:
+            self._q_cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout_s)
+            self._thread = None
+
+    # -- the loop ----------------------------------------------------------
+    def _drain_for_tick(self) -> List:
+        items: List = []
+        if self.engine.pending_overflow > self.engine.max_overflow_events:
+            return items  # backpressure: let lockstep ticks drain it
+        with self._q_cond:
+            while self._q and len(items) < self.max_batches_per_tick:
+                items.append(self._q.popleft())
+            if items:
+                self._q_cond.notify_all()
+        return items
+
+    def _tick(self) -> int:
+        from sitewhere_tpu_torch.parallel.router import concat_flat_batches
+
+        t0 = time.perf_counter()
+        items = self._drain_for_tick()
+        if items:
+            batches = [b for b, _ in items]
+            batch = (batches[0] if len(batches) == 1
+                     else concat_flat_batches(batches))
+        else:
+            batch = empty_batch(1)
+        routed, outputs = self.engine.submit(batch)
+        processed = int(outputs.processed)
+        alerts = self.engine.materialize_alerts(routed, outputs)
+        if alerts and self.on_alerts is not None:
+            self.on_alerts(alerts)
+        foreign = self.engine.take_foreign()
+        if foreign is not None and self.forward_foreign is not None:
+            self.forward_foreign(foreign)
+        self.tick_count += 1
+        if (self.presence_every_ticks
+                and self.tick_count % self.presence_every_ticks == 0):
+            missing = self.engine.presence_sweep()
+            if missing and self.on_presence_missing is not None:
+                self.on_presence_missing(missing)
+        self._pending_tickets.extend(t for _, t in items)
+        if self._pending_tickets and self.engine.pending_overflow == 0:
+            for ticket in self._pending_tickets:
+                ticket.resolve()
+            self._pending_tickets.clear()
+        self.processed += processed
+        self.history.append(TickRecord(
+            t0, time.perf_counter() - t0, len(items),
+            int(np.asarray(batch.valid).sum()), processed))
+        return len(items)
+
+    def _run(self) -> None:
+        try:
+            while True:
+                worked = self._tick()
+                votes = self.control.vote(self._stop_requested.is_set())
+                if votes >= self.control.n_shards:
+                    break
+                if worked == 0 and not self._stop_requested.is_set():
+                    with self._q_cond:
+                        if not self._q:
+                            self._q_cond.wait(timeout=self.idle_interval_s)
+        except BaseException as exc:  # noqa: BLE001 - a dead loop must be loud
+            self.fatal = exc
+            LOGGER.critical("cluster step loop died: %s", exc, exc_info=True)
+            if self.on_fatal is not None:
+                try:
+                    self.on_fatal(exc)
+                except Exception:
+                    pass
+        finally:
+            self._done.set()
+            with self._q_cond:
+                self._q_cond.notify_all()
+                queued = [t for _, t in self._q]
+                self._q.clear()
+            # tickets that will never fold FAIL (waiters raise -> their
+            # consumer batches redeliver; committing them would lose rows
+            # that only ever reached volatile memory)
+            reason = self.fatal or RuntimeError("step loop stopped")
+            for ticket in self._pending_tickets + queued:
+                ticket.fail(reason)
+            self._pending_tickets.clear()
+
+
+# ---------------------------------------------------------------------------
+# foreign-row forwarding over busnet
+# ---------------------------------------------------------------------------
+
+class ForeignRowForwarder:
+    """Publish foreign-owned rows to the owner host's bus edge.
+
+    At-least-once: a publish that fails after the client's retry budget
+    parks the encoded group on the LOCAL dead-letter topic
+    `<foreign-topic>.dead-letter` (durable when the bus has a data_dir)
+    instead of dropping — the dead-letter surface can replay it later."""
+
+    def __init__(self, process_id: int, peers: Dict[int, BusClient],
+                 naming: TopicNaming, local_bus=None):
+        self.process_id = process_id
+        self.peers = peers
+        self.topic = foreign_rows_topic(naming)
+        self.local_bus = local_bus
+        self.forwarded = 0
+        self.dead_lettered = 0
+
+    def forward(self, engine: ShardedPipelineEngine,
+                batch: EventBatch) -> None:
+        groups = encode_foreign_rows(engine, batch)
+        for pid, (payload, n_rows) in groups.items():
+            if pid == self.process_id:
+                continue  # should not happen; local rows never stash
+            client = self.peers.get(pid)
+            key = str(pid).encode()
+            try:
+                if client is None:
+                    raise BusNetError(f"no bus edge known for process {pid}")
+                client.publish(self.topic, key, payload)
+                self.forwarded += n_rows  # ROWS, comparable to the owner's
+                #                           consumed_foreign counter
+            except BusNetError as exc:
+                LOGGER.error("foreign-row forward to process %d failed: %s",
+                             pid, exc)
+                if self.local_bus is not None:
+                    self.local_bus.publish(f"{self.topic}.dead-letter",
+                                           key, payload)
+                    self.dead_lettered += n_rows
+
+
+class ForeignRowsConsumer:
+    """Owner-side consumer: decode forwarded rows and feed them to the
+    step loop, committing only after the fold ticket fires (at-least-once
+    across the host boundary). Rows this host does NOT own by its own
+    registry's mapping (provisioning drift between hosts) park on the
+    misroute dead-letter topic rather than ping-ponging back. `on_folded`
+    gets each handled batch of records once all of them folded."""
+
+    def __init__(self, bus, naming: TopicNaming, engine, loop: ClusterStepLoop,
+                 owner_check: Optional[Callable[[str], bool]] = None,
+                 group_id: str = FOREIGN_ROWS_GROUP,
+                 on_folded: Optional[Callable[[List[Record]], None]] = None):
+        self.bus = bus
+        self.engine = engine
+        self.loop = loop
+        self.owner_check = owner_check
+        self.on_folded = on_folded
+        self.consumed_rows = 0
+        self.misrouted_rows = 0
+        self._misroute_topic = f"{foreign_rows_topic(naming)}.misrouted"
+        self._host = ConsumerHost(
+            bus, foreign_rows_topic(naming), group_id=group_id,
+            handler=self._handle)
+
+    def start(self) -> None:
+        self._host.start()
+
+    def stop(self) -> None:
+        self._host.stop()
+
+    def _handle(self, records: List[Record]) -> None:
+        tickets = []
+        for record in records:
+            for batch in decode_foreign_rows(self.engine, record.value):
+                batch = self._drop_misrouted(batch, record)
+                if not np.asarray(batch.valid).any():
+                    continue
+                tickets.append(self.loop.feed(batch))
+                self.consumed_rows += int(np.asarray(batch.valid).sum())
+        for ticket in tickets:
+            if not ticket.wait(timeout=60.0):
+                raise TimeoutError("foreign rows not folded within 60s")
+        if self.on_folded is not None:
+            self.on_folded(records)
+
+    def _drop_misrouted(self, batch: EventBatch, record: Record) -> EventBatch:
+        if self.owner_check is None:
+            return batch
+        valid = np.asarray(batch.valid).copy()
+        rows = np.nonzero(valid)[0]
+        bad = []
+        for row in rows:
+            token = self.engine.packer.devices.token_of(
+                int(np.asarray(batch.device_idx)[row]))
+            # unknown tokens (idx 0) stay: they fold as unregistered
+            if token is not None and not self.owner_check(token):
+                bad.append(row)
+        if bad:
+            self.misrouted_rows += len(bad)
+            valid[np.asarray(bad)] = False
+            # park ONLY the misrouted rows (re-encoded): parking the whole
+            # record would double-apply the owned rows — which fold now —
+            # when an operator later replays the misroute topic
+            self.bus.publish(self._misroute_topic, record.key,
+                             encode_rows(self.engine, batch,
+                                         np.asarray(bad)))
+            LOGGER.warning("%d forwarded rows not owned here (registry "
+                           "drift?) — parked on %s", len(bad),
+                           self._misroute_topic)
+            return batch.replace(valid=valid)
+        return batch
 
 
 # ---------------------------------------------------------------------------
@@ -1186,7 +1694,302 @@ def _cluster_telemetry(cluster) -> Dict:
 
 
 # ---------------------------------------------------------------------------
-# control-plane-only cluster (no SPMD mesh)
+# composition root: one cluster host
+# ---------------------------------------------------------------------------
+
+class ClusterService:
+    """Everything one host of an N-process instance runs, composed.
+
+    Wire-up (the Microservice.java:182-236 boot sequence):
+    busnet server over the instance's bus (so peers and edge processes can
+    produce/consume), BusClients to every peer's edge, the lockstep step
+    loop with alert/presence persistence callbacks, foreign-row
+    forwarding + consumption, state heartbeats, the topology aggregator,
+    and the peer watchdog. Install on a SiteWhereInstance BEFORE
+    instance.start() — tenant engines created afterwards pick up the
+    cluster hooks in their inbound processors (ownership routing +
+    lockstep feeding).
+
+    Also serves as the `cluster` hooks object InboundProcessingService
+    consumes: owner_process / forward_decoded / feed_hot.
+    """
+
+    def __init__(self, instance, process_id: int, num_processes: int,
+                 peer_bus_addrs: Optional[Dict[int, tuple]] = None,
+                 bus_host: str = "127.0.0.1", bus_port: int = 0,
+                 heartbeat_s: float = 1.0, stale_after_s: float = 5.0,
+                 fail_after_s: float = 15.0,
+                 presence_every_ticks: int = 0,
+                 idle_interval_s: float = 0.005,
+                 exit_on_peer_loss: bool = False,
+                 peer_loss_exit_code: int = 13,
+                 registry_gossip: bool = True):
+        from sitewhere_tpu_torch.runtime.busnet import BusServer
+
+        engine = instance.pipeline_engine
+        if not isinstance(engine, ShardedPipelineEngine):
+            raise TypeError(
+                "ClusterService requires a ShardedPipelineEngine instance "
+                "(enable_pipeline with a mesh/shards configuration)")
+        self.instance = instance
+        self.engine = engine
+        self.process_id = process_id
+        self.num_processes = num_processes
+        self.exit_on_peer_loss = exit_on_peer_loss
+        self.peer_loss_exit_code = peer_loss_exit_code
+        self.degraded: List[str] = []
+        self._proc_of_shard = engine.mesh.process_of_shard
+
+        naming = instance.naming
+        self.bus_server = BusServer(instance.bus, host=bus_host,
+                                    port=bus_port)
+        # serve this host's telemetry snapshot to peers (the fan-in for
+        # GET /api/cluster/telemetry rides the existing bus edge)
+        self.bus_server.telemetry_provider = (
+            lambda: _telemetry_snapshot(instance, process_id))
+        self.peers: Dict[int, BusClient] = {}
+        for pid, addr in (peer_bus_addrs or {}).items():
+            if int(pid) != process_id:
+                self.peers[int(pid)] = BusClient(addr[0], int(addr[1]))
+
+        self.forwarder = ForeignRowForwarder(
+            process_id, self.peers, naming, local_bus=instance.bus)
+        self.control = ClusterControl(engine.mesh)
+        self.loop = ClusterStepLoop(
+            engine, control=self.control,
+            idle_interval_s=idle_interval_s,
+            presence_every_ticks=presence_every_ticks,
+            on_alerts=self._persist_alerts,
+            on_presence_missing=self._persist_presence_missing,
+            forward_foreign=lambda batch: self.forwarder.forward(
+                engine, batch),
+            on_fatal=self._on_fatal)
+        self.foreign_consumer = ForeignRowsConsumer(
+            instance.bus, naming, engine, self.loop,
+            owner_check=lambda token: (self.owner_process(token)
+                                       == self.process_id))
+        self.reporter = ProcessStateReporter(
+            process_id, instance.bus, naming, self.peers,
+            build_state=self._build_state, interval_s=heartbeat_s)
+        self.gossip = (RegistryGossip(process_id, self.peers, instance,
+                                      naming) if registry_gossip else None)
+        if self.gossip is not None:
+            self.gossip.register_rules_engine(engine)
+            self.gossip.register_scripts(instance)
+        # tenant/user/authority provisioning replication with reactive
+        # engine lifecycle (multitenant/replication.py) — same flag as
+        # the registry gossip: both are the control plane
+        self.provisioning = (ProvisioningReplicator(
+            process_id, self.peers, instance, naming)
+            if registry_gossip else None)
+        # epoch stamping (runtime/recovery.py): the gang restarts as
+        # a unit, so there is no takeover monitor here — but stamping
+        # gossip/provisioning envelopes and busnet RPCs means a zombie
+        # from BEFORE the gang restart (a host the supervisor failed to
+        # kill) is fenced out once any peer raises its floor.
+        epoch = int(getattr(instance, "recovery_epoch", 0))
+        if self.gossip is not None:
+            self.gossip.set_epoch(epoch)
+        if self.provisioning is not None:
+            self.provisioning.set_epoch(epoch)
+        for client in self.peers.values():
+            client.set_epoch(f"proc:{process_id}", epoch)
+        self.aggregator = TopologyAggregator(
+            instance.bus, naming, stale_after_s=stale_after_s)
+        expected_peers = [p for p in range(num_processes)
+                          if p != process_id]
+        self.watchdog = PeerWatchdog(
+            self.aggregator, expected_peers, fail_after_s=fail_after_s,
+            on_peer_loss=self._on_peer_loss)
+        instance.cluster_hooks = self
+
+    # -- hooks consumed by InboundProcessingService ------------------------
+    def owner_process(self, token: str) -> int:
+        """Process owning a device token's shard; unknown tokens are
+        handled locally (they surface on the unregistered path)."""
+        idx = self.engine.registry.devices.lookup(token)
+        if idx <= 0:
+            return self.process_id
+        return int(self._proc_of_shard[idx % self.engine.n_shards])
+
+    def forward_decoded(self, groups: Dict[int, List[Record]],
+                        tenant: str) -> None:
+        """Republish decoded-event records to their owner hosts' decoded
+        topics (pre-persist ownership routing). Raises on delivery failure
+        so the consumer's batch redelivers (at-least-once). Each record is
+        stamped `fwdFrom` — if the receiving host's registry DISAGREES on
+        ownership (provisioning drift), the stamp lets it dead-letter the
+        record instead of forwarding it back forever."""
+        topic = self.instance.naming.event_source_decoded_events(tenant)
+        for pid, records in groups.items():
+            client = self.peers.get(int(pid))
+            if client is None:
+                raise BusNetError(f"no bus edge known for process {pid}")
+            stamped = []
+            for record in records:
+                try:
+                    data = msgpack.unpackb(record.value, raw=False)
+                    data["fwdFrom"] = self.process_id
+                    stamped.append((record.key,
+                                    msgpack.packb(data, use_bin_type=True)))
+                except Exception:
+                    stamped.append((record.key, record.value))
+            client.publish_batch(topic, stamped)
+
+    def feed_hot(self, events, tokens) -> List[FoldTicket]:
+        """Queue locally-owned persisted events for the lockstep step;
+        returns fold tickets (wait before committing offsets)."""
+        return [self.loop.feed(batch)
+                for batch in self.engine.packer.pack_events(events, tokens)]
+
+    # -- step-loop callbacks ----------------------------------------------
+    def _resolve_assignment(self, device_token: str):
+        tensors = self.instance.registry_tensors
+        if tensors is None:
+            return None, None
+        tenant_token = tensors.tenant_of_device(device_token)
+        if tenant_token is None:
+            return None, None
+        tenant_engine = self.instance.get_tenant_engine(tenant_token)
+        if tenant_engine is None:
+            return None, None
+        device = tenant_engine.registry.get_device_by_token(device_token)
+        if device is None:
+            return tenant_engine, None
+        return (tenant_engine,
+                tenant_engine.registry.get_active_assignment(device.id))
+
+    def _persist_alerts(self, alerts) -> None:
+        for alert in alerts:
+            try:
+                tenant_engine, assignment = self._resolve_assignment(
+                    alert.device_id)
+                if tenant_engine is None or assignment is None:
+                    continue
+                tenant_engine.event_management.add_alerts(
+                    assignment.token, alert)
+            except Exception:
+                LOGGER.exception("cluster alert persist failed for %s",
+                                 alert.device_id)
+
+    def _persist_presence_missing(self, tokens: List[str]) -> None:
+        from sitewhere_tpu_torch.model.event import DeviceStateChange
+        from sitewhere_tpu_torch.model.state import PresenceState
+
+        for token in tokens:
+            try:
+                tenant_engine, assignment = self._resolve_assignment(token)
+                if tenant_engine is None or assignment is None:
+                    continue
+                tenant_engine.event_management.add_state_changes(
+                    assignment.token, DeviceStateChange(
+                        device_id=token, attribute="presence",
+                        type="presence",
+                        previous_state=PresenceState.PRESENT.name,
+                        new_state=PresenceState.NOT_PRESENT.name))
+            except Exception:
+                LOGGER.exception("presence state-change persist failed "
+                                 "for %s", token)
+
+    def _build_state(self) -> Dict:
+        state = {
+            "instance_id": self.instance.instance_id,
+            "status": self.instance.status.name,
+            "tick": self.loop.tick_count,
+            "forwarded_rows": self.forwarder.forwarded,
+            "consumed_foreign": self.foreign_consumer.consumed_rows,
+        }
+        if self.gossip is not None:
+            state["gossip_published"] = self.gossip.published
+            state["gossip_applied"] = self.gossip.applied
+        if self.provisioning is not None:
+            state["provisioning_published"] = self.provisioning.published
+            state["provisioning_applied"] = self.provisioning.applied
+        _annotate_recovery_state(self, state)
+        return state
+
+    def _on_fatal(self, exc: BaseException) -> None:
+        LOGGER.critical("cluster host %d step loop fatal: %s",
+                        self.process_id, exc)
+        if self.exit_on_peer_loss:
+            import os
+
+            os._exit(self.peer_loss_exit_code)
+        # exit_on_peer_loss=False (examples/tests): the process survives
+        # with a dead loop — STOP heartbeating so peers' staleness
+        # watchdogs see the failure instead of a live-looking host whose
+        # vote/step collectives hang forever
+        self.reporter.stop()
+
+    def _on_peer_loss(self, stale: List[str]) -> None:
+        self.degraded = stale
+        if self.exit_on_peer_loss:
+            import os
+
+            LOGGER.critical("exiting for gang restart (peers lost: %s)",
+                            stale)
+            os._exit(self.peer_loss_exit_code)
+
+    # -- composite lifecycle ----------------------------------------------
+    @property
+    def bus_port(self) -> int:
+        return self.bus_server.port
+
+    def start(self) -> None:
+        """Boot order matters: the bus edge first (peers may already be
+        publishing), then the instance — which fully initializes the
+        engine BEFORE the lockstep loop's first submit (a lazy init racing
+        instance.start() left _sharded_step half-built) — then the loop
+        and its consumers, then heartbeats and the watchdog. Feeds that
+        tenant-engine consumers enqueue before the loop starts simply wait
+        in its queue."""
+        self.bus_server.start()
+        self.aggregator.start()
+        self.instance.start()
+        self.loop.start()
+        self.foreign_consumer.start()
+        if self.gossip is not None:
+            self.gossip.start()
+        if self.provisioning is not None:
+            self.provisioning.start()
+        self.reporter.start()
+        self.watchdog.start()
+
+    def stop(self) -> None:
+        self.watchdog.stop()
+        self.reporter.stop()
+        if self.provisioning is not None:
+            self.provisioning.stop()
+        if self.gossip is not None:
+            self.gossip.stop()
+        self.instance.stop()
+        self.foreign_consumer.stop()
+        self.loop.stop()
+        self.aggregator.stop()
+        for client in self.peers.values():
+            client.close()
+        self.bus_server.stop()
+
+    def processes(self) -> Dict[str, Dict]:
+        """Cluster process map for instance topology (/admin): every
+        heartbeat-known process plus self, with liveness."""
+        out = self.aggregator.snapshot()
+        me = str(self.process_id)
+        if me not in out:
+            state = self._build_state()
+            state["process_id"] = self.process_id
+            state["age_s"] = 0.0
+            state["stale"] = False
+            out[me] = state
+        return out
+
+    def cluster_telemetry(self) -> Dict:
+        """Cluster-wide telemetry fan-in (GET /api/cluster/telemetry)."""
+        return _cluster_telemetry(self)
+
+
+# ---------------------------------------------------------------------------
+# control-plane-only cluster (no data plane)
 # ---------------------------------------------------------------------------
 
 class ControlPlaneCluster:
@@ -1225,7 +2028,7 @@ class ControlPlaneCluster:
         self.bus_server = BusServer(instance.bus, host=bus_host,
                                     port=bus_port)
         # peer telemetry for GET /api/cluster/telemetry (same fan-in as
-        # the SPMD cluster — the control plane has a bus edge too)
+        # data-plane cluster — the control plane has a bus edge too)
         self.bus_server.telemetry_provider = (
             lambda: _telemetry_snapshot(instance, process_id))
         self.peers: Dict[int, BusClient] = {}

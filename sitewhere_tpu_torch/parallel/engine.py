@@ -28,20 +28,45 @@ with its drain steps, `materialize_alerts` from the per-shard lanes
 canonical (flat, topology-independent) layout of all four state groups
 that checkpoints carry across topologies.
 
-Single-controller only: `is_multiprocess` is False, `take_foreign` returns
-None, and the multi-host data plane (ROADMAP A6d) is not here.
+On a multi-process mesh (parallel/distributed.py `make_global_mesh`) the
+engine is one host of the reference's multi-host data plane. It holds its
+own contiguous block of shards, stacked `[S_local, D/S, ...]` on its own
+device, and every process runs the same step in lockstep
+(parallel/cluster.py `ClusterStepLoop`):
+
+  - Per-host feeding. The host route places a batch's rows on all S
+    shards; only the local shards' rows are staged, and the rows of
+    another process's shards come back through `take_foreign` as a flat
+    batch with global device indices, for the caller to forward to their
+    owner. Device routing is refused, and the wire layout is pinned to the
+    full one, so every process captures the same program.
+  - The step loops over the local shards inside the captured graph, and
+    sums the three int32 shard sums locally; after each replay they go
+    through one gloo `all_reduce(SUM)` on the mesh's step group (an
+    integer sum, so the order cannot change a bit). No collective is
+    inside the graph, and `submit` runs no drain steps: a host-local
+    number of steps would pair one host's sums with a peer's next step.
+  - Reads are local: alerts, command fires and the presence sweep cover
+    this host's devices, `get_device_state` answers None for another
+    host's device, and `stats` are this host's (`scope: local`). The
+    canonical snapshots raise (they would need a gather inside the
+    lockstep protocol); `local_state_shards` and the
+    `local_{rule,model,actuation}_state_blocks` pairs save and restore
+    this host's blocks (the checkpoint's `host-shards` layout).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from functools import partial
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from sitewhere_tpu_torch.errors import ErrorCode, SiteWhereError
 from sitewhere_tpu_torch.model.event import DeviceAlert
 from sitewhere_tpu_torch.ops.actuate import (
     DecodedCommandLanes, decode_command_lanes, init_actuation_state)
@@ -57,7 +82,8 @@ from sitewhere_tpu_torch.ops.route import (
 from sitewhere_tpu_torch.ops.stateful import init_rule_state
 from sitewhere_tpu_torch.parallel.mesh import (
     ShardMesh, make_mesh, shard_axis_size)
-from sitewhere_tpu_torch.parallel.router import FlatBatchArena, ShardRouter
+from sitewhere_tpu_torch.parallel.router import (
+    FlatBatchArena, ShardRouter, concat_flat_batches)
 from sitewhere_tpu_torch.pipeline.engine import (
     _SECOND_COUNTER, PipelineEngine, record_event)
 from sitewhere_tpu_torch.pipeline.graph import commit
@@ -88,13 +114,17 @@ class RoutedBlobView:
     unpack on first access (only alert materialization needs them, and
     only for steps that fired). Column attributes proxy to the unpacked
     batch. A pooled blob on loan from the router goes back through
-    `release` when the view is garbage-collected."""
+    `release` when the view is garbage-collected. Under multi-process
+    feeding the blob holds the local shards only, `shard_ids` their global
+    indices."""
 
-    __slots__ = ("blob", "_batch", "_release", "__weakref__")
+    __slots__ = ("blob", "shard_ids", "_batch", "_release", "__weakref__")
 
     def __init__(self, blob: np.ndarray,
-                 release: Optional[Callable[[], None]] = None):
+                 release: Optional[Callable[[], None]] = None,
+                 shard_ids: Optional[List[int]] = None):
         self.blob = blob
+        self.shard_ids = shard_ids
         self._batch = None
         self._release = release
 
@@ -265,6 +295,13 @@ class ShardedPipelineEngine(PipelineEngine):
                              f"{mesh.device}")
         self.mesh = mesh
         self.n_shards = shard_axis_size(mesh)
+        # this process's shards (all of them on one controller): a
+        # contiguous block of the shard axis
+        self.local_shards: List[int] = list(mesh.local_shards)
+        self._local_ids = np.asarray(self.local_shards, np.int32)
+        self._local = slice(self.local_shards[0], self.local_shards[-1] + 1)
+        self._foreign: Optional[EventBatch] = None
+        self.sum_reduces, self.sum_reduce_s = 0, 0.0
         if registry_tensors.devices.capacity % self.n_shards:
             raise ValueError(
                 f"max_devices {registry_tensors.devices.capacity} must be "
@@ -280,13 +317,24 @@ class ShardedPipelineEngine(PipelineEngine):
         if ring:
             self.router.alloc = lambda shape, dtype: torch.empty(
                 shape, dtype=torch.int32, pin_memory=True).numpy()
+        if self.is_multiprocess:
+            # lockstep: every host captures the same program, whatever its
+            # batches' content would pick
+            self.router.fixed_wire_rows = WIRE_ROWS
         # the host packer takes a whole mesh's worth of events a batch
         self.packer = EventPacker(per_shard_batch * self.n_shards,
                                   registry_tensors.devices)
-        # on-device routing: auto on with two or more shards (a one-shard
-        # "mesh" has nothing to exchange and keeps the host baseline)
+        # on-device routing: auto on with two or more shards of one
+        # controller (a one-shard "mesh" has nothing to exchange and keeps
+        # the host baseline; a cluster host feeds its own shards and hands
+        # the rest back through take_foreign)
         if device_routing is None:
-            device_routing = self.n_shards >= 2
+            device_routing = self.n_shards >= 2 and not self.is_multiprocess
+        elif device_routing and self.is_multiprocess:
+            raise ValueError(
+                "device_routing is single-controller only: multi-host "
+                "clusters feed per-host and forward foreign rows over "
+                "the bus edge (take_foreign)")
         self.device_routing = bool(device_routing)
         self.route_lane_capacity = route_lane_capacity(
             per_shard_batch, self.n_shards)
@@ -306,16 +354,50 @@ class ShardedPipelineEngine(PipelineEngine):
         # (bounded: overflow counts on alerts_dropped)
         self.max_pending_alerts = 65536
 
-    # -- the single-controller topology ----------------------------------------
+    # -- the multi-process topology ------------------------------------------
 
     @property
     def is_multiprocess(self) -> bool:
-        return False
+        return self.mesh.is_multiprocess
+
+    @property
+    def n_local(self) -> int:
+        return len(self.local_shards)
 
     def take_foreign(self) -> Optional[EventBatch]:
-        """Rows owned by another host's shards: none on one controller
-        (the multi-host data plane is ROADMAP A6d)."""
-        return None
+        """Rows this host ingested whose owner shard lives on ANOTHER
+        process, as a flat batch with global device indices (None when
+        there are none), for the caller to forward over the bus edge to
+        their owner: never dropped here."""
+        batch, self._foreign = self._foreign, None
+        return batch
+
+    def _stash_foreign(self, routed_blob: np.ndarray) -> None:
+        """Accumulate the valid rows routed to non-local shards."""
+        local = set(self.local_shards)
+        others = [s for s in range(self.n_shards) if s not in local]
+        sub = routed_blob[others]                       # [F, rows, B]
+        if not ((sub[:, 0, :] >> _VALID_SHIFT) & 1).any():
+            return
+        cols = blob_to_batch_np(sub)                    # local indices
+        shard_of = np.repeat(np.asarray(others, np.int32), sub.shape[-1])
+        flat = {f.name: np.asarray(getattr(cols, f.name)).reshape(-1)
+                for f in dataclasses.fields(cols)}
+        flat["device_idx"] = flat["device_idx"] * self.n_shards + shard_of
+        rows = np.nonzero(flat["valid"])[0]
+        batch = EventBatch(**{k: v[rows] for k, v in flat.items()})
+        self._foreign = (batch if self._foreign is None
+                         else concat_flat_batches([self._foreign, batch]))
+
+    def _multihost_refusal(self, what: str) -> SiteWhereError:
+        return SiteWhereError(
+            f"{what} is not available on a live cluster (it would need a "
+            f"collective inside the lockstep protocol); each host saves "
+            f"its own shard blocks (local_state_shards, no collective). "
+            f"Merge every host's checkpoint into the canonical "
+            f"any-topology snapshot offline: `python -m sitewhere_tpu_torch "
+            f"assemble-checkpoint <host0-ckpt> <host1-ckpt> ... --out "
+            f"<dir>`", ErrorCode.GENERIC, http_status=409)
 
     # -- state layout ----------------------------------------------------------
 
@@ -326,7 +408,7 @@ class ShardedPipelineEngine(PipelineEngine):
                 self._state = _stacked(init_device_state(
                     self.registry.devices.capacity // S,
                     self.measurement_slots, self.max_tenants,
-                    device=self.device), S)
+                    device=self.device), self.n_local)
         self._ensure_params()
 
     def _init_group(self, group: str):
@@ -336,22 +418,36 @@ class ShardedPipelineEngine(PipelineEngine):
                 "actuation": init_actuation_state}[group]
         S = self.n_shards
         return _stacked(init(self.registry.devices.capacity // S, *dims,
-                             device=self.device), S)
+                             device=self.device), self.n_local)
 
     def _device_rows(self, column: np.ndarray) -> np.ndarray:
-        return self.router.shard_param(column)
+        return np.ascontiguousarray(
+            self.router.shard_param(column)[self._local])
 
     def _slot_counts(self, counter: torch.Tensor) -> np.ndarray:
         # per-shard additive partials: the global count is their sum
         return counter.cpu().numpy().sum(0, dtype=np.int32)
 
     def _device_row(self, field: torch.Tensor, idx: int) -> torch.Tensor:
-        return field[idx % self.n_shards, idx // self.n_shards]
+        return field[idx % self.n_shards - self._local.start,
+                     idx // self.n_shards]
+
+    def owns(self, idx: int) -> bool:
+        """Whether global device `idx` lives on one of this host's shards."""
+        return self._local.start <= idx % self.n_shards < self._local.stop
+
+    def get_device_state(self, device_token: str):
+        """A device of another host's shards answers None (ask its host:
+        ownership is static, d % S)."""
+        idx = self.registry.devices.lookup(device_token)
+        if idx > 0 and not self.owns(idx):
+            return None
+        return super().get_device_state(device_token)
 
     def _global_indices(self, mask: np.ndarray) -> np.ndarray:
         # shard-major, as the reference's sweep: local l on s is l*S + s
         shards, local = np.nonzero(mask)
-        return local * self.n_shards + shards
+        return local * self.n_shards + self._local_ids[shards]
 
     # -- the step ----------------------------------------------------------------
 
@@ -373,7 +469,7 @@ class ShardedPipelineEngine(PipelineEngine):
             blob, dropped = device_route_chunk(
                 blob, S, self.batch_size, self.route_lane_capacity)
         outs = []
-        for s in range(S):
+        for s in range(blob.shape[0]):
             views = [tree_map(lambda t: t[s], group) for group in (
                 self._state, self._rule_state, self._model_state,
                 self._actuation_state)]
@@ -411,7 +507,11 @@ class ShardedPipelineEngine(PipelineEngine):
         prepared, over_rows = self._prepare_step(batch, age=age)
         view, outputs = self._one_step(prepared)
         self.park_overflow(batch, over_rows)
-        while (self._overflow is not None
+        # a cluster host never runs extra steps: they would pair its sums
+        # with a peer's next step; its step loop stops pulling new work
+        # while the backlog is over the bound instead
+        while (not self.is_multiprocess
+               and self._overflow is not None
                and self.pending_overflow > self.max_overflow_events):
             # the caller sees only the LAST step: materialize the one about
             # to be superseded so its alerts are not lost
@@ -527,7 +627,12 @@ class ShardedPipelineEngine(PipelineEngine):
         """Fold the parked backlog into state with empty-batch drain steps
         (a checkpoint save calls this first: the backlog's bus offsets may
         be committed). Fired alerts stash for the next materialize_alerts.
-        Returns the number of drain steps."""
+        Returns the number of drain steps. Single-controller only: a
+        cluster host's checkpoint saves the backlog itself."""
+        if self.is_multiprocess:
+            raise RuntimeError(
+                "drain_pending is single-controller only; multi-host "
+                "checkpoints persist the overflow batch in the manifest")
         steps = 0
         while self.pending_overflow > 0:
             view, outputs = self.submit(empty_batch(1))
@@ -619,7 +724,18 @@ class ShardedPipelineEngine(PipelineEngine):
                           order: Optional[int] = None,
                           use_ring: bool = True) -> _StagedStep:
         """Start the transfer of a HOST-routed `[S, rows, B]` blob (the
-        host-arena half of stage_prepared)."""
+        host-arena half of stage_prepared). A cluster host stages only its
+        local shards' rows (a copy: the pooled routed blob goes back to
+        the shelf here) and stashes the others' for take_foreign."""
+        if self.is_multiprocess:
+            self._stash_foreign(routed_blob)
+            local_blob = np.ascontiguousarray(routed_blob[self._local])
+            self.router.release_staging_buffer(routed_blob)
+            dev, ready, slot = self._stage(local_blob, flight_rec, order,
+                                           use_ring)
+            return _StagedStep(dev, RoutedBlobView(
+                local_blob, shard_ids=self.local_shards), local_blob, None,
+                flight=flight_rec, slot=slot, ready=ready)
         dev, ready, slot = self._stage(routed_blob, flight_rec, order,
                                        use_ring)
         return _StagedStep(dev, RoutedBlobView(routed_blob), routed_blob,
@@ -643,6 +759,8 @@ class ShardedPipelineEngine(PipelineEngine):
             if staged.slot is not None:
                 self.staging_ring.release(staged.slot)
             raise
+        if self.is_multiprocess:
+            outputs = self._all_reduce_sums(outputs)
         rec.end_stage("dispatch")
         guard = record_event(self.device)
         if staged.slot is not None:
@@ -664,6 +782,29 @@ class ShardedPipelineEngine(PipelineEngine):
         rec.events = n_events
         self._metrics.meter("events").mark(n_events)
         return view, outputs
+
+    def _all_reduce_sums(self, outputs: ProcessOutputs) -> ProcessOutputs:
+        """The step's three int32 shard sums over every process: one gloo
+        all_reduce(SUM) of the local sums (a host tensor), after the
+        replay. Every process makes this call once a step, in the same
+        order as the step loop's vote (the mesh's step group).
+        `sum_reduces` and `sum_reduce_s` count these calls and the seconds
+        of their all_reduce."""
+        import torch.distributed as dist
+
+        parts = [getattr(outputs, name) for name in _SUMMED_OUTPUTS]
+        flat = torch.cat([p.reshape(-1) for p in parts]).cpu()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                        group=self.mesh.step_group)
+        self.sum_reduce_s += time.perf_counter() - t0
+        self.sum_reduces += 1
+        flat = flat.to(self.device)
+        out, pos = {}, 0
+        for name, part in zip(_SUMMED_OUTPUTS, parts):
+            out[name] = flat[pos:pos + part.numel()].view(part.shape)
+            pos += part.numel()
+        return outputs.replace(**out)
 
     # -- materialization -------------------------------------------------------------
 
@@ -712,8 +853,9 @@ class ShardedPipelineEngine(PipelineEngine):
             S_rows, B = dev.shape
             rows_flat = np.concatenate(
                 [s * B + d.rows for s, d in enumerate(decs)])
+            ids = self._local_ids
             shard_of = np.concatenate(
-                [np.full(d.n, s, np.int32) for s, d in enumerate(decs)])
+                [np.full(d.n, ids[s], np.int32) for s, d in enumerate(decs)])
 
             def cat(name):
                 return np.concatenate([getattr(d, name) for d in decs])
@@ -764,7 +906,8 @@ class ShardedPipelineEngine(PipelineEngine):
                 policy_slot=np.concatenate([d.policy_slot for d in decs]),
                 level=np.concatenate([d.level for d in decs]),
                 source=np.concatenate([d.source for d in decs]),
-                dev=np.concatenate([d.dev * self.n_shards + s
+                dev=np.concatenate([d.dev * self.n_shards
+                                    + self._local_ids[s]
                                     for s, d in enumerate(decs)]),
                 fired=sum(d.fired for d in decs),
                 dropped=sum(d.dropped for d in decs),
@@ -800,7 +943,10 @@ class ShardedPipelineEngine(PipelineEngine):
         """Flat device-major snapshot: device fields un-shard through the
         router layout (global d lives at (d % S, d // S)); the per-shard
         tenant counters are additive and sum. Bit-identical to a single
-        engine that processed the same events."""
+        engine that processed the same events. A cluster host raises (409):
+        see `local_state_shards`."""
+        if self.is_multiprocess:
+            raise self._multihost_refusal("multi-host canonical gather")
         with self._state_lock:
             snap = tree_map(lambda t: t.to("cpu", copy=True), self.state)
         out = {}
@@ -815,6 +961,8 @@ class ShardedPipelineEngine(PipelineEngine):
         """Re-shard a flat snapshot onto the resident state (copied in
         place): device fields to their (d % S, d // S) owner, the additive
         tenant counters onto shard 0."""
+        if self.is_multiprocess:
+            raise self._multihost_refusal("a canonical restore")
         self._ensure_started()
         S = self.n_shards
         out = {}
@@ -852,6 +1000,9 @@ class ShardedPipelineEngine(PipelineEngine):
             state = getattr(self, f"_{group}_state")
             if state is None:
                 return None
+            if self.is_multiprocess:
+                raise self._multihost_refusal(
+                    f"a multi-host canonical {group}-state gather")
             snap = tree_map(lambda t: t.to("cpu", copy=True), state)
         out = {}
         for f in dataclasses.fields(snap):
@@ -870,6 +1021,9 @@ class ShardedPipelineEngine(PipelineEngine):
         (sized to this engine's dims first): the slab re-shards, `gen`
         goes to every shard (the next step's stale check must see it),
         the additive counters land on shard 0."""
+        if self.is_multiprocess:
+            raise self._multihost_refusal(
+                f"a canonical {group}-state restore")
         mismatch = self.canonical_group_mismatch(group, state)
         if mismatch is not None:
             raise ValueError(mismatch)
@@ -889,6 +1043,88 @@ class ShardedPipelineEngine(PipelineEngine):
         with self._lock, self._state_lock:
             self._ensure_groups_sized()
             commit(getattr(self, f"_{group}_state"), type(state)(**out))
+
+    # -- the per-host shard layout (a cluster's gang-restart checkpoint) -----
+
+    def local_state_shards(self):
+        """(local shard ids, {field: [S_local, ...] host blocks}): THIS
+        host's slice of the device state, a local copy with no collective,
+        so any host checkpoints at any time without lockstep. Restores onto
+        the same topology (`load_local_state_shards`); elastic restores
+        stay the canonical layout's job."""
+        with self._state_lock:
+            blocks = {f.name: getattr(self.state, f.name).cpu().numpy()
+                      for f in dataclasses.fields(self._state)}
+        return list(self.local_shards), blocks
+
+    def load_local_state_shards(self, shard_ids, blocks) -> None:
+        """Inverse of local_state_shards on the same topology: this host's
+        blocks copied into the resident state."""
+        if list(shard_ids) != list(self.local_shards):
+            raise ValueError(
+                f"host-shard checkpoint was taken for shards "
+                f"{list(shard_ids)}; this process owns {self.local_shards} "
+                f"— per-host checkpoints restore onto the same cluster "
+                f"topology only (use a single-controller canonical "
+                f"checkpoint to change topology)")
+        self._ensure_started()
+        out = {}
+        for f in dataclasses.fields(DeviceStateTensors):
+            local = np.ascontiguousarray(blocks[f.name])
+            expect = tuple(getattr(self._state, f.name).shape)
+            if tuple(local.shape) != expect:
+                raise ValueError(
+                    f"host-shard checkpoint field {f.name}: local shape "
+                    f"{tuple(local.shape)} != engine {expect} (global "
+                    f"{(self.n_shards,) + tuple(local.shape[1:])})")
+            out[f.name] = torch.from_numpy(local)
+        with self._state_lock:
+            commit(self._state, DeviceStateTensors(**out))
+
+    def _local_group_blocks(self, group: str):
+        with self._state_lock:
+            state = getattr(self, f"_{group}_state")
+            if state is None:
+                return None
+            return {f.name: getattr(state, f.name).cpu().numpy()
+                    for f in dataclasses.fields(state)}
+
+    def _load_local_group_blocks(self, group: str, blocks) -> None:
+        """This host's blocks of a state group, copied into the resident
+        group sized to this engine's dims (ValueError when a block's shape
+        differs: the family's buckets changed since the save)."""
+        self._ensure_started()
+        with self._lock, self._state_lock:
+            self._ensure_groups_sized()
+            state = getattr(self, f"_{group}_state")
+            out = {}
+            for f in dataclasses.fields(state):
+                local = np.ascontiguousarray(blocks[f.name])
+                expect = tuple(getattr(state, f.name).shape)
+                if tuple(local.shape) != expect:
+                    raise ValueError(
+                        f"host-shard {group}-state field {f.name}: local "
+                        f"shape {tuple(local.shape)} != engine {expect}")
+                out[f.name] = torch.from_numpy(local)
+            commit(state, type(state)(**out))
+
+    def local_rule_state_blocks(self):
+        return self._local_group_blocks("rule")
+
+    def load_local_rule_state_blocks(self, blocks) -> None:
+        self._load_local_group_blocks("rule", blocks)
+
+    def local_model_state_blocks(self):
+        return self._local_group_blocks("model")
+
+    def load_local_model_state_blocks(self, blocks) -> None:
+        self._load_local_group_blocks("model", blocks)
+
+    def local_actuation_state_blocks(self):
+        return self._local_group_blocks("actuation")
+
+    def load_local_actuation_state_blocks(self, blocks) -> None:
+        self._load_local_group_blocks("actuation", blocks)
 
     def stats(self):
         with self._state_lock:
@@ -910,5 +1146,6 @@ class ShardedPipelineEngine(PipelineEngine):
             "device_route_dropped": self.device_route_dropped,
             "tenant_event_count": tenant_events,
             "tenant_alert_count": tenant_alerts,
-            "scope": "global",
+            # a cluster host's tenant totals cover its own shards only
+            "scope": "local" if self.is_multiprocess else "global",
         }

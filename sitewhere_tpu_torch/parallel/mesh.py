@@ -22,13 +22,24 @@ on ONE torch device:
     per static configuration.
 
 `make_mesh` never substitutes CPU devices for a missing card: it defaults to
-"cuda" and raises without one. Multi-process meshes (several hosts) are not
-part of this object: `ShardMesh` is single-controller by construction.
+"cuda" and raises without one.
+
+A mesh may span P processes (parallel/distributed.py `make_global_mesh`
+under an initialized `torch.distributed` group). The reference lists process
+0's devices first, so process p owns the contiguous block of shards
+`[p*S/P, (p+1)*S/P)` (`local_shards`), stacked `[S_local, D/S, ...]` on its
+own torch device; global device d still lives on shard `d % S` at local row
+`d // S`. `process_of_shard` is the counterpart of `d.process_index` over the
+reference's `mesh.devices.flat`. The collectives between processes go over
+the gloo groups the mesh carries: `step_group` for the step loop (its stop
+vote and the step's int32 sums), `query_group` for window-sharded analytics,
+so that a query and a tick never pair their collectives across processes.
+A single-process mesh has one process, every shard local and no groups.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -39,17 +50,47 @@ SHARD_AXIS = "shard"
 
 
 class ShardMesh:
-    """S shards on one torch device. `shape` answers `{SHARD_AXIS: S}` as a
-    JAX mesh's does."""
+    """S shards, this process's block of them on one torch device. `shape`
+    answers `{SHARD_AXIS: S}` as a JAX mesh's does."""
 
-    __slots__ = ("n_shards", "device")
+    __slots__ = ("n_shards", "device", "n_processes", "process_index",
+                 "step_group", "query_group")
 
-    def __init__(self, n_shards: int, device: torch.device):
+    def __init__(self, n_shards: int, device: torch.device,
+                 n_processes: int = 1, process_index: int = 0,
+                 step_group=None, query_group=None):
         if int(n_shards) < 1:
             raise ValueError(f"a mesh needs at least one shard, got "
                              f"{n_shards}")
+        if int(n_shards) % int(n_processes):
+            raise ValueError(f"{n_shards} shards do not split evenly over "
+                             f"{n_processes} processes")
+        if not 0 <= int(process_index) < int(n_processes):
+            raise ValueError(f"process {process_index} of {n_processes}")
         self.n_shards = int(n_shards)
         self.device = device
+        self.n_processes = int(n_processes)
+        self.process_index = int(process_index)
+        self.step_group = step_group
+        self.query_group = query_group
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return self.n_processes > 1
+
+    @property
+    def process_of_shard(self) -> np.ndarray:
+        """The process owning each shard (contiguous blocks, process 0's
+        first)."""
+        return np.repeat(np.arange(self.n_processes, dtype=np.int32),
+                         self.n_shards // self.n_processes)
+
+    @property
+    def local_shards(self) -> List[int]:
+        """Global indices of the shards this process holds, ascending."""
+        per = self.n_shards // self.n_processes
+        return list(range(self.process_index * per,
+                          (self.process_index + 1) * per))
 
     @property
     def shape(self):
@@ -61,13 +102,18 @@ class ShardMesh:
 
     @property
     def devices(self) -> np.ndarray:
-        """The device of each shard, as a JAX mesh's `devices` array."""
+        """The device of each shard, as a JAX mesh's `devices` array (on a
+        multi-process mesh this process's device stands for every shard:
+        torch names no device of another process)."""
         out = np.empty(self.n_shards, dtype=object)
         out[:] = [self.device] * self.n_shards
         return out
 
     def __repr__(self) -> str:
-        return f"ShardMesh(n_shards={self.n_shards}, device={self.device})"
+        procs = (f", process {self.process_index} of {self.n_processes}"
+                 if self.is_multiprocess else "")
+        return (f"ShardMesh(n_shards={self.n_shards}, device={self.device}"
+                f"{procs})")
 
 
 def make_mesh(n_shards: Optional[int] = None,

@@ -153,6 +153,9 @@ class ShardRouter:
         # pinned host allocator for pooled buffers (the engine sets it on
         # the card: pinned pages make the H2D copy asynchronous)
         self.alloc = np.empty
+        # a pinned wire layout (a cluster host pins the full one, so every
+        # host captures the same program); None picks it per batch
+        self.fixed_wire_rows: Optional[int] = None
 
     # -- loaned staging buffers ---------------------------------------------
 
@@ -227,7 +230,10 @@ class ShardRouter:
         from sitewhere_tpu_torch.ops.pack import (
             _check_device_range, wire_variant_for)
 
-        rows, ts_base = self._routable_variant(*wire_variant_for(batch))
+        if self.fixed_wire_rows is not None:
+            rows, ts_base = self.fixed_wire_rows, 0
+        else:
+            rows, ts_base = self._routable_variant(*wire_variant_for(batch))
         out = self._staging_buffer(rows)
         res = native.pack_route_blob(batch, self.n_shards,
                                      self.per_shard_batch, out=out,

@@ -41,11 +41,16 @@ engine's overflow backlog first (its bus offsets may be committed); a
 restored backlog parks on an engine that has one, and folds through steps
 on one that does not.
 
-The per-host `host-shards` layout (a multi-host save) belongs to the
-multi-host data plane (ROADMAP A6d): a restore refuses it with
-SiteWhereCheckpointError before touching the engine. `assemble_canonical`
+A cluster host (parallel/engine.py on a multi-process mesh) saves the
+per-host `host-shards` layout instead: its own shard blocks of every state
+group (`local_state_shards`, `local_{rule,model,actuation}_state_blocks`;
+no collective, so any host saves at any time) and its overflow backlog
+verbatim (draining it would run a host-local number of lockstep steps),
+with `layout`, `shard_ids`, `n_shards` and `process_id` in the manifest.
+It restores onto the same topology only (`load_local_*`), the device
+interner verbatim and the backlog parked as it was. `assemble_canonical`
 turns a cluster's per-host checkpoints into a canonical one that restores
-here.
+onto any engine.
 
 `InstanceCheckpointManager` wires the checkpointer into a running
 SiteWhereInstance: restore at boot (instance payloads first — provisioning,
@@ -549,28 +554,35 @@ class PipelineCheckpointer:
                      extra_manifest: Optional[Dict] = None) -> str:
         t0 = time.perf_counter()
         self._fence_stale_save()
-        # a sharded engine's parked overflow rows fold into state first:
-        # their bus offsets may be committed, and a snapshot without them
-        # would break the offsets <= state invariant
-        drain = getattr(engine, "drain_pending", None)
-        if drain is not None:
-            drain()
+        multihost = bool(getattr(engine, "is_multiprocess", False))
+        if not multihost:
+            # a sharded engine's parked overflow rows fold into state
+            # first: their bus offsets may be committed, and a snapshot
+            # without them would break the offsets <= state invariant
+            drain = getattr(engine, "drain_pending", None)
+            if drain is not None:
+                drain()
         captured_offsets = {
             f"{g.topic.name}@{g.group_id}": list(g.committed)
             for g in consumer_groups or []
         }
-        # canonical flat layout: topology-independent, so a checkpoint
-        # taken here restores onto any other engine or mesh size. The
-        # stateful groups (rule-program windows, anomaly feature state,
-        # actuation debounce rows) travel with it and re-join their
-        # families through the manifest's pinned slot/epoch assignment
-        arrays = {f"state.{name}": arr for name, arr in
-                  _group_arrays(engine.canonical_state()).items()}
-        for prefix, group, *_ in _GROUPS:
-            state = getattr(engine, f"canonical_{group}_state")()
-            if state is not None:
-                arrays.update({f"{prefix}{name}": arr for name, arr in
-                               _group_arrays(state).items()})
+        layout: Dict[str, Any] = {}
+        if multihost:
+            arrays, layout = self._host_shard_arrays(engine)
+        else:
+            # canonical flat layout: topology-independent, so a checkpoint
+            # taken here restores onto any other engine or mesh size. The
+            # stateful groups (rule-program windows, anomaly feature
+            # state, actuation debounce rows) travel with it and re-join
+            # their families through the manifest's pinned slot/epoch
+            # assignment
+            arrays = {f"state.{name}": arr for name, arr in
+                      _group_arrays(engine.canonical_state()).items()}
+            for prefix, group, *_ in _GROUPS:
+                state = getattr(engine, f"canonical_{group}_state")()
+                if state is not None:
+                    arrays.update({f"{prefix}{name}": arr for name, arr in
+                                   _group_arrays(state).items()})
         t_d2h = time.perf_counter()
         packer = engine.packer
         manifest: Dict[str, Any] = {
@@ -602,6 +614,7 @@ class PipelineCheckpointer:
             # epoch; its checkpoints outrank ours and _fence_stale_save
             # refuses to let a zombie clobber them
             "recovery_epoch": int(self.recovery_epoch),
+            **layout,
             **(extra_manifest or {}),
         }
         final = _write_checkpoint_dir(self.directory, arrays, manifest)
@@ -613,6 +626,31 @@ class PipelineCheckpointer:
             "bytes": sum(os.path.getsize(os.path.join(final, n))
                          for n in os.listdir(final))}
         return final
+
+    @staticmethod
+    def _host_shard_arrays(engine):
+        """A cluster host's own blocks (the per-host gang-restart layout):
+        every state group's local blocks and the parked overflow backlog
+        saved verbatim (its bus offsets may already be committed, and
+        draining it here would run a host-local number of lockstep steps).
+        Returns (arrays, the manifest's layout fields)."""
+        shard_ids, blocks = engine.local_state_shards()
+        arrays = {f"state.{name}": np.asarray(block)
+                  for name, block in blocks.items()}
+        for prefix, group, *_ in _GROUPS:
+            group_blocks = getattr(engine, f"local_{group}_state_blocks")()
+            if group_blocks:
+                arrays.update({f"{prefix}{name}": np.asarray(block)
+                               for name, block in group_blocks.items()})
+        overflow = engine.pending_overflow_batch()
+        if overflow is not None:
+            for f in dataclasses.fields(overflow):
+                arrays[f"overflow.{f.name}"] = np.asarray(
+                    getattr(overflow, f.name))
+        layout = {"layout": "host-shards", "shard_ids": list(shard_ids),
+                  "n_shards": engine.n_shards,
+                  "process_id": engine.mesh.process_index}
+        return arrays, layout
 
     def _fence_stale_save(self) -> None:
         """Refuse to write a checkpoint below the newest on-disk epoch.
@@ -695,12 +733,17 @@ class PipelineCheckpointer:
                     f"checkpoint {path} is unreadable: {err}") from err
             self._quarantine(path)
             return self.restore(engine)
-        if manifest.get("layout") == "host-shards":
+        host_shards = manifest.get("layout") == "host-shards"
+        if host_shards and list(manifest["shard_ids"]) != list(
+                getattr(engine, "local_shards", [])):
             raise SiteWhereCheckpointError(
-                f"checkpoint {path} is a per-host shard checkpoint "
-                f"(layout=host-shards): the multi-host data plane's, "
-                f"ROADMAP A6d; assemble the cluster's per-host checkpoints "
-                f"with write_assembled first")
+                f"checkpoint {path} holds host shards "
+                f"{manifest['shard_ids']} of {manifest['n_shards']} "
+                f"(layout=host-shards); this engine holds "
+                f"{list(getattr(engine, 'local_shards', []))} — per-host "
+                f"checkpoints restore onto the same cluster topology only; "
+                f"assemble the cluster's per-host checkpoints with "
+                f"write_assembled to change it")
         t_read = time.perf_counter()
         groups = {}
         for prefix, group, *_ in _GROUPS:
@@ -721,6 +764,69 @@ class PipelineCheckpointer:
         # wipe the mid-window state they pin
         for _, _, _, key, installer in _GROUPS:
             self._restore_family(engine, manifest.get(key), installer)
+        if host_shards:
+            h2d_s = self._restore_host_shards(engine, manifest, state_cols,
+                                              groups, overflow_cols)
+        else:
+            h2d_s = self._restore_canonical(engine, manifest, state_cols,
+                                            groups, overflow_cols, t_read)
+        packer = engine.packer
+        packer.epoch_base_ms = manifest["epoch_base_ms"]
+        packer.measurements.restore(manifest["interners"]["measurements"])
+        packer.alert_types.restore(manifest["interners"]["alert_types"])
+        self._remap_tenant_rows(engine,
+                                manifest["interners"].get("tenants"))
+        engine._pending_alerts.extend(
+            _alert_from_dict(d) for d in manifest.get("pending_alerts", []))
+        self._restore_rules(engine, manifest.get("rules", []))
+        if overflow_cols and not host_shards:
+            # fold LAST: the overflow's indices/timestamps only mean
+            # something under the restored interners + epoch base, and
+            # its events must fire the restored rules, not an empty set
+            _install_overflow(engine, overflow_cols)
+        self.last_restore_epoch = int(manifest.get("recovery_epoch", 0))
+        t_end = time.perf_counter()
+        self.last_timings = {"read_s": t_read - t0, "h2d_s": h2d_s,
+                             "total_s": t_end - t0}
+        return manifest.get("offsets", {})
+
+    def _restore_host_shards(self, engine, manifest, state_cols, groups,
+                             overflow_cols) -> float:
+        """A cluster host's own blocks back onto the same topology: the
+        device interner verbatim (the cluster's congruent layout is the
+        same), the state groups through `load_local_*`, the backlog parked
+        as it was (it folds through the lockstep ticks). Returns the
+        seconds spent copying state into the engine."""
+        if self._restore_devices_elastic(
+                engine, manifest["interners"]["devices"]) is not None:
+            raise SiteWhereCheckpointError(
+                "a host-shards checkpoint's device interner has another "
+                "shard layout than this engine's")
+        t0 = time.perf_counter()
+        engine.load_local_state_shards(manifest["shard_ids"], state_cols)
+        for _, group, *_ in _GROUPS:
+            cols = groups[group]
+            if not cols:
+                continue
+            try:
+                getattr(engine, f"load_local_{group}_state_blocks")(cols)
+            except ValueError as exc:
+                # the family's buckets changed since the save: its
+                # windows restart fresh, as the canonical path's do
+                _log.error("%s state did not restore (%s); its windows "
+                           "restart fresh", group, exc)
+        h2d_s = time.perf_counter() - t0
+        if overflow_cols:
+            engine.set_pending_overflow_batch(EventBatch(
+                **{f.name: np.asarray(overflow_cols[f.name])
+                   for f in dataclasses.fields(EventBatch)}))
+        return h2d_s
+
+    def _restore_canonical(self, engine, manifest, state_cols, groups,
+                           overflow_cols, t_read) -> float:
+        """The topology-independent restore of the device state and its
+        groups (elastic across interner layouts); returns the seconds spent
+        copying state into the engine."""
         perm = self._restore_devices_elastic(
             engine, manifest["interners"]["devices"])
         if perm is not None:
@@ -753,25 +859,7 @@ class PipelineCheckpointer:
             t_load = time.perf_counter()
             getattr(engine, f"load_canonical_{group}_state")(state)
             h2d_s += time.perf_counter() - t_load
-        packer = engine.packer
-        packer.epoch_base_ms = manifest["epoch_base_ms"]
-        packer.measurements.restore(manifest["interners"]["measurements"])
-        packer.alert_types.restore(manifest["interners"]["alert_types"])
-        self._remap_tenant_rows(engine,
-                                manifest["interners"].get("tenants"))
-        engine._pending_alerts.extend(
-            _alert_from_dict(d) for d in manifest.get("pending_alerts", []))
-        self._restore_rules(engine, manifest.get("rules", []))
-        if overflow_cols:
-            # fold LAST: the overflow's indices/timestamps only mean
-            # something under the restored interners + epoch base, and
-            # its events must fire the restored rules, not an empty set
-            _install_overflow(engine, overflow_cols)
-        self.last_restore_epoch = int(manifest.get("recovery_epoch", 0))
-        t_end = time.perf_counter()
-        self.last_timings = {"read_s": t_read - t0, "h2d_s": h2d_s,
-                             "total_s": t_end - t0}
-        return manifest.get("offsets", {})
+        return h2d_s
 
     @staticmethod
     def _restore_devices_elastic(engine, tokens) -> Optional[np.ndarray]:
@@ -941,10 +1029,15 @@ class InstanceCheckpointManager:
                 tenant.token)
             groups.append(self.instance.bus.consumer(
                 topic, f"inbound-processing-{tenant.token}"))
-        # (a cluster host's forwarded foreign-rows consumer comes with the
-        # sharded path, ROADMAP A6: the port's instance takes only the
-        # control-plane cluster, which forwards no rows, so every group
-        # that advances device state is listed here)
+        if getattr(self.instance, "cluster_hooks", None) is not None:
+            # the forwarded foreign-rows consumer also advances device
+            # state; capture its cursor so restore replays only the gap
+            from sitewhere_tpu_torch.parallel.cluster import (
+                FOREIGN_ROWS_GROUP, foreign_rows_topic)
+
+            groups.append(self.instance.bus.consumer(
+                foreign_rows_topic(self.instance.naming),
+                FOREIGN_ROWS_GROUP))
         return groups
 
     def save(self) -> str:

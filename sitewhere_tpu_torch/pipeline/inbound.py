@@ -55,9 +55,10 @@ class InboundProcessingService(LifecycleComponent):
     `engine` is a PipelineEngine; `events` is the tenant's
     DeviceEventManagement. Either may be None for partial wiring (e.g.
     persist-only during replay). `batcher` is the latency tier's shared
-    AdaptiveBatcher (pipeline/feed.py). The reference's multi-host hooks
-    (`cluster`: ownership routing, lockstep feeding) come with the
-    multi-host data plane (ROADMAP A6d); passing them raises.
+    AdaptiveBatcher (pipeline/feed.py). `cluster` is a data-plane
+    cluster host's hooks (parallel/cluster.py ClusterService): ownership
+    routing of decoded records before persist, and lockstep feeding of the
+    step loop; None is the single-process path (direct engine submit).
     """
 
     def __init__(self, bus: EventBus, registry, events=None, engine=None,
@@ -68,10 +69,6 @@ class InboundProcessingService(LifecycleComponent):
                  persist_rule_alerts: bool = True,
                  metrics: Optional[MetricsRegistry] = None):
         super().__init__(f"inbound-processing:{tenant}")
-        if cluster is not None:
-            raise NotImplementedError(
-                "multi-host inbound hooks (ownership routing, lockstep "
-                "feeding) come with the multi-host data plane: ROADMAP A6d")
         self.bus = bus
         self.registry = registry
         self.events = events
@@ -84,6 +81,10 @@ class InboundProcessingService(LifecycleComponent):
         # a per-consumer-poll batch — offers coalesce across tenants and
         # flush on fill or linger, bounding ingest->alert wall time
         self.batcher = batcher
+        # multi-host hooks (parallel/cluster.py ClusterService): ownership
+        # routing of decoded records + lockstep step-loop feeding. None =
+        # single-process (direct engine submit).
+        self.cluster = cluster
         m = (metrics or MetricsRegistry()).scoped("inbound")
         self.processed_meter = m.meter("processed")
         self.unregistered_counter = m.counter("unregistered")
@@ -114,6 +115,7 @@ class InboundProcessingService(LifecycleComponent):
         it synchronously without the poll thread."""
         hot: List[Tuple[DeviceEvent, str]] = []
         hot_records: List[Record] = []
+        forward: Dict[int, List[Record]] = {}
         replay_all: Optional[bool] = None  # every hot record suppressed?
         for record in records:
             try:
@@ -124,6 +126,29 @@ class InboundProcessingService(LifecycleComponent):
             except Exception:
                 self.failed_counter.inc()
                 continue
+            if self.cluster is not None:
+                # ownership routing (multi-host): records for devices whose
+                # shard lives on another host forward BEFORE persist — the
+                # owner persists + steps its own devices, so event log and
+                # device state agree on ownership (the Kafka analog: the
+                # record key routes to the owning consumer)
+                owner = self.cluster.owner_process(token)
+                if owner != self.cluster.process_id:
+                    if data.get("fwdFrom") is not None:
+                        # already forwarded once and this host STILL does
+                        # not own it: the hosts' registries disagree
+                        # (provisioning drift) — park it on the misroute
+                        # surface (visible to `deadletters list`, like
+                        # ForeignRowsConsumer's disowned rows), never
+                        # ping-pong
+                        self.failed_counter.inc()
+                        self.bus.publish(
+                            self.naming.event_source_decoded_events(
+                                self.tenant) + ".misrouted",
+                            token.encode(), record.value)
+                        continue
+                    forward.setdefault(owner, []).append(record)
+                    continue
             if not self._validate(token, record):
                 continue
             # exactly-once effects under checkpoint replay
@@ -150,7 +175,21 @@ class InboundProcessingService(LifecycleComponent):
             for event in persisted:
                 hot.append((event, token))
             self.processed_meter.mark(len(persisted))
-        if self.engine is not None and hot:
+        if forward:
+            # raises on delivery failure -> the whole batch redelivers
+            # (at-least-once; locally-persisted records may duplicate,
+            # which the model's idempotent event ids tolerate)
+            self.cluster.forward_decoded(forward, self.tenant)
+        if self.cluster is not None and hot:
+            # lockstep feeding: queue for the cluster step loop and wait
+            # for the fold ticket so the consumer commit happens only
+            # after the rows reached device state (or were forwarded)
+            for ticket in self.cluster.feed_hot([e for e, _ in hot],
+                                                [t for _, t in hot]):
+                if not ticket.wait(timeout=60.0):
+                    raise TimeoutError(
+                        "cluster step loop did not fold batch in 60s")
+        elif self.engine is not None and hot:
             # Never let the hot path poison the consumer: a raising handler
             # would redeliver the batch and re-persist duplicates forever.
             # A batch that exhausts the engine's dispatch retries parks on

@@ -341,11 +341,10 @@ def test_bus_replay_equal_to_jax():
     assert empty.num_keys == 0 and empty.totals()["events"] == 0
 
 
-def test_mesh_is_refused_not_answered_on_one_device(twin_logs):
+def test_mesh_queries_equal_jax_on_one_device(twin_logs):
     """An explicit mesh, and a mesh the planner chooses, take sharded
     analytics on the port as on the JAX package: each report equals the
-    JAX engine's over a JAX mesh of as many shards, bit for bit (the name
-    is the refusal's this test replaced)."""
+    JAX engine's over a JAX mesh of as many shards, bit for bit."""
     import sitewhere_tpu.serving as jserving
     from sitewhere_tpu.parallel.mesh import make_mesh as jax_mesh
     from sitewhere_tpu_torch.parallel.mesh import make_mesh

@@ -11,9 +11,9 @@ DIVERGES (the port's behaviour, asserted instead):
 The networked serve modes (`--feeders --bus-port`, `--feeder`,
 `--cluster-peers`, `--supervise`), the sharded pipeline (`--shards N`,
 tests/test_torch_sharded_instance.py) and the feeder landing on it
-(`--shards N --feeders`) boot on `--device cpu`; only the multi-host SPMD
-cluster (ROADMAP A6d) is refused, naming its item, with or without the
-sharded landing beside it.
+(`--shards N --feeders`) boot on `--device cpu`. The multi-host data plane
+(`--cluster-coordinator`, two processes) boots in
+tests/test_torch_cluster_cli.py.
 """
 
 import re
@@ -73,22 +73,6 @@ def test_check_passes_without_native_runtime():
     chk = _cli("check", env=env)
     assert "native host runtime: ok" in chk.stdout, chk.stdout + chk.stderr
     assert (chk.returncode != 0) == (not torch.cuda.is_available())
-
-
-@pytest.mark.parametrize("args,item", [
-    # ids as when six modes were refused: the other five boot (below;
-    # `--shards 2` in test_torch_sharded_instance.py)
-    pytest.param(("--cluster-coordinator", "127.0.0.1:1234"), "A6d",
-                 id="args3-A6"),
-    pytest.param(("--cluster-coordinator", "127.0.0.1:1234", "--shards",
-                  "2", "--feeders", "--bus-port", "0"), "A6d",
-                 id="args4-A6"),
-])
-def test_left_out_serve_modes_exit_naming_their_roadmap_item(args, item):
-    out = _cli("serve", "--port", "0", "--device", "cpu", *args,
-               timeout=120)
-    assert out.returncode != 0
-    assert f"ROADMAP {item}" in out.stderr
 
 
 def _free_port():

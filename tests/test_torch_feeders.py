@@ -46,14 +46,12 @@ def test_every_reference_scenario_runs():
 
 class TestEndToEndSharded(TestEndToEndSharded):  # noqa: F811
     """The reference's sharded landing scenarios (inherited, run as
-    written) and the packages held against each other on it. The two
-    methods below keep the names of the refusals they replaced."""
+    written) and the packages held against each other on it."""
 
-    def test_sharded_engine_is_refused_naming_a6(self, tmp_path):
+    def test_sharded_service_hello_equals_jax(self, tmp_path):
         """The port's service takes its sharded engine, and its hello
         describes the sharded landing as the JAX service's does over a JAX
-        sharded engine of the same world (the name is the refusal's
-        this test replaced)."""
+        sharded engine of the same world."""
         import test_feeders as jtf
 
         hellos = []
@@ -69,11 +67,10 @@ class TestEndToEndSharded(TestEndToEndSharded):  # noqa: F811
         assert {k: v for k, v in got.items() if k != "topic"} == \
             {k: v for k, v in want.items() if k != "topic"}
 
-    def test_sharded_hello_is_refused_naming_a6(self, tmp_path):
+    def test_cross_package_sharded_landings_equal_inline(self, tmp_path):
         """A port worker lands on a JAX sharded service and a JAX worker
         on the port's: both landing engines' canonical state equals an
-        inline JAX sharded engine fed the same frames, bit for bit (the
-        name is the refusal's this test replaced)."""
+        inline JAX sharded engine fed the same frames, bit for bit."""
         import test_feeders as jtf
 
         frames = jtf._stream(128, seed=9)

@@ -198,11 +198,10 @@ def _mesh_stacks():
 QUERY_CLASSES = {"jax": jserving.WindowQuery, "port": tplanner.WindowQuery}
 
 
-def test_mesh_route_raises_through_the_executor():
+def test_mesh_route_equals_jax_through_the_executor():
     """A planner with a mesh provider routes a large scan to "mesh" and the
     executor counts it; the report equals the JAX executor's over a JAX
-    mesh, bit for bit, under both combines (the name is the refusal's this
-    test replaced)."""
+    mesh, bit for bit, under both combines."""
     stacks = _mesh_stacks()
     routed = {pkg: ex.report()["mesh_routed_total"]
               for pkg, ex in stacks.items()}
@@ -240,11 +239,10 @@ def test_a_planner_mesh_on_another_device_fails_the_query():
         ex.stop()
 
 
-def test_a_failing_mesh_provider_reaches_the_caller():
+def test_a_failing_mesh_provider_routes_host_as_jax_does():
     """A mesh provider that raises routes the scan "host" on both packages
     (plan, choose_mesh, the engine's planner-decided mesh and the
-    executor), and the host answers equal, bit for bit (the name is the
-    divergence's this test replaced)."""
+    executor), and the host answers equal, bit for bit."""
     stacks = _mesh_stacks()
 
     def boom():

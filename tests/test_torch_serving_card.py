@@ -191,12 +191,12 @@ def test_cache_delta_fold_on_each_device(device):
 
 
 @pytest.mark.parametrize("device", DEVICES)
-def test_mesh_route_raises_on_each_device(device):
-    """The mesh route on each device (the name is the refusal's this test
-    replaced): an explicit 8-shard mesh and the planner's mesh through the
-    executor give the same bits, under each combine; counts, min and max
-    equal the host route's, sums and means within the reference's
-    rtol=1e-5, atol=1e-5; on the card, every bit equal to the CPU's."""
+def test_mesh_route_matches_the_host_route_on_each_device(device):
+    """The mesh route on each device: an explicit 8-shard mesh and the
+    planner's mesh through the executor give the same bits, under each
+    combine; counts, min and max equal the host route's, sums and means
+    within the reference's rtol=1e-5, atol=1e-5; on the card, every bit
+    equal to the CPU's."""
     from sitewhere_tpu_torch.parallel.mesh import make_mesh
 
     dev = _device(device)

@@ -27,7 +27,7 @@ def test_every_reference_test_runs():
     assert len(REFERENCE_TESTS) == 3
 
 
-def test_the_planner_gets_no_mesh(sharded_instance):
+def test_the_planner_takes_the_sharded_engines_mesh(sharded_instance):
     """The planner gets the sharded engine's mesh: a window query over
     the instance's log is routed "mesh" and counted, and its report
     equals the JAX engine's over a JAX 8-device mesh and the same
