@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port (sitewhere_tpu_torch) on one card.
+"""Smoke run of the PyTorch + CUDA port (sitewhere_tpu_torch) on the card.
 
     python3 chip_smoke.py
 
@@ -249,12 +249,38 @@ Phases (any failure prints its error and exits non-zero, with no result):
      its owner, its threshold alert persists there and reads back over the
      owner's REST API; both exit 0 on SIGTERM. `python3 chip_smoke.py
      --cluster-only` runs phase 13 alone (no result line).
+ 14. the shard axis over several cards (parallel/mesh.py card blocks,
+     parallel/engine.py one captured step a card, ops/route.py's exchange
+     between cards): phase 12's world on a mesh of K cards, every visible
+     card when there are two or more, else K = 2 blocks on cuda:0
+     (`devices=("cuda:0", "cuda:0")`, said on its own line; peer copies
+     and launches on a second card are then not exercised). (a) The
+     K-card engine and the one-card SHARDS-shard engine over phase 12's
+     schedule, host route then device route: every step's outputs, every
+     block of every state group, the alerts (set-equal, or the lanes'
+     digest) and `processed` bit-equal; step p50 / p99 and events/s of
+     both; B1 S/K replay launches a card a step and one capture a card a
+     layout; the exchange's copies and the sums' gather alone (host ms,
+     the cards waited for); device busy and idle per card over
+     MULTI_PROFILED steps (profiler); peak memory per card. (b) Phase 5's
+     world over the cards beside the one-card engine, MULTI_STATEFUL_STEPS
+     steps: alerts, fires, every group equal; rule-program launches per
+     card. (c) The K-card save restored on one card, that engine's save
+     restored on K fresh cards, bit-equal. (d) Phase 9 (g)'s mesh query
+     at its size over the cards beside the one-card mesh, both combines:
+     counts and the sum, mean, min, max bits equal; each card's fold, the
+     gather and the combine; segment-sum launches per card. (e) With two
+     or more visible cards, `serve --shards 8` over them takes a few
+     payloads and answers device-state reads. `python3 chip_smoke.py
+     --multicard-only` runs phase 14 alone (no result line).
 The last lines are the kernels' JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -5997,7 +6023,8 @@ def serve_sharded_drive(device_arg, shards=SERVE_SHARDS, env_extra=None,
                    "ingested": len(ingested),
                    "state_value": ingested[tokens[-1]],
                    "last_value": values[tokens[-1]],
-                   "device": topology["device"]}
+                   "device": topology["device"],
+                   "mesh": topology.get("mesh")}
             if feeders:
                 out.update(_serve_feeder_and_window(
                     rest, seen, tmp, tokens, values, now, shards, states))
@@ -6887,6 +6914,596 @@ def phase_cluster(dev, card):
     return summary
 
 
+# -- phase 14: the shard axis over several cards ---------------------------------
+
+# phase 12's world (SHARDS shards of BATCH // SHARDS rows, SHARD_EVENTS
+# events a step, SHARD_LAYOUTS x (SHARD_WARMUP + SHARD_STEPS) steps a route)
+# on a mesh of K cards; with one visible card, two blocks on cuda:0
+MULTI_PROFILED = 3
+MULTI_STATEFUL_STEPS = 2
+MULTI_QUERY_ROWS = READ_ROWS
+MULTI_QUERY_KEYS, MULTI_QUERY_WINDOWS = N_REGISTERED, READ_WINDOWS
+MULTI_TIMING_REPS = 20
+
+
+def multicard_cards():
+    """(cards, distinct): every visible card when there are two or more
+    (the most that divide SHARDS), else two blocks on cuda:0."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        K = min(SHARDS, n)
+        while SHARDS % K:
+            K -= 1
+        return tuple(torch.device("cuda", k) for k in range(K)), True
+    return (torch.device("cuda", 0),) * 2, False
+
+
+def card_lines():
+    """`nvidia-smi`'s name and power limit of every visible card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()
+
+
+def _sync_cards(cards):
+    for index in sorted({c.index for c in cards}):
+        torch.cuda.synchronize(index)
+
+
+def host_ms(fn, cards, reps=MULTI_TIMING_REPS):
+    """Median host ms of `fn()` with every card waited for before and
+    after (work spread over several cards has no one stream to time)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        _sync_cards(cards)
+        t0 = time.perf_counter()
+        fn()
+        _sync_cards(cards)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def profile_cards(fn, cards):
+    """The profiler around fn(): wall ms, and each card's device busy ms
+    and idle share (its device events summed once each)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync_cards(cards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync_cards(cards)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = f"cuda:{e.device_index}"
+            busy[key] = busy.get(key, 0.0) + e.self_device_time_total / 1e3
+    out = {"wall_ms": wall_ms}
+    for index in sorted({c.index for c in cards}):
+        key = f"cuda:{index}"
+        if key in busy:
+            out[key] = {"busy_ms": busy[key],
+                        "idle_share": 1 - busy[key] / wall_ms}
+        else:
+            out[key] = {"busy_ms": "not measured",
+                        "idle_share": "not measured"}
+    return out
+
+
+def blocks_equal(one, many, what):
+    """Every state group of the K-card engine, block by block, bit-equal to
+    the one-card engine's rows of the same shards (on the card)."""
+    from sitewhere_tpu_torch.tree import tree_leaves
+
+    n = many.shards_per_card
+    for group in ("_state", "_rule_state", "_model_state",
+                  "_actuation_state"):
+        ref = getattr(one, group)[0]
+        for k, block in enumerate(getattr(many, group)):
+            for a, b in zip(tree_leaves(ref), tree_leaves(block)):
+                if not torch.equal(_bits(a[k * n:(k + 1) * n]),
+                                   _bits(b).to(a.device)):
+                    raise AssertionError(f"{what}: {group} block {k} "
+                                         f"differs from the one-card rows")
+
+
+def multicard_step(engine, batch, cards, materialize):
+    """sharded_step with every card waited for: ((wall s), alert keys or
+    the lane digest, outputs)."""
+    t0 = time.perf_counter()
+    view, out = engine.submit_routed(batch)
+    _sync_cards(cards)
+    wall = time.perf_counter() - t0
+    if materialize:
+        return wall, sorted(_alert_keys(engine.materialize_alerts(
+            view, out))), out
+    return wall, lane_digest(engine, view, out), out
+
+
+class CardLaunches:
+    """Each step kernel's launches on each card index, made by one engine
+    over the cards inside `window()`s: the wrappers' own per-card counts
+    (eager launches; every wrapper's `by_card` set to 0 as a window opens,
+    read as it closes) plus the replays that engine counted on each block
+    (its `card_kernel_launches`, set to 0 here), summed on the block's
+    card. Launches made outside the windows (another engine's, a compare)
+    do not count."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.eager = {}
+        for counts in engine.card_kernel_launches:
+            counts.clear()
+
+    @contextlib.contextmanager
+    def window(self):
+        from sitewhere_tpu_torch.pipeline.graph import STEP_KERNELS
+
+        for wrapper in STEP_KERNELS.values():
+            wrapper.by_card.clear()
+        try:
+            yield
+        finally:
+            for name, wrapper in STEP_KERNELS.items():
+                mine = self.eager.setdefault(name, {})
+                for index, n in wrapper.by_card.items():
+                    mine[index] = mine.get(index, 0) + n
+
+    def by_card(self, name):
+        """{card index: eager, replays, launches} for kernel `name`."""
+        out = {}
+        for card in self.engine.cards:
+            out.setdefault(card.index, {"eager": self.eager.get(
+                name, {}).get(card.index, 0), "replays": 0})
+        for card, counts in zip(self.engine.cards,
+                                self.engine.card_kernel_launches):
+            out[card.index]["replays"] += counts.get(name, 0)
+        for entry in out.values():
+            entry["launches"] = entry["eager"] + entry["replays"]
+        return out
+
+    def check(self, name, per_block_step, steps, what):
+        """Fail unless each card launched `name` per_block_step times a
+        step for each of its blocks, and no other card launched it;
+        returns by_card(name)."""
+        got = self.by_card(name)
+        stray = set(self.eager.get(name, {})) - set(got)
+        if stray:
+            raise AssertionError(f"{what}: {name} launched on cards "
+                                 f"{sorted(stray)} outside the engine's")
+        blocks = collections.Counter(c.index for c in self.engine.cards)
+        for index, entry in got.items():
+            want = per_block_step * blocks[index] * steps
+            if entry["launches"] != want:
+                raise AssertionError(
+                    f"{what}: {name} launched {entry} on cuda:{index}; "
+                    f"expected {want} ({per_block_step} a block a step, "
+                    f"{blocks[index]} blocks, {steps} steps)")
+        return got
+
+
+def multicard_route(one, many, traffic, mode, card):
+    """(a) for one route: both engines over phase 12's schedule, each step
+    held bits against the one-card engine (outputs, every block of every
+    state group, alerts set-equal or the lanes' digest, processed); the
+    walls, B1's launches and the captures on each card."""
+    cards = many.cards
+    for engine in (one, many):
+        engine.device_routing = mode == "device"
+    schedule = shard_schedule(traffic)
+    keys_before = len(many._graphs)
+    captures_before = list(many.card_graph_captures)
+    counts = CardLaunches(many)
+    timed = {"one": [], "many": []}
+    alerts = 0
+    for n, (layout, i, batch) in enumerate(schedule):
+        first = n < len(SHARD_LAYOUTS)
+        w1, got1, out1 = multicard_step(one, batch, cards, first)
+        with counts.window():
+            w2, got2, out2 = multicard_step(many, batch, cards, first)
+        what = f"[multicard {mode}] step {n} ({layout})"
+        _outputs_bits_equal(out1, out2, what)
+        if got1 != got2:
+            raise AssertionError(f"{what}: alerts differ from the one-card "
+                                 f"engine's")
+        if int(out1.processed) != int(out2.processed):
+            raise AssertionError(f"{what}: processed differs")
+        blocks_equal(one, many, what)
+        alerts += len(got2) if first else got2[0]
+        if i >= SHARD_WARMUP:
+            timed["one"].append(w1)
+            timed["many"].append(w2)
+    _sync_cards(cards)
+    keys = len(many._graphs) - keys_before
+    n = many.shards_per_card
+    b1 = counts.check("points_in_zones", n, len(schedule),
+                      f"[multicard {mode}]")
+    captures = [c - c0 for c, c0 in zip(many.card_graph_captures,
+                                        captures_before)]
+    if captures != [keys] * len(cards) or keys != len(SHARD_LAYOUTS):
+        raise AssertionError(f"[multicard {mode}] captures per card "
+                             f"{captures} for {keys} keys")
+    if mode == "device" and many.device_route_fallbacks:
+        raise AssertionError(f"[multicard {mode}] the K-card engine spilled "
+                             f"to the host route")
+    valid = SHARD_EVENTS * len(timed["many"])
+    out = {"mode": mode, "steps": len(schedule),
+           "timed_steps": len(timed["many"]), "alerts": alerts,
+           "captures_per_card": captures,
+           "b1_launches_per_block_per_step": n,
+           "b1_by_card": b1,
+           "b1_launches": sum(e["launches"] for e in b1.values())}
+    for name in ("one", "many"):
+        walls = timed[name]
+        out[name] = {"step_ms_p50": float(np.percentile(walls, 50) * 1e3),
+                     "step_ms_p99": float(np.percentile(walls, 99) * 1e3),
+                     "events_per_s": valid / sum(walls)}
+    return out
+
+
+def multicard_costs(many, cards, batch):
+    """The parts of a device-routed step over the cards that leave the
+    state as it is, each alone (host ms, every card waited for): the
+    staging of `batch`'s flat blob a part a card (beside strided host
+    copies of the parts into pinned buffers), the route prologues'
+    replays on its lanes, the exchange's copies, both together, and the
+    sums' gather; and whether the cards reach each other's memory."""
+    flat = many._pack_flat_blob(batch)
+    steps = next(s for key, s in many._graphs.items()
+                 if tuple(key[-1]) == (flat.shape[0], flat.shape[1]))
+    parts = many._card_parts(flat)
+
+    def prologues():
+        for flat, part, graph in zip(steps.flats, parts, steps.prologues):
+            flat.copy_(part, non_blocking=True)
+            graph.replay()
+
+    def route():
+        prologues()
+        steps.exchange()
+
+    # the staging of the flat blob a part a card (into a slot of its own;
+    # a lane chunk a row at a time), and beside it what copying each
+    # strided part into a pinned buffer on the host first would cost
+    from sitewhere_tpu_torch.pipeline.staging import RingSlot
+
+    slot = RingSlot(-1)
+    host = torch.from_numpy(flat)
+    width = host.shape[1] // len(cards)
+    strided = [host[:, k * width:(k + 1) * width] for k in range(len(cards))]
+    pinned = [torch.empty(p.shape, dtype=torch.int32, pin_memory=True)
+              for p in strided]
+
+    def host_copies():
+        for dst, part in zip(pinned, strided):
+            dst.copy_(part)
+
+    out = {"stage_ms": host_ms(lambda: many._stage_copy(slot, flat), cards),
+           "strided_host_copies_ms": host_ms(host_copies, cards),
+           "prologues_ms": host_ms(prologues, cards),
+           "exchange_ms": host_ms(steps.exchange, cards),
+           "prologues_and_exchange_ms": host_ms(route, cards),
+           "sums_ms": host_ms(lambda: many._gather_outputs(
+               steps.outputs_on_first()), cards),
+           "exchange_bytes": sum(int(r.nbytes) for r in steps.received)}
+    indexes = sorted({c.index for c in cards})
+    out["peer_access"] = all(
+        torch.cuda.can_device_access_peer(a, b)
+        for a in indexes for b in indexes if a != b) \
+        if len(indexes) > 1 else "one card"
+    return out
+
+
+SPLIT_PHASES = ("prologues", "exchange", "bodies", "gathered")
+
+
+def multicard_split(one, many, cards, batches):
+    """Device-routed steps over the cards split into their phases: each of
+    `batches` taken by the one-card engine, then by the K-card engine with
+    its replays' marks on (`_CardSteps.marks`), the two held bit-equal.
+    Per block, medians over the steps of the device ms between the marks
+    on its card's stream (prologues: the blob's copy into the prologue's
+    input and the route prologue's replay; exchange: the copies between
+    cards; bodies: the body graphs' replays; gathered: the outputs' copies
+    to the first card, the sums and the concatenations), each phase's host
+    ms to queue it, and the flight record's host stages (route_device,
+    h2d, dispatch) beside the one-card engine's; the step's wall (submit
+    until every card is done)."""
+    routed = [s for s in many._graphs.values()
+              if getattr(s, "prologues", None) is not None]
+    for steps in routed:
+        steps.marks = []
+    walls, flights, flights_one = [], [], []
+    try:
+        for n, batch in enumerate(batches):
+            _, got1, out1 = multicard_step(one, batch, cards, False)
+            flights_one.append(one.flight.export(last_n=1)["records"][-1])
+            wall, got2, out2 = multicard_step(many, batch, cards, False)
+            what = f"[multicard split] step {n}"
+            _outputs_bits_equal(out1, out2, what)
+            if got1 != got2:
+                raise AssertionError(f"{what}: lanes differ")
+            walls.append(wall * 1e3)
+            flights.append(many.flight.export(last_n=1)["records"][-1])
+        marks = [m for steps in routed for m in steps.marks]
+    finally:
+        for steps in routed:
+            steps.marks = None
+    names = ("start",) + SPLIT_PHASES
+    per_step = [marks[i:i + len(names)]
+                for i in range(0, len(marks), len(names))]
+    if len(per_step) != len(batches) or any(
+            [m[0] for m in step] != list(names) for step in per_step):
+        raise AssertionError(f"[multicard split] {len(per_step)} marked "
+                             f"replays for {len(batches)} device-routed "
+                             f"steps")
+    out = {"steps": len(batches),
+           "step_ms_p50": statistics.median(walls),
+           "host_ms": {}, "flight_ms": {}, "flight_ms_one_card": {},
+           "by_block": []}
+    for j, name in enumerate(SPLIT_PHASES, start=1):
+        out["host_ms"][name] = statistics.median(
+            (step[j][1] - step[j - 1][1]) * 1e3 for step in per_step)
+    for stage in ("route_device", "h2d", "dispatch"):
+        for key, recs in (("flight_ms", flights),
+                          ("flight_ms_one_card", flights_one)):
+            out[key][stage] = statistics.median(
+                f["stages"].get(stage, {}).get("ms", 0.0) for f in recs)
+    for k, c in enumerate(cards):
+        entry = {"block": k, "card": str(c)}
+        for j, name in enumerate(SPLIT_PHASES, start=1):
+            entry[f"{name}_ms"] = statistics.median(
+                step[j - 1][2][k].elapsed_time(step[j][2][k])
+                for step in per_step)
+        entry["start_to_gathered_ms"] = statistics.median(
+            step[0][2][k].elapsed_time(step[-1][2][k]) for step in per_step)
+        out["by_block"].append(entry)
+    return out
+
+
+def multicard_stateful(dev, cards, epoch, card):
+    """(b) phase 5's world over the cards beside the one-card engine:
+    alerts, command fires, every state group equal, scores within the
+    tolerance; the rule-program kernel's launches on each card."""
+    from sitewhere_tpu_torch.parallel import make_mesh
+
+    one = build_stateful_world(dev, epoch, shards=SHARDS)
+    many = build_stateful_world(dev, epoch, shards=SHARDS,
+                                mesh=make_mesh(SHARDS, devices=cards))
+    batches = [synthetic_batch(one.packer, N_REGISTERED, SHARD_EVENTS,
+                               SEED + 1400 + s, mm_slots=(1, 2),
+                               t_off_ms=1000 * s)
+               for s in range(MULTI_STATEFUL_STEPS)]
+    _sync_cards(cards)
+    runs = [run_stateful_trace(one, batches, len(batches))]
+    _sync_cards(cards)
+    counts = CardLaunches(many)
+    with counts.window():
+        runs.append(run_stateful_trace(many, batches, len(batches)))
+        _sync_cards(cards)
+    (_, _, a1, f1, s1, snap1, fam1, _), (_, _, a2, f2, s2, snap2, fam2, _) \
+        = runs
+    if [sorted(a) for a in a1] != [sorted(a) for a in a2] or f1 != f2:
+        raise AssertionError("[multicard stateful] alerts or command fires "
+                             "differ from the one-card engine's")
+    compare_snapshots(snap1, snap2)
+    for x, y in zip(s1, s2):
+        torch.testing.assert_close(y, x, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    blocks_equal(one, many, "[multicard stateful]")
+    rule = counts.check("eval_rule_programs", many.shards_per_card,
+                        len(batches), "[multicard stateful]")
+    if not (fam2[2] and fam2[3]):
+        raise AssertionError("[multicard stateful] no program or model "
+                             "fired")
+    out = {"steps": len(batches), "rule_by_card": rule,
+           "rule_launches": sum(e["launches"] for e in rule.values()),
+           "alerts": sum(len(a) for a in a2),
+           "fires": sum(len(f) for f in f2)}
+    log(f"[multicard stateful] K cards == one card: {json.dumps(out)} on "
+        f"{card}")
+    return out
+
+
+def multicard_checkpoint(dev, cards, many, epoch, card):
+    """(c) a save on the K cards restored on one card, and that engine's
+    save restored on K fresh cards: bit-equal canonical state each way."""
+    from sitewhere_tpu_torch.parallel import make_mesh
+    from sitewhere_tpu_torch.persist.checkpoint import PipelineCheckpointer
+
+    want = many.canonical_state()
+    one = build_world(dev, "auto", epoch + 1, shards=SHARDS)
+    back = build_world(dev, "auto", epoch + 2, shards=SHARDS,
+                       mesh=make_mesh(SHARDS, devices=cards))
+    with tempfile.TemporaryDirectory(prefix="chip-multicard-") as tmp:
+        t0 = time.perf_counter()
+        path = PipelineCheckpointer(f"{tmp}/k").save(many)
+        save_s = time.perf_counter() - t0
+        PipelineCheckpointer(f"{tmp}/k").restore(one, path)
+        assert_tree_bits_equal(want, one.canonical_state(),
+                               "[multicard] K cards -> one card")
+        path = PipelineCheckpointer(f"{tmp}/one").save(one)
+        t0 = time.perf_counter()
+        PipelineCheckpointer(f"{tmp}/one").restore(back, path)
+        restore_s = time.perf_counter() - t0
+    assert_tree_bits_equal(want, back.canonical_state(),
+                           "[multicard] one card -> K cards")
+    blocks_equal(one, back, "[multicard] restored blocks")
+    return {"save_s_k_cards": save_s, "restore_s_k_cards": restore_s}
+
+
+def multicard_query(cards, card):
+    """(d) phase 9 (g)'s mesh query, at its size (READ_ROWS rows over
+    N_REGISTERED keys x READ_WINDOWS windows), over the K cards beside the
+    one-card mesh: counts and the sum, min and max bits equal under both
+    combines; each card's fold and the combine timed on a warm call (one
+    call over the K cards before, so no card's first touch is timed); the
+    segment-sum kernel's launches on each card in the timed call."""
+    from sitewhere_tpu_torch.ops.segsum import segment_row_sum
+    from sitewhere_tpu_torch.parallel import distributed as dist_mod
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+
+    first = cards[0]
+    rng = np.random.default_rng(SEED + 1401)
+    n = MULTI_QUERY_ROWS
+    rows = [torch.from_numpy(rng.integers(0, MULTI_QUERY_KEYS, n)
+                             .astype(np.int32)).to(first),
+            torch.from_numpy(rng.integers(0, MULTI_QUERY_WINDOWS, n)
+                             .astype(np.int32)).to(first),
+            torch.from_numpy((rng.standard_normal(n) * 10.0 **
+                              rng.integers(-3, 4, n)).astype(np.float32))
+            .to(first),
+            torch.from_numpy(rng.random(n) > 0.05).to(first)]
+    kw = dict(window_ms=1, num_keys=MULTI_QUERY_KEYS,
+              n_windows=MULTI_QUERY_WINDOWS)
+    one = make_mesh(SHARDS, device=first)
+    many = make_mesh(SHARDS, devices=cards)
+    out = {"rows": n, "cells": MULTI_QUERY_KEYS * MULTI_QUERY_WINDOWS}
+    for combine in ("psum", "ring"):
+        want = dist_mod.sharded_windowed_stats(*rows, mesh=one,
+                                               combine=combine, **kw)
+        dist_mod.sharded_windowed_stats(*rows, mesh=many, combine=combine,
+                                        **kw)
+        _sync_cards(cards)
+        segment_row_sum.by_card.clear()
+        timings = {}
+        got = dist_mod.sharded_windowed_stats(*rows, mesh=many,
+                                              combine=combine,
+                                              timings=timings, **kw)
+        _sync_cards(cards)
+        launches = dict(segment_row_sum.by_card)
+        for name in ("count", "sum", "mean", "min", "max"):
+            if not torch.equal(_bits(getattr(want, name)),
+                               _bits(getattr(got, name))):
+                raise AssertionError(f"[multicard query {combine}] {name} "
+                                     f"differs from the one-card mesh")
+        blocks = collections.Counter(c.index for c in cards)
+        if launches != dict(blocks):
+            raise AssertionError(f"[multicard query] segment-sum launches "
+                                 f"{launches}; expected one a card block "
+                                 f"{dict(blocks)}")
+        out[combine] = {
+            "fold_ms_by_card": [t * 1e3 for t in timings["fold_s_by_card"]],
+            "fold_ms": timings["fold_s"] * 1e3,
+            "gather_ms": timings["gather_s"] * 1e3,
+            "combine_ms": timings["combine_s"] * 1e3,
+            "segsum_by_card": launches,
+            "segsum_launches": sum(launches.values())}
+        del want, got
+    log(f"[multicard query] K cards == one card: {json.dumps(out)} on "
+        f"{card}")
+    return out
+
+
+def phase_multicard(dev, card):
+    """Phase 14: the shard axis over several cards (see the module
+    docstring). Returns the summary; `b1_launches`, `rule_launches` and
+    `segsum_launches` are the kernels' launches on the multi-card path."""
+    from sitewhere_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    cards, distinct = multicard_cards()
+    K = len(cards)
+    for line in card_lines():
+        log(f"[multicard] card: {line}")
+    if distinct:
+        log(f"[multicard] K = {K} distinct cards: "
+            f"{', '.join(map(str, cards))}")
+    else:
+        log(f"[multicard] one visible card: K = {K} blocks on cuda:0 "
+            f"(devices=('cuda:0', 'cuda:0')); peer copies and launches on "
+            f"a second card are not exercised")
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    epoch = int(time.time() * 1000) - EPOCH_LAG_MS
+    one = build_world(dev, "auto", epoch, shards=SHARDS,
+                      alert_lane_capacity=SHARD_LANES)
+    many = build_world(dev, "auto", epoch, shards=SHARDS,
+                       mesh=make_mesh(SHARDS, devices=cards),
+                       alert_lane_capacity=SHARD_LANES)
+    traffic = shard_traffic(one.packer, SEED + 1300)
+    routes = {mode: multicard_route(one, many, traffic, mode, card)
+              for mode in ("host", "device")}
+    for mode, run in routes.items():
+        log(f"[multicard {mode}] {json.dumps(run)} on {card}")
+    compact = traffic["compact"][:MULTI_PROFILED]
+    costs = multicard_costs(many, cards, compact[0])
+
+    def steps(engine):
+        return lambda: [engine.materialize_alerts(*engine.submit_routed(b))
+                        for b in compact]
+
+    profiles = {name: profile_cards(steps(eng), cards)
+                for name, eng in (("one", one), ("many", many))}
+    for prof in profiles.values():
+        prof["steps"] = len(compact)
+        for entry in prof.values():
+            if isinstance(entry, dict) and \
+                    isinstance(entry["busy_ms"], float):
+                entry["busy_ms_per_step"] = entry["busy_ms"] / len(compact)
+    split = multicard_split(one, many, cards,
+                            traffic["compact"][MULTI_PROFILED:])
+    blocks_equal(one, many, "[multicard] after the profiled steps")
+    peak = {str(c): torch.cuda.max_memory_allocated(c) for c in cards}
+    log(f"[multicard] exchange and sums: {json.dumps(costs)}; profiler "
+        f"{json.dumps(profiles)}; peak memory {json.dumps(peak)} on {card}")
+    log(f"[multicard split] a device-routed step over the cards by phase: "
+        f"{json.dumps(split)} on {card}")
+    del one
+    stateful = multicard_stateful(dev, cards, epoch, card)
+    ckpt = multicard_checkpoint(dev, cards, many, epoch, card)
+    log(f"[multicard checkpoint] K cards -> one card -> K cards, bit-equal: "
+        f"{json.dumps(ckpt)} on {card}")
+    del many
+    torch.cuda.empty_cache()
+    query = multicard_query(cards, card)
+    if distinct:
+        t0 = time.perf_counter()
+        serve = serve_sharded_drive("cuda")
+        serve["wall_s"] = time.perf_counter() - t0
+        mesh = serve.get("mesh") or {}
+        if len(mesh.get("cards", ())) != K:
+            raise AssertionError(f"serve --shards {SHARDS} ran on "
+                                 f"{mesh.get('cards')}, not {K} cards")
+        log(f"[multicard serve] {json.dumps(serve)} on {card}")
+    else:
+        serve = None
+        log("[multicard serve] (e) needs two visible cards: not run")
+    summary = {
+        "cards": [str(c) for c in cards], "distinct": distinct,
+        "routes": routes, "costs": costs, "profiles": profiles,
+        "split": split,
+        "peak_bytes_by_card": peak, "stateful": stateful,
+        "checkpoint": ckpt, "query": query, "serve": serve,
+        "b1_launches": sum(r["b1_launches"] for r in routes.values()),
+        "b1_by_card": {index: sum(r["b1_by_card"][index]["launches"]
+                                  for r in routes.values())
+                       for index in routes["device"]["b1_by_card"]},
+        "rule_launches": stateful["rule_launches"],
+        "rule_by_card": {index: e["launches"]
+                         for index, e in stateful["rule_by_card"].items()},
+        "segsum_launches": sum(query[c]["segsum_launches"]
+                               for c in ("psum", "ring")),
+        "segsum_by_card": dict(collections.Counter(
+            query["psum"]["segsum_by_card"])
+            + collections.Counter(query["ring"]["segsum_by_card"])),
+        "seconds": time.perf_counter() - t_phase}
+    log(f"[multicard] phase 14 took {summary['seconds']:.1f} s over "
+        f"{K} {'cards' if distinct else 'blocks on one card'}: device "
+        f"route p50 {routes['device']['many']['step_ms_p50']:.2f} ms "
+        f"(one card {routes['device']['one']['step_ms_p50']:.2f} ms), host "
+        f"route p50 {routes['host']['many']['step_ms_p50']:.2f} ms (one "
+        f"card {routes['host']['one']['step_ms_p50']:.2f} ms), exchange "
+        f"{costs['exchange_ms']:.3f} ms, sums {costs['sums_ms']:.3f} ms, "
+        f"on {card}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
@@ -6923,6 +7540,13 @@ def main() -> int:
         card, _ = phase_card()
         phase_sharded(dev, card)
         return 0
+    if sys.argv[1:] == ["--multicard-only"]:
+        # phase 14 alone, for debugging it (prints no result line)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        card, _ = phase_card()
+        phase_multicard(dev, card)
+        return 0
     if sys.argv[1:] == ["--read-only"]:
         # phase 9 alone, after the phase 3 it reads (prints no result line)
         dev = torch.device("cuda", 0)
@@ -6958,6 +7582,7 @@ def main() -> int:
         feeders = phase_feeders(dev, card)
         sharded = phase_sharded(dev, card)
         cluster = phase_cluster(dev, card)
+        multicard = phase_multicard(dev, card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6978,6 +7603,8 @@ def main() -> int:
         "launches_sharded_path": sharded["b1_launches"],
         "launches_sharded_feeder_path": sharded["landing"]["launches"],
         "launches_cluster_path": cluster["b1_launches"],
+        "launches_multicard_path": multicard["b1_launches"],
+        "launches_multicard_by_card": multicard["b1_by_card"],
         "mismatches": sum(r["mismatches"] for r in shapes),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": main_shape["kernel_ms"],
@@ -7001,6 +7628,8 @@ def main() -> int:
         "launches_instance_path": instance_launches["segment_row_sum"],
         "launches_mesh_path": read["mesh"]["launches"],
         "launches_cluster_path": cluster["segsum_launches"],
+        "launches_multicard_path": multicard["segsum_launches"],
+        "launches_multicard_by_card": multicard["segsum_by_card"],
         **{k: segsum[k] for k in ("mismatches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "rows", "segments",
@@ -7019,6 +7648,8 @@ def main() -> int:
         "launches": stateful["rule_kernel_launches"],
         "launches_instance_path": instance_launches["eval_rule_programs"],
         "launches_sharded_path": sharded["rule_launches"],
+        "launches_multicard_path": multicard["rule_launches"],
+        "launches_multicard_by_card": multicard["rule_by_card"],
         **{k: rule[k] for k in ("mismatches", "max_abs_err", "ms",
                                 "queued_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "rows",

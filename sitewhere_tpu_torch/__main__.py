@@ -24,7 +24,9 @@ feeder worker (`serve --feeder`: host work only, no card), the
 control-plane cluster (`--cluster-peers` without a coordinator), the
 gang-restart supervisor (`--supervise`) and usage telemetry
 (`telemetry.*`). `--shards N` runs the sharded pipeline (N shards of the
-device population on the one card). `--cluster-coordinator host:port` with
+device population in card blocks over every visible card, the reference's
+one shard a device; `--device cuda:i` holds them all on card i).
+`--cluster-coordinator host:port` with
 `--cluster-num-processes`, `--cluster-process-id` and `--cluster-peers`
 boots one host of the multi-host data plane (parallel/cluster.py
 ClusterService): the processes join a gloo world at the coordinator,
@@ -552,9 +554,13 @@ def cmd_serve(args) -> int:
     print(f"  device       : {instance.device}", flush=True)
     engine = instance.pipeline_engine
     if getattr(engine, "n_shards", 1) > 1:
-        print(f"  shards       : {engine.n_shards} on {instance.device} "
-              f"(device routing {'on' if engine.device_routing else 'off'})",
-              flush=True)
+        mesh = engine.mesh
+        print(f"  shards       : {engine.n_shards} over {mesh.n_cards} "
+              f"card(s) (device routing "
+              f"{'on' if engine.device_routing else 'off'})", flush=True)
+        for k, card in enumerate(mesh.cards):
+            print(f"  card {k:<7} : {card} shards {mesh.shards_on(k)}",
+                  flush=True)
     if bus_server is not None:
         print(f"  bus edge     : tcp://{cfg.get('api.host')}:"
               f"{bus_server.port}", flush=True)
@@ -616,6 +622,11 @@ def cmd_check(_args) -> int:
     if torch.cuda.is_available():
         n = torch.cuda.device_count()
         print(f"cuda device: {torch.cuda.get_device_name(0)} x{n}")
+        for k in range(n):
+            print(f"  card cuda:{k}: {torch.cuda.get_device_name(k)}")
+        # serve --shards S spreads over min(S, n) of them (S/K shards a
+        # card, K dividing S)
+        print(f"  serve --shards S: shards in blocks over min(S, {n}) cards")
     else:
         ok = False
         print("cuda device: MISSING (torch.cuda.is_available() is false; "

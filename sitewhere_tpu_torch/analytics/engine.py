@@ -14,8 +14,10 @@ Two replay sources:
 
 A mesh, given or chosen by the planner, takes window-sharded replay
 (parallel/distributed.py `sharded_windowed_stats`): the rows split over
-the mesh's shards, each shard's [K, W] grid folded, the grids combined on
-the mesh's device, which must be the engine's.
+the mesh's shards, each shard's [K, W] grid folded on its shard's card,
+the grids combined on the mesh's first card and brought back to the
+engine's device, which must be of the mesh's kind (a card, or the CPU)
+but need not be one of its cards.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from sitewhere_tpu_torch.analytics.windows import (
     WindowedStats, compact_keys, dense_key_span, event_type_histogram,
     to_device, to_host, windowed_stats)
 from sitewhere_tpu_torch.device import (
-    DeviceLike, own_stream, resolve_device, same_device)
+    DeviceLike, own_stream, resolve_device)
 from sitewhere_tpu_torch.model.event import DeviceEventType
 from sitewhere_tpu_torch.persist.eventlog import EventFilter
 
@@ -110,7 +112,7 @@ class WindowedAnalyticsEngine:
     With a `planner` (serving/planner.py) attached, `mesh=None` means
     "planner-decided": large scans take the planner's mesh, small ones
     the single-device ops. An explicit mesh takes the sharded path either
-    way; a mesh on another device than the engine's raises."""
+    way; a mesh on another kind of device than the engine's raises."""
 
     def __init__(self, event_log, planner=None, device: DeviceLike = "cuda"):
         self.event_log = event_log
@@ -134,10 +136,10 @@ class WindowedAnalyticsEngine:
                           start_date=start_ms, end_date=end_ms)
         if mesh is None and self.planner is not None:
             mesh = self.planner.choose_mesh(tenant, flt)
-        if mesh is not None and not same_device(mesh.device, self.device):
+        if mesh is not None and mesh.device.type != self.device.type:
             raise ValueError(f"mesh on {mesh.device}, engine on "
-                             f"{self.device}: a query's grids stay on the "
-                             f"engine's device")
+                             f"{self.device}: a query's grids come back to "
+                             f"the engine's device")
         t_scan = time.perf_counter()
         # key on the int32 device_idx column, not the token strings; tokens
         # resolve afterwards, once per unique key, from each key's first
@@ -269,7 +271,7 @@ class WindowedAnalyticsEngine:
                     sharded_windowed_stats)
                 stats = sharded_windowed_stats(
                     *on_dev, window_ms=1, num_keys=K, n_windows=W,
-                    mesh=mesh, combine=combine)
+                    mesh=mesh, combine=combine, device=device)
             else:
                 stats = windowed_stats(*on_dev, window_ms=1, num_keys=K,
                                        n_windows=W, device=device)

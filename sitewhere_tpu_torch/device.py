@@ -64,3 +64,12 @@ def own_stream(device: torch.device) -> Iterator[None]:
         stream = streams[index] = torch.cuda.Stream(index)
     with torch.cuda.stream(stream):
         yield
+
+
+def on_card(device: torch.device):
+    """`device` as the calling thread's current card for the enclosed work
+    (a no-op off the card): work of one card carries that card's index,
+    whatever card a kernel library or an earlier block left current."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

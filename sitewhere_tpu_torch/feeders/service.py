@@ -1,7 +1,7 @@
 """Landing-host blob-ingest endpoint: the feeder fleet's landing zone.
 
 Counterpart of `sitewhere_tpu/feeders/service.py`, for one engine or a
-`ShardedPipelineEngine` (S shards on one card) on the port's card.
+`ShardedPipelineEngine` (S shards in card blocks) on the port's cards.
 Mounts the ``feeder_*`` op family on the serve process's BusServer
 (runtime/busnet.py ``register_op``). With feeders attached, the landing
 host's per-step work on this path is H2D-into-StagingRing + the captured

@@ -12,7 +12,8 @@ single lifecycle root so `start()`/`stop()` brings the platform up/down
 deterministically.
 
 `shards > 1` (or a `ShardMesh`) selects the sharded engine
-(parallel/engine.py): S shards of the device population on the one card,
+(parallel/engine.py): S shards of the device population in card blocks
+over every visible card (`device` "cuda"; a card index pins one card),
 with shard-congruent device interning, as the reference builds it. A
 multi-process mesh (parallel/distributed.py `make_global_mesh`) makes this
 instance one host of the multi-host data plane: its engine holds this
@@ -24,7 +25,10 @@ way: tenant engines then register their registries with its gossip.
 
 The query planner's mesh provider answers the sharded engine's mesh on one
 controller, so a sharded instance's large window queries take the mesh
-route (parallel/distributed.py). A cluster host's provider answers None:
+route over its cards (parallel/distributed.py); an instance of the single
+engine on a card takes the live mesh over every visible card when there
+are two or more, as the reference's does. A cluster host's provider
+answers None:
 a query there would enter a collective the other hosts do not (the
 reference's host waits out its collectives' timeout and raises), so its
 queries take the host route.
@@ -155,7 +159,7 @@ class SiteWhereInstance(LifecycleComponent):
                 max_zone_vertices=max_zone_vertices,
                 shard_classes=n_shards)
             if shards > 1 or mesh is not None:
-                # the sharded step over S shards on this card
+                # the sharded step over S shards in card blocks
                 from sitewhere_tpu_torch.parallel import (
                     ShardedPipelineEngine, make_mesh)
                 self.pipeline_engine = ShardedPipelineEngine(
@@ -385,11 +389,15 @@ class SiteWhereInstance(LifecycleComponent):
     def _serving_mesh(self):
         """Planner mesh provider: the pipeline's own mesh when the hot path
         runs sharded on one controller (its shard axis is the replay axis
-        too, on the instance's device), else None. A multi-process mesh
-        (a cluster host's, or the process-wide `live_mesh`) is never
-        answered: the query would enter its collective on this host
-        alone."""
+        too, over its cards), else, for an instance on a card, the
+        process-wide `live_mesh` (every visible card when there are two or
+        more), else None. A multi-process mesh (a cluster host's, or the
+        live mesh of a joined world) is never answered: the query would
+        enter its collective on this host alone."""
         mesh = getattr(self.pipeline_engine, "mesh", None)
+        if mesh is None and self.device.type == "cuda":
+            from sitewhere_tpu_torch.parallel.distributed import live_mesh
+            mesh = live_mesh()
         if mesh is not None and not mesh.is_multiprocess:
             return mesh
         return None
@@ -866,6 +874,12 @@ class SiteWhereInstance(LifecycleComponent):
                 torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")},
         }
+        mesh = getattr(self.pipeline_engine, "mesh", None)
+        if mesh is not None:
+            # the shard axis's card blocks: each card and its shards
+            out["mesh"] = {"shards": mesh.n_shards, "cards": [
+                {"card": str(card), "shards": mesh.shards_on(k)}
+                for k, card in enumerate(mesh.cards)]}
         if self.pipeline_engine is not None:
             health = getattr(self.pipeline_engine, "health", None)
             if health is not None:

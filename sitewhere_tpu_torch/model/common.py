@@ -7,7 +7,10 @@ spi/search/ISearchCriteria.java, spi/search/ISearchResults.java.
 from __future__ import annotations
 
 import dataclasses
+import sys
+import threading
 import time
+import types
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Dict, Generic, Iterable, List, Optional, Sequence, TypeVar
@@ -19,13 +22,33 @@ def new_id() -> str:
     return str(uuid.uuid4())
 
 
-_now_ms_override = None  # test hook: deterministic replication-algebra clocks
+# test hook: a deterministic replication-algebra clock. It reaches only the
+# thread that installed it (`_now_ms_owner`, recorded by the module's
+# attribute hook below): threads that other instances left running in the
+# same process keep the wall clock, so they cannot consume its ticks and
+# move the ties a seeded scenario forms
+_now_ms_override = None
+_now_ms_owner = None
 
 
 def now_ms() -> int:
-    if _now_ms_override is not None:
+    if _now_ms_override is not None \
+            and threading.get_ident() == _now_ms_owner:
         return _now_ms_override()
     return int(time.time() * 1000)
+
+
+class _ClockHookModule(types.ModuleType):
+    """This module, recording which thread sets `_now_ms_override`."""
+
+    def __setattr__(self, name, value):
+        if name == "_now_ms_override":
+            super().__setattr__("_now_ms_owner", None if value is None
+                                else threading.get_ident())
+        super().__setattr__(name, value)
+
+
+sys.modules[__name__].__class__ = _ClockHookModule
 
 
 @dataclass

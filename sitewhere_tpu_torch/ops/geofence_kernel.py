@@ -10,7 +10,8 @@ synchronising, or raises — it never takes the plain path for a CUDA tensor.
 The kernel sizes its own grid and shared memory (one persistent block per
 SM, zones walked in chunks when the table is large); `launch_plan` reports
 the choice.
-`points_in_zones_kernel.launches` counts kernel launches. A call made
+`points_in_zones_kernel.launches` counts kernel launches, and
+`points_in_zones_kernel.by_card` the same per card index. A call made
 while the current stream is capturing a CUDA graph records the launch
 into the graph and runs nothing: it counts on
 `points_in_zones_kernel.captures` instead, and each replay of that graph
@@ -78,10 +79,13 @@ def points_in_zones_kernel(lat: torch.Tensor, lon: torch.Tensor,
     if B == 0 or Z == 0:
         return out
     lib = _library()
-    rc = lib.swt_points_in_zones(
-        lat.data_ptr(), lon.data_ptr(), vertices.data_ptr(), out.data_ptr(),
-        B, Z, V, lat.device.index,
-        torch.cuda.current_stream(lat.device).cuda_stream)
+    # the library sets the card it launches on; the guard puts the
+    # caller's current card back
+    with torch.cuda.device(lat.device):
+        rc = lib.swt_points_in_zones(
+            lat.data_ptr(), lon.data_ptr(), vertices.data_ptr(),
+            out.data_ptr(), B, Z, V, lat.device.index,
+            torch.cuda.current_stream(lat.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"geofence kernel launch failed: "
@@ -90,10 +94,14 @@ def points_in_zones_kernel(lat: torch.Tensor, lon: torch.Tensor,
         points_in_zones_kernel.captures += 1
     else:
         points_in_zones_kernel.launches += 1
+        by_card = points_in_zones_kernel.by_card
+        by_card[lat.device.index] = by_card.get(lat.device.index, 0) + 1
     return out
 
 
 points_in_zones_kernel.launches = 0
+# launches per card index
+points_in_zones_kernel.by_card = {}
 points_in_zones_kernel.captures = 0
 
 

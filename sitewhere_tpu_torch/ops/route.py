@@ -19,6 +19,17 @@ step routes it itself before the per-shard body (parallel/engine.py):
   3. compact: an exclusive prefix sum over the received candidates' valid
      bits packs them into each shard's `[rows, B]` routed blob.
 
+Over K card blocks (parallel/mesh.py) the three steps split at the
+exchange. Each card buckets the lane chunks of its own S/K shards
+(`route_bucket`: one stable sort over its chunks gives each row the same
+rank, since a rank is counted within one chunk) into destination-major
+lanes `[S_dst, rows, S/K, C]`; card k copies the rows of card j's
+destination shards to card j (`route_exchange`); each card compacts what it
+received, `[K, S/K, rows, S/K, C]`, which read in card order is its rows of
+the source-major permute (`route_compact`). The ts base of a packed blob
+travels from card 0 to every card. One card is the case K = 1
+(`device_route_chunk`).
+
 Because the bucketing is stable and the exchange source-major, the routed
 blob is bit-identical to the host arena router's (parallel/router.py) for
 any batch that fits the lanes; `host_fits_device_route` (numpy, two
@@ -117,34 +128,36 @@ def _embed_ts_base(row0: torch.Tensor, base: torch.Tensor) -> None:
     lanes |= bits << _BASE_SHIFT
 
 
-def device_route_chunk(flat_blob: torch.Tensor, n_shards: int,
-                       per_shard_batch: int, capacity: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route the stacked flat wire blob `[rows, S*B]` (chunk s = lanes
-    [s*B, (s+1)*B)) to its owner shards. Returns (routed `[S, rows, B]`
-    int32 blob, int32 `[S]` rows each shard had to drop: its chunk's lane
-    overflow plus its own receive overflow). The blob is bit-identical to
-    the host arena router's whenever nothing dropped."""
+def route_bucket(flat_blob: torch.Tensor, first_chunk: int, n_shards: int,
+                 per_shard_batch: int, capacity: int):
+    """Steps 1 and 2's first half on one card: the lane chunks `[rows,
+    n*B]` of the n source shards `first_chunk ..` bucketed into lanes
+    destination-major, `[S_dst, rows, n, C]` (the block for destination
+    card j is one contiguous range), with each source chunk's lane
+    overflow `[n]`. Returns (lanes, dropped, ts base): the base (int32
+    scalar) only where chunk 0 of a packed blob is among the chunks, else
+    None."""
     S, B, C = n_shards, per_shard_batch, capacity
     rows, width = flat_blob.shape
-    if width != S * B:
-        raise ValueError(f"flat blob has {width} lanes; the route takes "
-                         f"S*B = {S * B}")
+    if width % B:
+        raise ValueError(f"lane chunks of {width} lanes; the route takes "
+                         f"chunks of B = {B}")
+    n = width // B
     device = flat_blob.device
     head = flat_blob[0]
-    packed = rows == WIRE_ROWS_PACKED
-    if packed:
+    base = None
+    if rows == WIRE_ROWS_PACKED and first_chunk == 0:
         # only chunk 0 carries the lane-embedded base (the reference's
         # psum of shard 0's value)
         base = _extract_ts_base(head[:B])
     valid = ((head >> _VALID_SHIFT) & 1) == 1
     dev = head & (WIRE_DEV_MAX - 1)
     dest = torch.where(valid, dev % S, S)              # S = padding bucket
-    src = torch.arange(S * B, dtype=torch.int32, device=device) // B
+    src = torch.arange(n * B, dtype=torch.int32, device=device) // B
     pos = bucket_ranks(src * (S + 1) + dest)
     keep = valid & (pos < C)
-    n_lanes = S * S * C
-    # source-major lane index: [S_src, S_dst, C] flattened; drops -> pad
+    n_lanes = n * S * C
+    # source-major lane index: [n_src, S_dst, C] flattened; drops -> pad
     slot = torch.where(keep, (src * S + dest) * C + pos, n_lanes).long()
     # routed heads carry LOCAL device indices with spare bits stripped, as
     # the host router's head rewrite does
@@ -153,39 +166,126 @@ def device_route_chunk(flat_blob: torch.Tensor, n_shards: int,
     lanes = torch.zeros((rows, n_lanes + 1), dtype=torch.int32,
                         device=device)
     lanes.index_copy_(1, slot, vals)
-    dropped = (valid & ~keep).to(torch.int32).reshape(S, B).sum(
+    dropped = (valid & ~keep).to(torch.int32).reshape(n, B).sum(
         dim=1, dtype=torch.int32)
-    # the all_to_all: [rows, S_src, S_dst, C] -> [S_dst, rows, S_src, C]
-    cand = lanes[:, :n_lanes].reshape(rows, S, S, C).permute(2, 0, 1, 3) \
-        .reshape(S, rows, S * C)
-    cvalid = (cand[:, 0] >> _VALID_SHIFT) & 1          # [S_dst, S*C]
+    # [rows, n_src, S_dst, C] -> [S_dst, rows, n_src, C]
+    send = lanes[:, :n_lanes].reshape(rows, n, S, C).permute(2, 0, 1, 3) \
+        .contiguous()
+    return send, dropped, base
+
+
+def route_compact(received: torch.Tensor, dropped: torch.Tensor,
+                  base: Optional[torch.Tensor], per_shard_batch: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 3 on one card: the lanes its n destination shards received
+    from the K source cards, `[K, n, rows, n_src, C]` in card order,
+    compacted into the routed `[n, rows, B]` blob (the ts base re-embedded
+    for a packed blob). `dropped` is the n shards' own lane overflow (each
+    shard is its own source chunk); the result adds their receive
+    overflow."""
+    B = per_shard_batch
+    K, n, rows = received.shape[:3]
+    # the all_to_all's result: [n_dst, rows, S_src * C], source-major
+    cand = received.permute(1, 2, 0, 3, 4).reshape(n, rows, -1)
+    cvalid = (cand[:, 0] >> _VALID_SHIFT) & 1          # [n_dst, S*C]
     crank = torch.cumsum(cvalid, dim=1, dtype=torch.int32) - cvalid
     ckeep = (cvalid == 1) & (crank < B)
     cslot = torch.where(ckeep, crank, B).long()
-    blob = torch.zeros((S, rows, B + 1), dtype=torch.int32, device=device)
-    blob.scatter_(2, cslot[:, None, :].expand(S, rows, S * C), cand)
+    blob = torch.zeros((n, rows, B + 1), dtype=torch.int32,
+                       device=received.device)
+    blob.scatter_(2, cslot[:, None, :].expand(n, rows, cand.shape[-1]), cand)
     blob = blob[:, :, :B].contiguous()
     dropped = dropped + ((cvalid == 1) & ~ckeep).to(torch.int32).sum(
         dim=1, dtype=torch.int32)
-    if packed:
+    if base is not None:
         _embed_ts_base(blob[:, 0], base)
     return blob, dropped
+
+
+def route_exchange(sends, bases, received, received_bases) -> None:
+    """The all_to_all between K cards: card k's lanes for card j's
+    destination shards (`sends[k]`, `[S_dst, rows, n_src, C]`, rows j*n ..
+    (j+1)*n) copied into `received[j][k]`, and the ts base (`bases[0]`,
+    chunk 0's, or None) into every `received_bases[j]`. Each copy is
+    contiguous; a copy between two cards is ordered by PyTorch against the
+    current streams of both (events on the sender's and the receiver's
+    streams)."""
+    K = len(sends)
+    n = sends[0].shape[0] // K
+    for j in range(K):
+        for k in range(K):
+            received[j][k].copy_(sends[k][j * n:(j + 1) * n],
+                                 non_blocking=True)
+        if bases[0] is not None:
+            received_bases[j].copy_(bases[0], non_blocking=True)
+
+
+def device_route_chunk(flat_blob: torch.Tensor, n_shards: int,
+                       per_shard_batch: int, capacity: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route the stacked flat wire blob `[rows, S*B]` (chunk s = lanes
+    [s*B, (s+1)*B)) to its owner shards on one card. Returns (routed `[S,
+    rows, B]` int32 blob, int32 `[S]` rows each shard had to drop: its
+    chunk's lane overflow plus its own receive overflow). The blob is
+    bit-identical to the host arena router's whenever nothing dropped."""
+    S, B = n_shards, per_shard_batch
+    if flat_blob.shape[1] != S * B:
+        raise ValueError(f"flat blob has {flat_blob.shape[1]} lanes; the "
+                         f"route takes S*B = {S * B}")
+    send, dropped, base = route_bucket(flat_blob, 0, S, B, capacity)
+    return route_compact(send[None], dropped, base, B)
+
+
+def device_route_cards(parts, n_shards: int, per_shard_batch: int,
+                       capacity: int):
+    """The route over K card blocks: `parts[k]` is card k's lane chunks
+    `[rows, S/K*B]` of the flat blob, on its card. Each card buckets its
+    chunks, the lanes cross between the cards (`route_exchange`), each
+    card compacts what it received. Returns the per-card (routed `[S/K,
+    rows, B]` blob, dropped `[S/K]`), which equal `device_route_chunk`'s
+    rows of that card bit for bit."""
+    K = len(parts)
+    n = n_shards // K
+    sends, drops, bases = [], [], []
+    for k, part in enumerate(parts):
+        send, dropped, base = route_bucket(part, k * n, n_shards,
+                                           per_shard_batch, capacity)
+        sends.append(send)
+        drops.append(dropped)
+        bases.append(base)
+    received = [torch.empty((K,) + tuple(sends[0][:n].shape),
+                            dtype=torch.int32, device=part.device)
+                for part in parts]
+    received_bases = [None if bases[0] is None else
+                      torch.empty((), dtype=torch.int32, device=part.device)
+                      for part in parts]
+    route_exchange(sends, bases, received, received_bases)
+    return [route_compact(received[k], drops[k], received_bases[k],
+                          per_shard_batch) for k in range(K)]
 
 
 def build_device_route_program(mesh, n_shards: int, per_shard_batch: int,
                                capacity: Optional[int] = None):
     """The route alone over `mesh`: flat wire blob `[rows, S*B]` (numpy or
-    a tensor) -> (routed `[S, rows, B]` tensor on the mesh's device,
-    per-shard dropped counts `[S]`). The tests hold it against
-    `ShardRouter.route_blob` bit for bit; the engine's step calls
-    `device_route_chunk` directly."""
+    a tensor) -> (routed `[S, rows, B]` tensor on the mesh's first card,
+    per-shard dropped counts `[S]`). Over K cards each card takes its lane
+    chunks and the blocks come back in shard order. The tests hold it
+    against `ShardRouter.route_blob` bit for bit; the engine's step calls
+    the pieces directly."""
     cap = capacity or route_lane_capacity(per_shard_batch, n_shards)
-    device = mesh.device
+    cards = mesh.cards
 
     def route(flat_blob):
         blob = torch.as_tensor(np.asarray(flat_blob, np.int32)) \
             if not isinstance(flat_blob, torch.Tensor) else flat_blob
-        return device_route_chunk(blob.to(device), n_shards,
-                                  per_shard_batch, cap)
+        if len(cards) == 1:
+            return device_route_chunk(blob.to(cards[0]), n_shards,
+                                      per_shard_batch, cap)
+        width = blob.shape[1] // len(cards)
+        parts = [blob[:, k * width:(k + 1) * width].contiguous().to(card)
+                 for k, card in enumerate(cards)]
+        routed = device_route_cards(parts, n_shards, per_shard_batch, cap)
+        return (torch.cat([b.to(cards[0]) for b, _ in routed]),
+                torch.cat([d.to(cards[0]) for _, d in routed]))
 
     return route

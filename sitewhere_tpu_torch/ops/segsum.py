@@ -116,16 +116,24 @@ def segment_row_sum(values: torch.Tensor,
     n = values.numel()
     scratch = torch.empty(lib.swt_segsum_scratch_bytes(n), dtype=torch.uint8,
                           device=values.device)
-    rc = lib.swt_segment_row_sum(
-        values.data_ptr(), offsets.data_ptr(), out.data_ptr(), S,
-        offsets.element_size(), n, scratch.data_ptr(), values.device.index,
-        torch.cuda.current_stream(values.device).cuda_stream)
+    # the library sets the card it launches on; the guard puts the
+    # caller's current card back
+    with torch.cuda.device(values.device):
+        rc = lib.swt_segment_row_sum(
+            values.data_ptr(), offsets.data_ptr(), out.data_ptr(), S,
+            offsets.element_size(), n, scratch.data_ptr(),
+            values.device.index,
+            torch.cuda.current_stream(values.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"segment-sum kernel launch failed: "
             f"{lib.swt_segsum_error_string(rc).decode()} (cudaError {rc})")
     segment_row_sum.launches += 1
+    by_card = segment_row_sum.by_card
+    by_card[values.device.index] = by_card.get(values.device.index, 0) + 1
     return out
 
 
 segment_row_sum.launches = 0
+# launches per card index
+segment_row_sum.by_card = {}

@@ -469,9 +469,12 @@ def _eval_rule_programs_kernel(table, state, rows, node_limit):
         scratch=scratch.data_ptr() if scratch is not None else None,
         B=B, D=D, P=P, node_stride=table.num_nodes, N=N, M=M, S=S,
         scratch_words=plan["scratch_words"])
-    rc = lib.swt_rule_programs(
-        ctypes.byref(args), where.index,
-        torch.cuda.current_stream(where).cuda_stream)
+    # the library sets the card it launches on; the guard puts the
+    # caller's current card back
+    with torch.cuda.device(where):
+        rc = lib.swt_rule_programs(
+            ctypes.byref(args), where.index,
+            torch.cuda.current_stream(where).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"rule-program kernel launch failed: "
@@ -481,6 +484,8 @@ def _eval_rule_programs_kernel(table, state, rows, node_limit):
         eval_rule_programs.captures += 1
     else:
         eval_rule_programs.launches += 1
+        by_card = eval_rule_programs.by_card
+        by_card[where.index] = by_card.get(where.index, 0) + 1
     return new_state, outs
 
 
@@ -506,9 +511,10 @@ def eval_rule_programs(
     on `dev`'s device with the stage's dtypes and shapes (else ValueError
     or TypeError). The kernel takes rows with at most one attach row per
     clamped device index, as `observations_of_batch` gives them.
-    `eval_rule_programs.launches` counts kernel launches; a launch recorded
-    into a CUDA graph under capture counts on `.captures` instead (each
-    replay launches it again, see pipeline/graph.py)."""
+    `eval_rule_programs.launches` counts kernel launches (`.by_card` the
+    same per card index); a launch recorded into a CUDA graph under
+    capture counts on `.captures` instead (each replay launches it again,
+    see pipeline/graph.py)."""
     rows = dict(dev=dev, attach=attach, obs_row=obs_row, now_row=now_row,
                 lm_row=lm_row, lmts_row=lmts_row, tenant_row=tenant_row,
                 dtype_row=dtype_row)
@@ -522,6 +528,8 @@ def eval_rule_programs(
 
 
 eval_rule_programs.launches = 0
+# launches per card index
+eval_rule_programs.by_card = {}
 eval_rule_programs.captures = 0
 
 

@@ -38,6 +38,12 @@ Counterpart of `sitewhere_tpu/parallel/distributed.py`. Its two concerns:
    With one shard the collective is a no-op in either combine, so the
    local grid passes through unchanged.
 
+   Over a mesh of K cards each card folds its own blocks (one
+   `block_partials` pass, one segment-sum launch a card, on that card),
+   the `[S/K, K*W]` partials come to the first card in shard order, and
+   the combine runs there unchanged; the grids come back on the caller's
+   device, which need not be one of the mesh's cards.
+
    On a multi-process mesh every process passes the full rows, folds only
    its own blocks (one `block_partials` pass, one segment-sum launch on
    its device), all-gathers the `[S_local, K*W]` partials in shard order
@@ -56,10 +62,11 @@ order, on the card least of all.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -67,9 +74,11 @@ import torch
 from sitewhere_tpu_torch.analytics.windows import (
     WindowedStats, _as_tensor, _quiet, block_partials, finalize_mean,
     grids_of)
-from sitewhere_tpu_torch.device import DeviceLike, resolve_device
+from sitewhere_tpu_torch.device import (
+    DeviceLike, on_card, own_stream, resolve_device)
 from sitewhere_tpu_torch.ops.numerics import flush_denormals
-from sitewhere_tpu_torch.parallel.mesh import ShardMesh, shard_axis_size
+from sitewhere_tpu_torch.parallel.mesh import (
+    ShardMesh, make_mesh, shard_axis_size)
 
 _X86_DEFAULT_NAN = -0x00400000   # 0xFFC00000: inf + -inf
 
@@ -144,8 +153,9 @@ def make_global_mesh(devices: Optional[Sequence] = None, *,
     process's `device`; or, from a library caller, `devices`, this
     process's device once for each of its shards (S = P * len(devices));
     with neither, one shard a process. Without a joined world: one shard
-    per device given on the first of them, `n_shards` shards on `device`,
-    or one shard per visible card (raises without one)."""
+    per device given, each on its own card (a device given twice holds
+    two blocks), `n_shards` shards on `device`, or one shard per visible
+    card, shard s on card s (raises without one)."""
     if devices is not None:
         devs = list(devices)
         if not devs:
@@ -155,7 +165,7 @@ def make_global_mesh(devices: Optional[Sequence] = None, *,
         local, dev = None, None
     if not _joined():
         if local is not None:
-            return ShardMesh(local, dev)
+            return make_mesh(local, devices=devs)
         if n_shards is not None:
             return ShardMesh(int(n_shards), resolve_device(device))
         count = torch.cuda.device_count()
@@ -163,7 +173,8 @@ def make_global_mesh(devices: Optional[Sequence] = None, *,
             raise RuntimeError("no CUDA device is visible; pass devices "
                                "(e.g. [torch.device('cpu')] * S) to build a "
                                "mesh elsewhere")
-        return ShardMesh(count, torch.device("cuda", 0))
+        return ShardMesh(count, cards=[torch.device("cuda", k)
+                                       for k in range(count)])
     import torch.distributed as dist
 
     P, p = dist.get_world_size(), dist.get_rank()
@@ -183,16 +194,19 @@ def make_global_mesh(devices: Optional[Sequence] = None, *,
 
 
 def live_mesh() -> Optional[ShardMesh]:
-    """The global mesh when two or more processes joined (the one last
-    built by `make_global_mesh`, else one shard a process on this
-    process's card), None otherwise: a mesh of S shards on one card does
-    the host route's work and a combine on top, on a card that need not
-    be the instance's. A sharded instance's planner takes its engine's
-    mesh instead, and a cluster host's planner none (instance.py
-    `_serving_mesh`)."""
-    if not _joined():
+    """The default replay mesh. When two or more processes joined: the
+    global mesh (the one last built by `make_global_mesh`, else one shard
+    a process on this process's card). In one process: one shard on each
+    visible card when there are two or more, as the reference's mesh over
+    `jax.devices()`; None with one card or none (a mesh of S shards on one
+    card does the host route's work and a combine on top). A sharded
+    instance's planner takes its engine's mesh instead, and a cluster
+    host's planner none (instance.py `_serving_mesh`)."""
+    if _joined():
+        return _WORLD["mesh"] or make_global_mesh()
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         return None
-    return _WORLD["mesh"] or make_global_mesh()
+    return make_global_mesh()
 
 
 def process_shard_indices(mesh: ShardMesh) -> np.ndarray:
@@ -288,30 +302,56 @@ def _combine_ring(count, vsum, vmin, vmax):
 def sharded_windowed_stats(keys, ts_rel, value, valid, *, window_ms: int,
                            num_keys: int, n_windows: int, mesh: ShardMesh,
                            combine: str = "psum",
-                           timings: Optional[Dict[str, float]] = None
+                           timings: Optional[Dict[str, float]] = None,
+                           device: Optional[DeviceLike] = None
                            ) -> WindowedStats:
     """windowed_stats over a mesh: the replay's rows split into one block a
-    shard, each block folded into its own [K, W] grid, the grids combined
-    over the shard axis (`combine` = "psum" | "ring"), on `mesh.device`.
+    shard, each block folded into its own [K, W] grid on its shard's card,
+    the grids combined over the shard axis (`combine` = "psum" | "ring") on
+    the mesh's first card.
 
     Rows are padded with invalid rows to a multiple of the mesh size, as
     the reference pads them. On a multi-process mesh every process passes
     the same rows and calls this together (a collective on the mesh's
-    analytics group); each returns the same grids. Replays on one device
-    run one at a time (`_replay_gate`). A `timings` dict receives the
-    host-clock split (`fold_s`, `gather_s`, `combine_s`), each part waited
-    for on the device."""
+    analytics group); each returns the same grids. Replays on one card
+    run one at a time (`_replay_gate`, held on every card a replay
+    touches). A `timings` dict receives the host-clock split (`fold_s`,
+    `gather_s`, `combine_s`), each part waited for on the devices, and,
+    over several cards, `fold_s_by_card`, each card's fold. `device` is
+    where the caller's rows are and where the grids come back (default
+    the mesh's first card); a card's work runs on the calling thread's own
+    stream of that card (device.py `own_stream`)."""
     if combine not in ("psum", "ring"):
         raise ValueError(f"combine {combine!r}: expected 'psum' or 'ring'")
-    with _replay_gate(mesh.device):
+    dev = mesh.device if device is None else resolve_device(device)
+    touched = _distinct([dev] + list(mesh.cards))
+    with contextlib.ExitStack() as held:
+        for card in sorted(touched, key=str):
+            held.enter_context(_replay_gate(card))
+        for card in touched:
+            held.enter_context(own_stream(card))
         stats = _sharded_stats(keys, ts_rel, value, valid,
                                window_ms=window_ms, num_keys=num_keys,
                                n_windows=n_windows, mesh=mesh,
-                               combine=combine, timings=timings)
-        if mesh.device.type == "cuda":
-            # the partial grids are freed only once this stream is done
-            torch.cuda.current_stream(mesh.device).synchronize()
+                               combine=combine, timings=timings, device=dev)
+        for card in touched:
+            if card.type == "cuda":
+                # the partial grids are freed only once this stream is done
+                torch.cuda.current_stream(card).synchronize()
     return stats
+
+
+def _distinct(devices) -> List[torch.device]:
+    """The distinct devices of a list, first occurrence first ("cuda"
+    spelled with the current card's index)."""
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d not in out:
+            out.append(d)
+    return out
 
 
 _GATES: Dict[str, threading.Lock] = {}
@@ -333,11 +373,14 @@ def _replay_gate(device: torch.device) -> threading.Lock:
 
 
 def _sharded_stats(keys, ts_rel, value, valid, *, window_ms, num_keys,
-                   n_windows, mesh, combine, timings=None) -> WindowedStats:
+                   n_windows, mesh, combine, timings=None,
+                   device=None) -> WindowedStats:
     S = shard_axis_size(mesh)
-    dev = mesh.device
+    first = mesh.device
+    dev = first if device is None else device
+    touched = _distinct([dev] + list(mesh.cards))
     K, W = int(num_keys), int(n_windows)
-    t0 = _clock(dev, timings)
+    t0 = _clock(touched, timings)
     cols = [_as_tensor(keys, torch.int32, dev),
             _as_tensor(ts_rel, torch.int32, dev),
             _as_tensor(value, torch.float32, dev),
@@ -347,39 +390,78 @@ def _sharded_stats(keys, ts_rel, value, valid, *, window_ms, num_keys,
     if Bp > B:
         cols = [torch.cat([c, c.new_zeros(Bp - B)]) for c in cols]
     local = mesh.local_shards
+    per = Bp // S
     if len(local) < S:
         # this process folds its own contiguous blocks only
-        per = Bp // S
         cols = [c[local[0] * per:(local[-1] + 1) * per] for c in cols]
-    parts = block_partials(*cols, window_ms=window_ms, num_keys=K,
-                           n_windows=W, n_blocks=len(local), device=dev)
-    parts = [p.view(len(local), K * W) for p in parts]
-    t1 = _clock(dev, timings)
+    # each card folds its blocks: one pass, one segment-sum launch a card
+    n = mesh.shards_per_card
+    folds, marks = [], []
+    for k, card in enumerate(mesh.cards):
+        block = [c[k * n * per:(k + 1) * n * per].to(card) for c in cols]
+        mark = _mark(card, timings)
+        with on_card(card):
+            parts = block_partials(*block, window_ms=window_ms, num_keys=K,
+                                   n_windows=W, n_blocks=n, device=card)
+        folds.append([p.view(n, K * W) for p in parts])
+        marks.append((mark, _mark(card, timings)))
+    t1 = _clock(touched, timings)
+    if len(folds) == 1:
+        parts = folds[0]
+    else:
+        # the partial grids meet on the first card in shard order
+        parts = [torch.cat([fold[i].to(first) for fold in folds])
+                 for i in range(4)]
     if len(local) < S:
         parts = _all_gather_blocks(parts, mesh)
-    t2 = _clock(dev, timings)
+    t2 = _clock(touched, timings)
     count, vsum, vmin, vmax = parts
-    if S == 1:   # a collective over one shard is the identity
-        count, vsum, vmin, vmax = count[0], vsum[0], vmin[0], vmax[0]
-    elif combine == "psum":
-        count, vsum, vmin, vmax = _combine_psum(count, vsum, vmin, vmax)
-    else:
-        count, vsum, vmin, vmax = _combine_ring(count, vsum, vmin, vmax)
-    del parts
-    out = grids_of(count, vsum, finalize_mean(count, vsum), vmin, vmax,
-                   K, W)
-    t3 = _clock(dev, timings)
+    del parts, folds
+    with on_card(first):
+        if S == 1:   # a collective over one shard is the identity
+            count, vsum, vmin, vmax = count[0], vsum[0], vmin[0], vmax[0]
+        elif combine == "psum":
+            count, vsum, vmin, vmax = _combine_psum(count, vsum, vmin, vmax)
+        else:
+            count, vsum, vmin, vmax = _combine_ring(count, vsum, vmin, vmax)
+        out = grids_of(count, vsum, finalize_mean(count, vsum), vmin, vmax,
+                       K, W)
+    if torch.device(dev) != first:
+        out = out.to(dev)
+    t3 = _clock(touched, timings)
     if timings is not None:
         timings.update(fold_s=t1 - t0, gather_s=t2 - t1, combine_s=t3 - t2)
+        if len(marks) > 1:
+            timings["fold_s_by_card"] = [_elapsed(a, b) for a, b in marks]
     return out
 
 
-def _clock(dev: torch.device, timings) -> float:
-    """Host clock for the optional split, after the device is done."""
+def _mark(card: torch.device, timings):
+    """A point on `card`'s current stream (an event on the card, the host
+    clock elsewhere), or None when no split was asked for."""
+    if timings is None:
+        return None
+    if card.type == "cuda":
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(card))
+        return event
+    return time.perf_counter()
+
+
+def _elapsed(a, b) -> float:
+    """Seconds between two `_mark`s (their cards already waited for)."""
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) / 1e3
+
+
+def _clock(devices, timings) -> float:
+    """Host clock for the optional split, after the devices are done."""
     if timings is None:
         return 0.0
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return time.perf_counter()
 
 

@@ -8,17 +8,33 @@ bucketing + the all_to_all as a permute, inside the step; the default with
 S >= 2) or the host arena router (parallel/router.py; S == 1, and the
 bounded spill of a batch too skewed for the device lanes).
 
-The S shards live on ONE torch device (parallel/mesh.py): every state
-group, per-device param row and routed blob carries a leading shard axis,
-`[S, D/S, ...]` / `[S, rows, B]`. The step (`_step_into_state`) is the
-single engine's `process_batch` on shard s's views, in a loop over s; the
-state updates in place through the views, and the reference's psums
-(`tenant_counts`, `processed`, `alerts`, int32) are sums over the shard
-axis in shard order. On the card the whole loop, routing prologue
-included, is one captured CUDA graph per static configuration
-(pipeline/graph.py); the blob's shape tells the two programs apart (`[S,
-rows, B]` host-routed, `[rows, S*B]` device-routed), so the key carries
-the routing mode. The hand kernels launch once per shard per step.
+The S shards live in card blocks (parallel/mesh.py): card k holds shards
+`[k*S/K, (k+1)*S/K)`, and every state group, per-device param row and
+routed blob of the block carries a leading shard axis on that card, `[S/K,
+D/S, ...]` / `[S/K, rows, B]`. The resident groups and params are `Blocks`
+(tree.py), one tree a card; the replicated tables (threshold, zones,
+geofence, programs, models, policies) are copied to every card at each
+refresh. A card's step (`_card_outputs`) is the single engine's
+`process_batch` on each of its shards' views, in a loop; the state updates
+in place through the views, and the reference's psums (`tenant_counts`,
+`processed`, `alerts`, int32) are sums over the card's shards in shard
+order, whose K partials meet on the first card in card order (integer
+sums: any order gives the same bits). The per-row outputs and the lanes
+come to the first card in shard order.
+
+On the card each static configuration's step is captured: with one card
+the whole loop, routing prologue included, is one CUDA graph
+(pipeline/graph.py); over K cards each card has its own graph, recorded on
+that card's capture stream and replayed from one thread, so that the cards
+run at once. The device route's exchange crosses cards, so over K cards a
+device-routed step is, on every card, a captured route prologue
+(`route_bucket`), then the copies between cards (`route_exchange`, eager:
+PyTorch orders a copy between two cards with events on both cards' current
+streams, which a capture on one card cannot hold), then the captured body
+(`route_compact` and the shards' loop). The blob's shape tells the two
+programs apart (`[S, rows, B]` host-routed, `[rows, S*B]` device-routed),
+so the key carries the routing mode. The hand kernels launch once per
+shard per step, each on its shard's card.
 
 The host half follows the reference: `submit` (overflow merge, the route
 decision in `_prepare_step`, `stage_prepared` / `stage_routed_blob`
@@ -61,7 +77,7 @@ import dataclasses
 import logging
 import time
 from functools import partial
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,8 +92,10 @@ from sitewhere_tpu_torch.ops.compact import (
 from sitewhere_tpu_torch.ops.pack import (
     _VALID_SHIFT, WIRE_ROWS, EventBatch, EventPacker, batch_to_blob,
     blob_to_batch, blob_to_batch_np, empty_batch, wire_variant_for)
+from sitewhere_tpu_torch.device import on_card, same_device
 from sitewhere_tpu_torch.ops.route import (
-    ROUTE_DROPPED_SLOT, device_route_chunk, host_fits_device_route,
+    ROUTE_DROPPED_SLOT, device_route_cards, device_route_chunk,
+    host_fits_device_route, route_bucket, route_compact, route_exchange,
     route_lane_capacity)
 from sitewhere_tpu_torch.ops.stateful import init_rule_state
 from sitewhere_tpu_torch.parallel.mesh import (
@@ -86,13 +104,16 @@ from sitewhere_tpu_torch.parallel.router import (
     FlatBatchArena, ShardRouter, concat_flat_batches)
 from sitewhere_tpu_torch.pipeline.engine import (
     _SECOND_COUNTER, PipelineEngine, record_event)
-from sitewhere_tpu_torch.pipeline.graph import commit
+from sitewhere_tpu_torch.pipeline.graph import (
+    capture_graph, capture_step, commit, pool_bytes, step_key)
 from sitewhere_tpu_torch.pipeline.state_tensors import (
     DeviceStateTensors, init_device_state)
-from sitewhere_tpu_torch.pipeline.step import ProcessOutputs, process_batch
+from sitewhere_tpu_torch.pipeline.step import (
+    ProcessOutputs, check_presence, process_batch)
 from sitewhere_tpu_torch.registry.tensors import RegistryTensors
 from sitewhere_tpu_torch.runtime.faults import fault_point
-from sitewhere_tpu_torch.tree import tree_map
+from sitewhere_tpu_torch.tree import (
+    Blocks, split_blocks, to_device, tree_map)
 
 _log = logging.getLogger("sitewhere.parallel")
 
@@ -106,6 +127,90 @@ def _stacked(local, n_shards: int):
     leading shard axis (one contiguous tensor a field)."""
     return tree_map(lambda t: t.unsqueeze(0).repeat(
         (n_shards,) + (1,) * t.dim()).contiguous(), local)
+
+
+class _CardSteps:
+    """One static configuration's step captured over K cards: per card the
+    body (`CapturedStep`: its shards' loop, reading its routed blob), and
+    for a device-routed key the route prologue graph and the exchange's
+    static buffers (the lanes each card received, the ts base).
+
+    `marks`, when a caller sets it to a list, receives each replay's phase
+    boundaries ("start", "prologues", "exchange", "bodies", and the
+    engine's "gathered"): (name, host perf_counter, one timing event a
+    block recorded on its card's current stream). Off (None) it costs one
+    test a boundary."""
+
+    def __init__(self, cards, bodies, prologues=None, flats=None,
+                 sends=None, bases=None, received=None,
+                 received_bases=None):
+        self.cards = cards
+        self.bodies = bodies
+        self.prologues = prologues
+        self.flats = flats
+        self.sends = sends
+        self.bases = bases
+        self.received = received
+        self.received_bases = received_bases
+        self.marks: Optional[list] = None
+
+    def mark(self, name: str) -> None:
+        """Record a phase boundary on every card (see the class)."""
+        if self.marks is None:
+            return
+        events = []
+        for card in self.cards:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(card))
+            events.append(event)
+        self.marks.append((name, time.perf_counter(), events))
+
+    def replay(self, parts):
+        """Queue one step on every card (the prologues, the exchange, the
+        bodies) and return each card's outputs, on the first card: views
+        of the first card's own output buffer (and of any block that
+        shares its device), one copy of every other card's buffer. Returns
+        without waiting for a card."""
+        self.mark("start")
+        if self.prologues is not None:
+            for flat, part, graph in zip(self.flats, parts, self.prologues):
+                flat.copy_(part, non_blocking=True)
+                graph.replay()
+            self.mark("prologues")
+            self.exchange()
+            self.mark("exchange")
+            for body in self.bodies:
+                body.replay(None, copy_out=False)
+        else:
+            for body, part in zip(self.bodies, parts):
+                body.replay(part, copy_out=False)
+        self.mark("bodies")
+        return self.outputs_on_first()
+
+    def exchange(self) -> None:
+        """The route's copies between the cards (device-routed keys)."""
+        route_exchange(self.sends, self.bases, self.received,
+                       self.received_bases)
+
+    def outputs_on_first(self) -> List[ProcessOutputs]:
+        """Each card's outputs of the last replay, on the first card."""
+        first = self.cards[0]
+        return [body.arena.views(body.out_flat if same_device(card, first)
+                                 else body.out_flat.to(first,
+                                                       non_blocking=True))
+                for card, body in zip(self.cards, self.bodies)]
+
+    def resident_bytes(self, block: int) -> int:
+        """Device bytes block `block`'s graphs keep: the body's pool,
+        output and input buffers (the lanes received in the exchange, for
+        a device-routed key), and the prologue's pool and input."""
+        body = self.bodies[block]
+        total = (body.pool_bytes() + int(body.out_flat.nbytes)
+                 + int(body.static_blob.nbytes))
+        if self.prologues is not None:
+            total += (pool_bytes(self.prologues[block].pool())
+                      + int(self.flats[block].nbytes))
+        return total
 
 
 class RoutedBlobView:
@@ -280,7 +385,8 @@ class ShardedPipelineEngine(PipelineEngine):
     """Drop-in engine whose state, params and batches carry a leading shard
     axis. `per_shard_batch` is the per-shard batch; a flat submit carries
     up to S times as many events. Device capacity must divide by S. The
-    engine runs on the mesh's device (`make_mesh(S, device=...)`)."""
+    engine runs on the mesh's cards (`make_mesh(S, ...)`), one block of
+    shards a card; `device` is its first card."""
 
     def __init__(self, registry_tensors: RegistryTensors,
                  mesh: Optional[ShardMesh] = None,
@@ -290,11 +396,15 @@ class ShardedPipelineEngine(PipelineEngine):
         if mesh is None:
             mesh = make_mesh(1, device=device if device is not None
                              else "cuda")
-        elif device is not None and torch.device(device) != mesh.device:
+        elif device is not None and not same_device(device, mesh.device):
             raise ValueError(f"device {device!r} is not the mesh's "
                              f"{mesh.device}")
         self.mesh = mesh
         self.n_shards = shard_axis_size(mesh)
+        # the card blocks: block k on cards[k], shards_per_card shards each
+        self.cards = tuple(mesh.cards)
+        self.n_cards = len(self.cards)
+        self.shards_per_card = mesh.shards_per_card
         # this process's shards (all of them on one controller): a
         # contiguous block of the shard axis
         self.local_shards: List[int] = list(mesh.local_shards)
@@ -308,6 +418,17 @@ class ShardedPipelineEngine(PipelineEngine):
                 f"divisible by {self.n_shards} shards")
         super().__init__(registry_tensors, batch_size=per_shard_batch,
                          device=mesh.device, **kwargs)
+        # one H2D side stream a card block (the first: the engine's own),
+        # and the replays' kernel launches ({name: count} a block) and
+        # captures per block
+        self._h2d_streams = (
+            [self._h2d_stream] + [torch.cuda.Stream(card)
+                                  for card in self.cards[1:]]
+            if self.device.type == "cuda" else [None] * self.n_cards)
+        self.card_kernel_launches: List[Dict[str, int]] = [
+            {} for _ in self.cards]
+        self.card_graph_captures = [0] * self.n_cards
+        self._step_mode = ""
         # pooled host staging buffers only on the card (pinned, so their
         # H2D copies run async); on the CPU the staged "transfer" may
         # alias the host buffer, as the reference's cpu backend does
@@ -405,10 +526,11 @@ class ShardedPipelineEngine(PipelineEngine):
         S = self.n_shards
         with self._state_lock:
             if self._state is None:
-                self._state = _stacked(init_device_state(
+                self._state = Blocks(_stacked(init_device_state(
                     self.registry.devices.capacity // S,
                     self.measurement_slots, self.max_tenants,
-                    device=self.device), self.n_local)
+                    device=card), self.shards_per_card)
+                    for card in self.cards)
         self._ensure_params()
 
     def _init_group(self, group: str):
@@ -417,20 +539,57 @@ class ShardedPipelineEngine(PipelineEngine):
         init = {"rule": init_rule_state, "model": init_model_state,
                 "actuation": init_actuation_state}[group]
         S = self.n_shards
-        return _stacked(init(self.registry.devices.capacity // S, *dims,
-                             device=self.device), self.n_local)
+        return Blocks(_stacked(init(self.registry.devices.capacity // S,
+                                    *dims, device=card),
+                               self.shards_per_card) for card in self.cards)
 
     def _device_rows(self, column: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(
             self.router.shard_param(column)[self._local])
 
-    def _slot_counts(self, counter: torch.Tensor) -> np.ndarray:
+    def _place_params(self, params):
+        """One copy of the params a card: the replicated tables whole, the
+        registry rows of the card's block of shards."""
+        n = self.shards_per_card
+        rows = ("assignment_status", "tenant_idx", "area_idx",
+                "device_type_idx")
+        return Blocks(to_device(dataclasses.replace(params, **{
+            name: getattr(params, name)[k * n:(k + 1) * n] for name in rows}),
+            card) for k, card in enumerate(self.cards))
+
+    def _commit_blocks(self, blocks: Blocks, host) -> None:
+        """Copy a host tree whose sharded leaves are stacked `[S_local,
+        ...]` into the resident blocks, each block its rows."""
+        commit(blocks, split_blocks(host,
+                                    [self.shards_per_card] * self.n_cards))
+
+    def _host_blocks(self, blocks: Blocks) -> dict:
+        """{field: host `[S_local, ...]` array} of a resident group, the
+        blocks concatenated in card order (a copy)."""
+        return {f.name: getattr(blocks, f.name).cpu().numpy()
+                for f in dataclasses.fields(blocks[0])}
+
+    def _slot_counts(self, counter) -> np.ndarray:
         # per-shard additive partials: the global count is their sum
         return counter.cpu().numpy().sum(0, dtype=np.int32)
 
-    def _device_row(self, field: torch.Tensor, idx: int) -> torch.Tensor:
-        return field[idx % self.n_shards - self._local.start,
-                     idx // self.n_shards]
+    def _device_row(self, field, idx: int) -> torch.Tensor:
+        block, row = divmod(idx % self.n_shards - self._local.start,
+                            self.shards_per_card)
+        return field[block][row, idx // self.n_shards]
+
+    def _sweep_presence(self, now_rel: int, interval_ms: int) -> np.ndarray:
+        """The presence check on each card's block, with that card's
+        registry rows; the masks come back `[S_local, D/S]`."""
+        masks = []
+        for k, card in enumerate(self.cards):
+            with on_card(card):
+                state, newly_missing = check_presence(
+                    self._state[k], self._params[k].assignment_status == 1,
+                    now_rel, interval_ms)
+                commit(self._state[k], state)
+            masks.append(newly_missing.cpu().numpy())
+        return np.concatenate(masks)
 
     def owns(self, idx: int) -> bool:
         """Whether global device `idx` lives on one of this host's shards."""
@@ -451,45 +610,212 @@ class ShardedPipelineEngine(PipelineEngine):
 
     # -- the step ----------------------------------------------------------------
 
-    def _shard_params(self, s: int):
-        p = self._params
+    @staticmethod
+    def _shard_params(params, i: int):
+        """Shard i's params from its card's copy: its registry rows, the
+        replicated tables."""
         return dataclasses.replace(
-            p, assignment_status=p.assignment_status[s],
-            tenant_idx=p.tenant_idx[s], area_idx=p.area_idx[s],
-            device_type_idx=p.device_type_idx[s])
+            params, assignment_status=params.assignment_status[i],
+            tenant_idx=params.tenant_idx[i], area_idx=params.area_idx[i],
+            device_type_idx=params.device_type_idx[i])
+
+    def _card_outputs(self, k: int, blob: torch.Tensor,
+                      dropped: Optional[torch.Tensor] = None
+                      ) -> ProcessOutputs:
+        """Card k's step as its graph captures it: process_batch on each of
+        its shards' views of the routed `[S/K, rows, B]` blob, the new
+        state copied back through them; the per-row outputs stacked, the
+        stats summed over the card's shards in shard order, and the route's
+        drop counts (device route) in the lanes' spare slot."""
+        groups = (self._state[k], self._rule_state[k], self._model_state[k],
+                  self._actuation_state[k])
+        params = self._params[k]
+        outs = []
+        with on_card(self.cards[k]):
+            for i in range(blob.shape[0]):
+                views = [tree_map(lambda t: t[i], group) for group in groups]
+                *new, out = process_batch(
+                    self._shard_params(params, i), *views,
+                    blob_to_batch(blob[i]),
+                    geofence_impl=self.geofence_impl,
+                    alert_lane_capacity=self.alert_lane_capacity,
+                    command_lane_capacity=self.command_lane_capacity,
+                    **self._step_flags)
+                for view, group in zip(views, new):
+                    commit(view, group)
+                outs.append(out)
+            fields = {}
+            for f in dataclasses.fields(ProcessOutputs):
+                parts = torch.stack([getattr(o, f.name) for o in outs])
+                fields[f.name] = (parts.sum(0, dtype=torch.int32)
+                                  if f.name in _SUMMED_OUTPUTS else parts)
+            if dropped is not None:
+                fields["alert_lanes"][:, 3, ROUTE_DROPPED_SLOT] = dropped
+        return ProcessOutputs(**fields)
 
     def _step_into_state(self, blob: torch.Tensor) -> ProcessOutputs:
-        """The sharded step as a graph captures it: the routing prologue
-        for a flat blob, then process_batch on each shard's views with the
-        new state copied back through them, then the per-shard outputs
-        stacked and the stats summed over the shard axis."""
-        S = self.n_shards
+        """The one-card step as a graph captures it: the routing prologue
+        for a flat blob, then the card's shards."""
         dropped = None
         if blob.dim() == 2:
-            blob, dropped = device_route_chunk(
-                blob, S, self.batch_size, self.route_lane_capacity)
-        outs = []
-        for s in range(blob.shape[0]):
-            views = [tree_map(lambda t: t[s], group) for group in (
-                self._state, self._rule_state, self._model_state,
-                self._actuation_state)]
-            *new, out = process_batch(
-                self._shard_params(s), *views, blob_to_batch(blob[s]),
-                geofence_impl=self.geofence_impl,
-                alert_lane_capacity=self.alert_lane_capacity,
-                command_lane_capacity=self.command_lane_capacity,
-                **self._step_flags)
-            for view, group in zip(views, new):
-                commit(view, group)
-            outs.append(out)
-        fields = {}
-        for f in dataclasses.fields(ProcessOutputs):
-            parts = torch.stack([getattr(o, f.name) for o in outs])
-            fields[f.name] = (parts.sum(0, dtype=torch.int32)
-                              if f.name in _SUMMED_OUTPUTS else parts)
-        if dropped is not None:
-            fields["alert_lanes"][:, 3, ROUTE_DROPPED_SLOT] = dropped
+            with on_card(self.cards[0]):
+                blob, dropped = device_route_chunk(
+                    blob, self.n_shards, self.batch_size,
+                    self.route_lane_capacity)
+        return self._card_outputs(0, blob, dropped)
+
+    # -- the step over several cards -------------------------------------------
+
+    def _card_parts(self, blob) -> List[torch.Tensor]:
+        """A blob's per-card parts, each on its card: a host-routed `[S,
+        rows, B]` blob splits on the shard axis, a flat `[rows, S*B]` one
+        into each card's lane chunks. Staged parts pass through."""
+        if isinstance(blob, (list, tuple)):
+            return list(blob)
+        blob = torch.as_tensor(blob)
+        n, K = self.shards_per_card, self.n_cards
+        if blob.dim() == 3:
+            parts = [blob[k * n:(k + 1) * n] for k in range(K)]
+        else:
+            width = blob.shape[1] // K
+            parts = [blob[:, k * width:(k + 1) * width] for k in range(K)]
+        return [part.contiguous().to(card)
+                for part, card in zip(parts, self.cards)]
+
+    def _global_shape(self, parts) -> Tuple[int, ...]:
+        """The whole blob's shape from its parts (the step key's)."""
+        shape = tuple(parts[0].shape)
+        if len(shape) == 3:
+            return (shape[0] * len(parts),) + shape[1:]
+        return (shape[0], shape[1] * len(parts))
+
+    def _run_step(self, blob, ready):
+        """One step under the state lock. One card: the single engine's
+        (one graph a key). Several: a replay of every card's captured step,
+        or, for a key's first step (and every step on the CPU), the cards'
+        step run eagerly on the live buffers; either way the cards' outputs
+        are gathered on the first card. Returns (outputs, None), or
+        (outputs, (key, parts, per-card outputs)) when the key is to be
+        captured."""
+        parts = self._card_parts(blob)
+        ready = ready or [None] * self.n_cards
+        if self.n_cards == 1:
+            return super()._run_step(parts[0], ready[0])
+        key = step_key(self._step_flags, self._global_shape(parts))
+        if key in self._failed_captures:
+            raise RuntimeError(f"the step of {key} failed to capture "
+                               f"({self._failed_captures[key]})")
+        for card, event in zip(self.cards, ready):
+            if event is not None:
+                torch.cuda.current_stream(card).wait_event(event)
+        steps = self._graphs.get(key)
+        if steps is not None:
+            outs = steps.replay(parts)
+            self._step_mode = "replay"
+            for k, body in enumerate(steps.bodies):
+                self._count_replay(body.kernel_launches, k)
+            outputs = self._gather_outputs(outs)
+            steps.mark("gathered")
+            return outputs, None
+        outs = self._cards_step(parts)
+        self._step_mode = "eager"
+        return (self._gather_outputs(outs),
+                (key, parts, outs) if self._captures() else None)
+
+    def _count_replay(self, launches: Dict[str, int], block: int = 0
+                      ) -> None:
+        """Add one replay's kernel launches on block `block`'s card to
+        `graph_kernel_launches` and to the block's `card_kernel_launches`."""
+        super()._count_replay(launches)
+        counts = self.card_kernel_launches[block]
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+
+    def _cards_step(self, parts) -> List[ProcessOutputs]:
+        """Every card's step, eagerly: for flat parts the route over the
+        cards (each card buckets its chunks, the exchange, each card
+        compacts), then each card's shards."""
+        if parts[0].dim() == 3:
+            return [self._card_outputs(k, part)
+                    for k, part in enumerate(parts)]
+        routed = device_route_cards(parts, self.n_shards, self.batch_size,
+                                    self.route_lane_capacity)
+        return [self._card_outputs(k, blob, dropped)
+                for k, (blob, dropped) in enumerate(routed)]
+
+    def _gather_outputs(self, outs: List[ProcessOutputs]) -> ProcessOutputs:
+        """The cards' outputs as one step's, on the first card: the per-row
+        fields and the lanes concatenated in shard order, the three int32
+        partials summed in card order."""
+        first = self.cards[0]
+        with on_card(first):
+            fields = {}
+            for f in dataclasses.fields(ProcessOutputs):
+                parts = [getattr(o, f.name).to(first, non_blocking=True)
+                         for o in outs]
+                if f.name in _SUMMED_OUTPUTS:
+                    total = parts[0]
+                    for part in parts[1:]:
+                        total = total + part
+                    fields[f.name] = total
+                else:
+                    fields[f.name] = torch.cat(parts)
         return ProcessOutputs(**fields)
+
+    def _capture(self, key_and_blob, outputs: ProcessOutputs) -> None:
+        """One card: the single engine's capture. Several: every card's
+        step captured on its own card (for a device-routed key, its route
+        prologue and its body), unless another thread changed the static
+        configuration since the eager step."""
+        if self.n_cards == 1:
+            return super()._capture(key_and_blob, outputs)
+        key, parts, outs = key_and_blob
+        if key in self._graphs or key != step_key(
+                self._step_flags, self._global_shape(parts)):
+            return
+        K, n = self.n_cards, self.shards_per_card
+        S, B, C = self.n_shards, self.batch_size, self.route_lane_capacity
+        if parts[0].dim() == 3:
+            bodies = [capture_step(partial(self._card_outputs, k), part,
+                                   outs[k])
+                      for k, part in enumerate(parts)]
+            steps = _CardSteps(self.cards, bodies)
+        else:
+            flats, prologues, sends, drops, bases = [], [], [], [], []
+            for k, (part, card) in enumerate(zip(parts, self.cards)):
+                with on_card(card):
+                    flat = torch.empty_like(part)
+                graph, (send, dropped, base), _ = capture_graph(
+                    partial(route_bucket, flat, k * n, S, B, C), card)
+                flats.append(flat)
+                prologues.append(graph)
+                sends.append(send)
+                drops.append(dropped)
+                bases.append(base)
+            received, received_bases = [], []
+            for card in self.cards:
+                with on_card(card):
+                    received.append(torch.empty(
+                        (K,) + tuple(sends[0][:n].shape), dtype=torch.int32,
+                        device=card))
+                    received_bases.append(
+                        None if bases[0] is None else
+                        torch.empty((), dtype=torch.int32, device=card))
+
+            def body(k, recv):
+                blob, dropped = route_compact(recv, drops[k],
+                                              received_bases[k], B)
+                return self._card_outputs(k, blob, dropped)
+
+            bodies = [capture_step(partial(body, k), received[k], outs[k],
+                                   static_blob=received[k])
+                      for k in range(K)]
+            steps = _CardSteps(self.cards, bodies, prologues, flats, sends,
+                               bases, received, received_bases)
+        self._graphs[key] = steps
+        self.graph_captures += K
+        for k in range(K):
+            self.card_graph_captures[k] += 1
 
     # -- processing --------------------------------------------------------------
 
@@ -657,26 +983,47 @@ class ShardedPipelineEngine(PipelineEngine):
         return self.dispatch_staged(self.stage_prepared(prepared))
 
     def _stage_copy(self, slot, blob: np.ndarray):
-        """The transfer of a flat or routed blob: on the card an async copy
-        on the H2D side stream into a view of the slot's fixed device
-        buffer (sized for the largest layout), returning (view, event); a
-        ring-bypassing blob (slot None) copies on the current stream. On
-        the CPU a plain copy and no event."""
+        """The transfer of a flat or routed blob, a part a card block (its
+        shards' rows of a routed blob, its lane chunks of a flat one; the
+        whole blob on one card), each into the slot's fixed buffer on the
+        block's card. On the card async copies on the block's H2D side
+        stream, a flat part's one row at a time (each row of a lane chunk
+        is contiguous in the pinned host blob, so nothing is copied on the
+        host first), returning (parts, one event a block); on the CPU
+        plain copies and no events. A ring-bypassing blob (slot None)
+        copies on the current streams."""
         host = torch.from_numpy(np.ascontiguousarray(blob))
-        if self.device.type != "cuda":
-            return host.clone(), None
+        K = self.n_cards
+        if host.dim() == 3:
+            n = self.shards_per_card
+            parts = [host[k * n:(k + 1) * n] for k in range(K)]
+        else:
+            width = host.shape[1] // K
+            parts = [host[:, k * width:(k + 1) * width] for k in range(K)]
         if slot is None:
-            return host.to(self.device), None
-        size = self.n_shards * WIRE_ROWS * self.batch_size
-        with torch.cuda.stream(self._h2d_stream):
-            if slot.buffer is None or slot.buffer.numel() != size:
-                slot.buffer = torch.empty(size, dtype=torch.int32,
-                                          device=self.device)
-            dst = slot.buffer[:host.numel()].view(host.shape)
-            dst.copy_(host, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self._h2d_stream)
-        return dst, ready
+            return [part.to(card, copy=True)
+                    for part, card in zip(parts, self.cards)], None
+        size = self.shards_per_card * WIRE_ROWS * self.batch_size
+        if not slot.buffers or slot.buffers[0].numel() != size:
+            slot.buffers = [torch.empty(size, dtype=torch.int32, device=card)
+                            for card in self.cards]
+        if self.device.type != "cuda":
+            out = [buf[:part.numel()].view(part.shape).copy_(part)
+                   for buf, part in zip(slot.buffers, parts)]
+            return out, None
+        out, ready = [], []
+        for k, part in enumerate(parts):
+            stream = self._h2d_streams[k]
+            with torch.cuda.stream(stream):
+                dst = slot.buffers[k][:part.numel()].view(part.shape)
+                for d, p in ([(dst, part)] if part.is_contiguous()
+                             else zip(dst, part)):
+                    d.copy_(p, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
+            out.append(dst)
+            ready.append(event)
+        return out, ready
 
     def _stage(self, blob: np.ndarray, rec, order, use_ring):
         """Start `blob`'s transfer (through a ring slot unless `use_ring`
@@ -762,6 +1109,12 @@ class ShardedPipelineEngine(PipelineEngine):
         if self.is_multiprocess:
             outputs = self._all_reduce_sums(outputs)
         rec.end_stage("dispatch")
+        if self.n_cards > 1:
+            rec.cards = [{"block": k, "card": str(card),
+                          "h2d": staged.slot is not None,
+                          "exchange": staged.kind == "device",
+                          "step": self._step_mode}
+                         for k, card in enumerate(self.cards)]
         guard = record_event(self.device)
         if staged.slot is not None:
             self.staging_ring.release(staged.slot, guard)
@@ -769,11 +1122,11 @@ class ShardedPipelineEngine(PipelineEngine):
         self._stage_hist.observe(rec.stage_s("dispatch"),
                                  engine=self.name, stage="dispatch")
         if staged.routed_blob is not None and self.router.staging_ring:
-            # the pooled host blob returns when the view is collected; its
-            # copy's event proves the H2D read it
+            # the pooled host blob returns when the view is collected; the
+            # step's guard proves the H2D read it (the first card waited
+            # for every card's copy)
             view._release = partial(self.router.release_staging_buffer,
-                                    staged.routed_blob,
-                                    staged.ready or guard)
+                                    staged.routed_blob, guard)
         self.batches_processed += 1
         # rows this call stepped, from the blob's head bits (an overflow
         # row counts once, on the step that carries it)
@@ -948,12 +1301,11 @@ class ShardedPipelineEngine(PipelineEngine):
         if self.is_multiprocess:
             raise self._multihost_refusal("multi-host canonical gather")
         with self._state_lock:
-            snap = tree_map(lambda t: t.to("cpu", copy=True), self.state)
+            snap = self._host_blocks(self.state)
         out = {}
-        for f in dataclasses.fields(snap):
-            a = getattr(snap, f.name).numpy()
-            out[f.name] = torch.from_numpy(
-                a.sum(0, dtype=a.dtype) if f.name in _TENANT_STATE_FIELDS
+        for name, a in snap.items():
+            out[name] = torch.from_numpy(
+                a.sum(0, dtype=a.dtype) if name in _TENANT_STATE_FIELDS
                 else self.router.unshard_param(a))
         return DeviceStateTensors(**out)
 
@@ -968,7 +1320,7 @@ class ShardedPipelineEngine(PipelineEngine):
         out = {}
         for f in dataclasses.fields(state):
             a = np.asarray(getattr(state, f.name))
-            c = tuple(getattr(self._state, f.name).shape)
+            c = tuple(getattr(self._state, f.name).shape)   # [S_local, ...]
             want = (c[1:] if f.name in _TENANT_STATE_FIELDS
                     else (c[0] * c[1],) + c[2:])
             if tuple(a.shape) != want:
@@ -983,7 +1335,7 @@ class ShardedPipelineEngine(PipelineEngine):
                 stacked = self.router.shard_param(a)
             out[f.name] = torch.from_numpy(stacked)
         with self._state_lock:
-            commit(self._state, DeviceStateTensors(**out))
+            self._commit_blocks(self._state, DeviceStateTensors(**out))
 
     def set_state(self, state: DeviceStateTensors) -> None:
         """The resident layout is stacked [S, D/S, ...]; checkpoints use the
@@ -1003,18 +1355,17 @@ class ShardedPipelineEngine(PipelineEngine):
             if self.is_multiprocess:
                 raise self._multihost_refusal(
                     f"a multi-host canonical {group}-state gather")
-            snap = tree_map(lambda t: t.to("cpu", copy=True), state)
+            snap = self._host_blocks(state)
         out = {}
-        for f in dataclasses.fields(snap):
-            a = getattr(snap, f.name).numpy()
-            if f.name in ("fire_count", _SECOND_COUNTER[group]):
+        for name, a in snap.items():
+            if name in ("fire_count", _SECOND_COUNTER[group]):
                 a = a.sum(0, dtype=a.dtype)
-            elif f.name == "gen":
+            elif name == "gen":
                 a = a.max(0)
             else:
                 a = self.router.unshard_param(a)
-            out[f.name] = torch.from_numpy(np.ascontiguousarray(a))
-        return type(snap)(**out)
+            out[name] = torch.from_numpy(np.ascontiguousarray(a))
+        return type(state[0])(**out)
 
     def _load_canonical_group(self, group: str, state) -> None:
         """Inverse of _canonical_group, copied into the resident group
@@ -1042,7 +1393,8 @@ class ShardedPipelineEngine(PipelineEngine):
             out[f.name] = torch.from_numpy(stacked)
         with self._lock, self._state_lock:
             self._ensure_groups_sized()
-            commit(getattr(self, f"_{group}_state"), type(state)(**out))
+            self._commit_blocks(getattr(self, f"_{group}_state"),
+                                type(state)(**out))
 
     # -- the per-host shard layout (a cluster's gang-restart checkpoint) -----
 
@@ -1053,8 +1405,7 @@ class ShardedPipelineEngine(PipelineEngine):
         the same topology (`load_local_state_shards`); elastic restores
         stay the canonical layout's job."""
         with self._state_lock:
-            blocks = {f.name: getattr(self.state, f.name).cpu().numpy()
-                      for f in dataclasses.fields(self._state)}
+            blocks = self._host_blocks(self.state)
         return list(self.local_shards), blocks
 
     def load_local_state_shards(self, shard_ids, blocks) -> None:
@@ -1079,15 +1430,14 @@ class ShardedPipelineEngine(PipelineEngine):
                     f"{(self.n_shards,) + tuple(local.shape[1:])})")
             out[f.name] = torch.from_numpy(local)
         with self._state_lock:
-            commit(self._state, DeviceStateTensors(**out))
+            self._commit_blocks(self._state, DeviceStateTensors(**out))
 
     def _local_group_blocks(self, group: str):
         with self._state_lock:
             state = getattr(self, f"_{group}_state")
             if state is None:
                 return None
-            return {f.name: getattr(state, f.name).cpu().numpy()
-                    for f in dataclasses.fields(state)}
+            return self._host_blocks(state)
 
     def _load_local_group_blocks(self, group: str, blocks) -> None:
         """This host's blocks of a state group, copied into the resident
@@ -1098,7 +1448,7 @@ class ShardedPipelineEngine(PipelineEngine):
             self._ensure_groups_sized()
             state = getattr(self, f"_{group}_state")
             out = {}
-            for f in dataclasses.fields(state):
+            for f in dataclasses.fields(state[0]):
                 local = np.ascontiguousarray(blocks[f.name])
                 expect = tuple(getattr(state, f.name).shape)
                 if tuple(local.shape) != expect:
@@ -1106,7 +1456,7 @@ class ShardedPipelineEngine(PipelineEngine):
                         f"host-shard {group}-state field {f.name}: local "
                         f"shape {tuple(local.shape)} != engine {expect}")
                 out[f.name] = torch.from_numpy(local)
-            commit(state, type(state)(**out))
+            self._commit_blocks(state, type(state[0])(**out))
 
     def local_rule_state_blocks(self):
         return self._local_group_blocks("rule")
@@ -1129,10 +1479,10 @@ class ShardedPipelineEngine(PipelineEngine):
     def stats(self):
         with self._state_lock:
             s = self.state
-            tenant_events = s.tenant_event_count.sum(
-                0, dtype=torch.int32).cpu().tolist()
-            tenant_alerts = s.tenant_alert_count.sum(
-                0, dtype=torch.int32).cpu().tolist()
+            tenant_events = s.tenant_event_count.cpu().sum(
+                0, dtype=torch.int32).tolist()
+            tenant_alerts = s.tenant_alert_count.cpu().sum(
+                0, dtype=torch.int32).tolist()
         return {
             "batches": self.batches_processed,
             "dropped": self.total_dropped,

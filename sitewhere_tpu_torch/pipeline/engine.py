@@ -1002,7 +1002,7 @@ class PipelineEngine(LifecycleComponent):
         with self._lock:
             snap = self.registry.snapshot()
             rows = self._device_rows
-            self._install_params(to_device(PipelineParams(
+            self._install_params(self._place_params(PipelineParams(
                 assignment_status=rows(snap.assignment_status),
                 tenant_idx=rows(snap.tenant_idx),
                 area_idx=rows(snap.area_idx),
@@ -1015,8 +1015,13 @@ class PipelineEngine(LifecycleComponent):
                 geofence=self._compile_geofence_table(),
                 programs=self._compile_program_table(),
                 models=self._compile_model_table(),
-                policies=self._compile_policy_table()), self.device))
+                policies=self._compile_policy_table())))
             self._params_built_for = (snap.version, self._rules_version)
+
+    def _place_params(self, params: PipelineParams):
+        """Host-built params on the engine's device (the sharded engine
+        places one copy a card, each with its block's registry rows)."""
+        return to_device(params, self.device)
 
     def _device_rows(self, column: np.ndarray) -> np.ndarray:
         """A device-indexed registry column in the params' layout ([D]
@@ -1163,11 +1168,11 @@ class PipelineEngine(LifecycleComponent):
         if self.device.type != "cuda":
             return host.clone(), None
         with torch.cuda.stream(self._h2d_stream):
-            if slot.buffer is None or slot.buffer.shape[1] != host.shape[1]:
-                slot.buffer = torch.empty(
+            if not slot.buffers or slot.buffers[0].shape[1] != host.shape[1]:
+                slot.buffers = [torch.empty(
                     (WIRE_ROWS, host.shape[1]), dtype=torch.int32,
-                    device=self.device)
-            dst = slot.buffer[:host.shape[0]]
+                    device=self.device)]
+            dst = slot.buffers[0][:host.shape[0]]
             dst.copy_(host, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(self._h2d_stream)
@@ -1314,6 +1319,14 @@ class PipelineEngine(LifecycleComponent):
         card)."""
         return self.device.type == "cuda"
 
+    def _count_replay(self, launches: Dict[str, int], block: int = 0
+                      ) -> None:
+        """Add one replay's kernel launches ({name: count}) to
+        `graph_kernel_launches`."""
+        for name, n in launches.items():
+            self.graph_kernel_launches[name] = \
+                self.graph_kernel_launches.get(name, 0) + n
+
     def _run_step(self, blob, ready):
         """One step, under the state lock: a replay of the key's captured
         step, or, for a key's first step (and every step on the CPU), the
@@ -1328,9 +1341,7 @@ class PipelineEngine(LifecycleComponent):
         graph = self._graphs.get(key)
         if graph is not None:
             outputs = graph.replay(blob)
-            for name, n in graph.kernel_launches.items():
-                self.graph_kernel_launches[name] = \
-                    self.graph_kernel_launches.get(name, 0) + n
+            self._count_replay(graph.kernel_launches)
             return outputs, None
         if not (isinstance(blob, torch.Tensor)
                 and blob.device == self.device):
@@ -1631,18 +1642,25 @@ class PipelineEngine(LifecycleComponent):
         """Run the presence check at the current time; returns the tokens
         of newly-missing devices. The new presence columns are copied into
         the resident state, which keeps its storage."""
-        params = self._ensure_started()
+        self._ensure_started()
         now_rel = self.packer.rel_ts(int(time.time() * 1000))
         with self._state_lock:
-            state, newly_missing = check_presence(
-                self._state, params.assignment_status == 1, now_rel,
-                min(self.presence_missing_interval_ms, 2 ** 31 - 1))
-            commit(self._state, state)
-        rows = self._global_indices(newly_missing.cpu().numpy())
+            newly_missing = self._sweep_presence(
+                now_rel, min(self.presence_missing_interval_ms, 2 ** 31 - 1))
+        rows = self._global_indices(newly_missing)
         if rows.size == 0:
             return []
         tokens = self.registry.devices.token_array()[rows].tolist()
         return [t for t in tokens if t]
+
+    def _sweep_presence(self, now_rel: int, interval_ms: int) -> np.ndarray:
+        """The presence check on the resident state, copied back in place;
+        returns the newly-missing mask on the host."""
+        state, newly_missing = check_presence(
+            self._state, self._params.assignment_status == 1, now_rel,
+            interval_ms)
+        commit(self._state, state)
+        return newly_missing.cpu().numpy()
 
     def _global_indices(self, mask: np.ndarray) -> np.ndarray:
         """Device indices of a device-indexed host mask, in the order the
@@ -1687,7 +1705,7 @@ class PipelineEngine(LifecycleComponent):
         with self._state_lock:
             row = {f.name: self._device_row(getattr(self._state, f.name),
                                             idx).cpu().numpy()
-                   for f in dataclasses.fields(self._state)
+                   for f in dataclasses.fields(DeviceStateTensors)
                    if not f.name.startswith("tenant_")}
         abs_ts = self.packer.abs_ts
         state = DeviceState(device_id=device_token)

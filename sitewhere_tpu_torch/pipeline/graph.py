@@ -79,6 +79,7 @@ class OutputArena:
     one copy and come back as typed views."""
 
     def __init__(self, like: ProcessOutputs):
+        self.cls = type(like)
         self.fields = []
         offset = 0
         for f in dataclasses.fields(like):
@@ -90,7 +91,7 @@ class OutputArena:
         self.nbytes = offset
 
     def views(self, flat: torch.Tensor) -> ProcessOutputs:
-        return ProcessOutputs(**{
+        return self.cls(**{
             name: flat[off:off + n].view(dtype).view(shape)
             for name, dtype, shape, off, n in self.fields})
 
@@ -114,23 +115,31 @@ class CapturedStep:
         self.kernel_launches = kernel_launches
         self.pool_handle = pool_handle
 
-    def replay(self, blob) -> ProcessOutputs:
-        """Copy `blob` (host or device, the key's shape) into the static
-        blob, replay on the current stream, and return a copy of the
-        outputs. Returns without waiting for the card."""
-        if not isinstance(blob, torch.Tensor):
-            blob = torch.from_numpy(blob)
-        self.static_blob.copy_(blob, non_blocking=True)
+    def replay(self, blob, copy_out: bool = True) -> ProcessOutputs:
+        """Copy `blob` (host or device, the key's shape; None when the
+        static blob was filled in place) into the static blob, replay on
+        the current stream, and return a copy of the outputs (or, with
+        `copy_out` off, views of the graph's output buffer, which the next
+        replay overwrites). Returns without waiting for the card."""
+        if blob is not None:
+            if not isinstance(blob, torch.Tensor):
+                blob = torch.from_numpy(blob)
+            self.static_blob.copy_(blob, non_blocking=True)
         self.graph.replay()
-        return self.arena.views(self.out_flat.clone())
+        return self.arena.views(self.out_flat.clone() if copy_out
+                                else self.out_flat)
 
     def pool_bytes(self) -> int:
         """Device bytes the graph's private memory pool holds (the
         intermediates of the step)."""
-        return sum(int(seg["total_size"])
-                   for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) ==
-                   tuple(self.pool_handle))
+        return pool_bytes(self.pool_handle)
+
+
+def pool_bytes(handle) -> int:
+    """Device bytes a graph's private memory pool (`graph.pool()`) holds."""
+    return sum(int(seg["total_size"])
+               for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(handle))
 
 
 _CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
@@ -156,26 +165,39 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
         return stream
 
 
-def capture_step(step_fn: Callable[[torch.Tensor], ProcessOutputs],
-                 blob_like: torch.Tensor, outputs_like: ProcessOutputs
-                 ) -> CapturedStep:
-    """Capture `step_fn(static_blob)` into a CUDA graph on `blob_like`'s
-    card. Nothing runs: the graph is recorded, with the outputs copied into
-    a static buffer laid out after `outputs_like`. Other threads may keep
-    using the card meanwhile (thread-local capture mode). A failed capture
-    raises."""
-    device = blob_like.device
+def capture_graph(fn: Callable[[], object], device: torch.device):
+    """Capture `fn()` into a CUDA graph on `device`'s capture stream.
+    Nothing runs. Returns (graph, what `fn` returned: tensors of the
+    graph's private pool, which each replay rewrites, {kernel name:
+    launches one replay makes}). Other threads may keep using the card
+    meanwhile (thread-local capture mode). A failed capture raises."""
     with torch.cuda.device(device):
-        static_blob = torch.empty_like(blob_like)
-        arena = OutputArena(outputs_like)
-        out_flat = torch.empty(arena.nbytes, dtype=torch.uint8,
-                               device=device)
         before = {name: w.captures for name, w in STEP_KERNELS.items()}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=capture_stream(device),
                               capture_error_mode="thread_local"):
-            arena.store(out_flat, step_fn(static_blob))
+            result = fn()
     launches = {name: w.captures - before[name]
                 for name, w in STEP_KERNELS.items()}
+    return graph, result, launches
+
+
+def capture_step(step_fn: Callable[[torch.Tensor], ProcessOutputs],
+                 blob_like: torch.Tensor, outputs_like: ProcessOutputs,
+                 static_blob: torch.Tensor = None) -> CapturedStep:
+    """Capture `step_fn(static_blob)` into a CUDA graph on `blob_like`'s
+    card. Nothing runs: the graph is recorded, with the outputs copied into
+    a static buffer laid out after `outputs_like`. The static blob is a
+    fresh buffer shaped like `blob_like` unless the caller passes one it
+    fills itself. A failed capture raises."""
+    device = blob_like.device
+    with torch.cuda.device(device):
+        if static_blob is None:
+            static_blob = torch.empty_like(blob_like)
+        arena = OutputArena(outputs_like)
+        out_flat = torch.empty(arena.nbytes, dtype=torch.uint8,
+                               device=device)
+    graph, _, launches = capture_graph(
+        lambda: arena.store(out_flat, step_fn(static_blob)), device)
     return CapturedStep(graph, static_blob, arena, out_flat, launches,
                         graph.pool())

@@ -19,9 +19,10 @@ they never starve an ordered feeder. The feeder additionally bounds its
 stage-ahead window to the ring depth (pipeline/feed.py), so the earliest
 unstaged sequence always finds a slot.
 
-On the card a slot owns one fixed device buffer (`RingSlot.buffer`,
-[WIRE_ROWS, B] int32, allocated at the slot's first use and reused across
-steps); the H2D copy runs on a side stream into a row view of it, and the
+On the card a slot owns its fixed device buffers (`RingSlot.buffers`, one
+a card: the single engine's [WIRE_ROWS, B] int32, a sharded engine's one
+a card block; allocated at the slot's first use and reused across steps);
+the H2D copy runs on a side stream into a view of each, and the
 guard is a `torch.cuda.Event` recorded after the consuming step on the
 compute stream. Where the reference blocks on a guard
 (`block_until_ready()`), this ring calls `guard.synchronize()`. On the CPU
@@ -54,16 +55,18 @@ _UNORDERED_BASE = 1 << 60
 
 
 class RingSlot:
-    """One staging destination: its fixed device buffer (None until the
-    engine allocates it, and on the CPU), the device tensor most recently
-    transferred into this slot, and the guard proving its consumer is done
-    with it."""
+    """One staging destination: its fixed buffers, one a card (none until
+    the engine allocates them; the single engine allocates none on the
+    CPU), the transfer most recently staged into this slot, and the guard
+    proving its consumer is done with it."""
 
-    __slots__ = ("index", "buffer", "device_blob", "guard", "in_flight")
+    __slots__ = ("index", "buffers", "device_blob", "guard", "in_flight")
 
     def __init__(self, index: int) -> None:
         self.index = index
-        self.buffer = None        # fixed [WIRE_ROWS, B] device destination
+        # fixed device destinations, one a card (empty until the engine
+        # allocates them)
+        self.buffers = []
         self.device_blob = None   # last transfer staged here
         self.guard = None         # consuming step's event
         self.in_flight = False
@@ -181,15 +184,17 @@ class StagingRing:
         with self._cv:
             return self.depth - len(self._free)
 
-    def resident_bytes(self) -> int:
+    def resident_bytes(self, card: Optional[int] = None) -> int:
         """Device bytes the ring holds (the HBM ledger's `staging_ring`
-        row): each slot's fixed buffer, or, for a slot without one, the
-        transfer parked in it."""
+        row): each slot's fixed buffers (with `card`, only its buffer on
+        that card block), or, for a slot without any, the transfer parked
+        in it."""
         total = 0
         for slot in self._slots:
-            held = slot.buffer if slot.buffer is not None \
-                else slot.device_blob
-            total += int(getattr(held, "nbytes", 0) or 0)
+            held = slot.buffers or [slot.device_blob]
+            if card is not None and slot.buffers:
+                held = held[card:card + 1]
+            total += sum(int(getattr(h, "nbytes", 0) or 0) for h in held)
         return total
 
     def state(self) -> dict:

@@ -69,7 +69,8 @@ class StepRecord:
     """
 
     __slots__ = ("seq", "gen", "engine", "events", "tenant_mix",
-                 "begin", "end", "created", "age", "ring", "commands")
+                 "begin", "end", "created", "age", "ring", "commands",
+                 "cards")
 
     def __init__(self) -> None:
         self.seq = -1            # lineage id (recorder-wide monotonic)
@@ -90,6 +91,9 @@ class StepRecord:
         # command fires resolved from this step's command lane (actuate
         # stage); drives the detection_to_actuation age edge
         self.commands = 0
+        # a step over several cards: per block, its card and what ran
+        # there ({"block", "card", "h2d", "exchange", "step"}), else None
+        self.cards: Optional[List[Dict]] = None
 
     # -- hot path -----------------------------------------------------
     def reset(self, seq: int, gen: int, engine: str) -> None:
@@ -106,6 +110,7 @@ class StepRecord:
         self.age = None
         self.ring = None
         self.commands = 0
+        self.cards = None
 
     def mark(self, stage: str, t0: float, t1: float) -> None:
         """Record a completed segment from explicit timestamps."""
@@ -176,6 +181,8 @@ class StepRecord:
         if self.ring is not None:
             out["ring"] = {"occupancy": self.ring[0],
                            "depth": self.ring[1]}
+        if self.cards is not None:
+            out["cards"] = [dict(c) for c in self.cards]
         age = self.age
         if age is not None and hasattr(age, "export"):
             exported = age.export()
@@ -234,6 +241,7 @@ class FlightRecorder:
             copy.created = slot.created
             copy.age = slot.age
             copy.ring = slot.ring
+            copy.cards = slot.cards
             if slot.gen != gen:  # re-armed while we copied: discard
                 continue
             out.append(copy)

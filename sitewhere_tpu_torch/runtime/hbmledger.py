@@ -5,7 +5,9 @@ the same names, from tensor `nbytes` (host-side accounting, no device sync),
 plus `step_graphs`, the private memory pools of the engine's captured
 steps (pipeline/graph.py), which hold the step's intermediates. Device
 totals come from `torch.cuda.memory_stats()` where the reference reads
-`Device.memory_stats()`.
+`Device.memory_stats()`. A sharded engine over several cards keeps its
+tables in card blocks (parallel/engine.py): the ledger's `cards` lists each
+card's own tables and its allocator's view.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from sitewhere_tpu_torch.ops.compact import ALERT_LANE_ROWS
 from sitewhere_tpu_torch.ops.pack import WIRE_ROWS
-from sitewhere_tpu_torch.tree import tree_leaves
+from sitewhere_tpu_torch.tree import Blocks, tree_leaves
 
 
 def _tree_bytes(tree) -> int:
@@ -27,25 +29,41 @@ def _tree_bytes(tree) -> int:
                for leaf in tree_leaves(tree))
 
 
-def table_bytes(engine) -> Dict[str, int]:
-    """Byte ledger of every resident table of one engine."""
-    params = getattr(engine, "_params", None)
+def _blocks(tree, block: Optional[int]) -> list:
+    """The trees to count: every block of a `Blocks` (or only `block`),
+    else the tree itself."""
+    if tree is None:
+        return []
+    if isinstance(tree, Blocks):
+        return list(tree) if block is None else [tree[block]]
+    return [tree]
+
+
+def table_bytes(engine, block: Optional[int] = None) -> Dict[str, int]:
+    """Byte ledger of every resident table of one engine (of one card's
+    block with `block`, for an engine over several cards)."""
+
+    def count(name):
+        return sum(_tree_bytes(t) for t in
+                   _blocks(getattr(engine, name, None), block))
+
+    params = _blocks(getattr(engine, "_params", None), block)
     out: Dict[str, int] = {
-        "device_state": _tree_bytes(getattr(engine, "_state", None)),
+        "device_state": count("_state"),
         # the fused i32 slabs plus their [P] counter rows
-        "rule_state": _tree_bytes(getattr(engine, "_rule_state", None)),
-        "model_state": _tree_bytes(getattr(engine, "_model_state", None)),
+        "rule_state": count("_rule_state"),
+        "model_state": count("_model_state"),
         "rule_tables": 0,
         "model_weights": 0,
         "registry_params": 0,
     }
-    if params is not None:
-        out["rule_tables"] = sum(
-            _tree_bytes(getattr(params, k, None))
+    for p in params:
+        out["rule_tables"] += sum(
+            _tree_bytes(getattr(p, k, None))
             for k in ("threshold", "zones", "geofence", "programs"))
-        out["model_weights"] = _tree_bytes(getattr(params, "models", None))
-        out["registry_params"] = sum(
-            _tree_bytes(getattr(params, k, None))
+        out["model_weights"] += _tree_bytes(getattr(p, "models", None))
+        out["registry_params"] += sum(
+            _tree_bytes(getattr(p, k, None))
             for k in ("assignment_status", "tenant_idx", "area_idx",
                       "device_type_idx"))
     # fixed per-step capacities (the same shape every step)
@@ -59,13 +77,22 @@ def table_bytes(engine) -> Dict[str, int]:
     out["staging_buffers"] = (sum(int(b.nbytes) for b in ring)
                               if ring else 0)
     dev_ring = getattr(engine, "_staging_ring", None)
-    out["staging_ring"] = (int(dev_ring.resident_bytes())
+    out["staging_ring"] = (int(dev_ring.resident_bytes(block))
                            if dev_ring is not None else 0)
     graphs = getattr(engine, "_graphs", None) or {}
-    out["step_graphs"] = sum(g.pool_bytes() + int(g.out_flat.nbytes)
-                             + int(g.static_blob.nbytes)
-                             for g in graphs.values())
+    out["step_graphs"] = sum(_graph_bytes(g, block) for g in graphs.values())
     return out
+
+
+def _graph_bytes(graph, block: Optional[int]) -> int:
+    """Device bytes a captured step keeps: a one-card step's pool, output
+    and input buffers; a step over several cards, those of every card's
+    graphs (or of `block`'s)."""
+    if hasattr(graph, "resident_bytes"):
+        blocks = (range(len(graph.bodies)) if block is None else [block])
+        return sum(graph.resident_bytes(k) for k in blocks)
+    return (graph.pool_bytes() + int(graph.out_flat.nbytes)
+            + int(graph.static_blob.nbytes))
 
 
 def device_headroom(device=None) -> Optional[Dict[str, int]]:
@@ -92,6 +119,16 @@ def ledger(engine) -> Dict:
                  "total_bytes": int(sum(tables.values()))}
     if engine.device.type == "cuda":
         out["device"] = device_headroom(engine.device)
+    cards = getattr(engine, "cards", None)
+    if cards is not None and len(cards) > 1:
+        out["cards"] = []
+        for k, card in enumerate(cards):
+            own = table_bytes(engine, block=k)
+            entry = {"card": str(card), "tables": own,
+                     "total_bytes": int(sum(own.values()))}
+            if card.type == "cuda":
+                entry["device"] = device_headroom(card)
+            out["cards"].append(entry)
     return out
 
 

@@ -233,11 +233,13 @@ def test_sharded_replays_on_one_device_run_one_at_a_time(monkeypatch):
 
 
 def test_live_mesh_is_none_however_many_cards(monkeypatch):
-    """A process that joined no cluster has no live mesh: with two or
-    eight cards visible the planner's default mesh is None, so a
-    single-engine instance's large queries stay on its own device's host
-    route, whichever card it runs on (a mesh spans processes only once
-    they joined one world, tests/test_torch_multiprocess_stats.py)."""
+    """A process that joined no cluster and has no CUDA device has no
+    live mesh, whatever card count is reported: the planner's default
+    mesh is None, so a single-engine instance on the CPU keeps its large
+    queries on its own device's host route. (With two or more cards the
+    live mesh spans them: tests/test_torch_multicard.py's card case; a
+    mesh spans processes once they joined one world,
+    tests/test_torch_multiprocess_stats.py.)"""
     from sitewhere_tpu_torch.instance import SiteWhereInstance
 
     inst = SiteWhereInstance(

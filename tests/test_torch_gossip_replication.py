@@ -100,3 +100,32 @@ def test_gossip_replicates_rules_and_leaves_programs_to_their_store():
     assert peer.pipeline_engine.get_rule("t9") == (None, None)
     for inst in (instance, peer):
         inst.stop()
+
+
+def test_the_storm_clock_reaches_only_the_thread_that_set_it(monkeypatch):
+    """`TestThreeHostStorm` installs a counting fake clock; a thread that
+    another instance left running must read the wall clock and leave the
+    count alone, or it moves the storm's ties (ROADMAP C: the port's storm
+    failed for seed 7 beside such a thread)."""
+    import threading
+    import time
+
+    from sitewhere_tpu_torch.model import common
+
+    ticks = {"n": 0}
+
+    def fake_now():
+        ticks["n"] += 1
+        return 1_700_000_000_000 + ticks["n"] // 5
+
+    monkeypatch.setattr(common, "_now_ms_override", fake_now)
+    seen = []
+    reader = threading.Thread(target=lambda: seen.append(common.now_ms()))
+    reader.start()
+    reader.join()
+    assert ticks["n"] == 0
+    assert abs(seen[0] - time.time() * 1000) < 60_000
+    assert common.now_ms() == 1_700_000_000_000 and ticks["n"] == 1
+    monkeypatch.undo()
+    assert common._now_ms_owner is None
+    assert abs(common.now_ms() - time.time() * 1000) < 60_000

@@ -139,7 +139,8 @@ def test_sharded_engine_on_card_equals_the_cpu(card, device_routing):
         assert_tree_bits_equal(theirs, mine, "outputs")
     assert_same_state(engine, cpu_eng)
     assert launches == S * len(trace)            # once a shard a step
-    assert engine.graph_captures == 3            # one a wire layout
+    # one a wire layout on each card the mesh spreads over
+    assert engine.graph_captures == 3 * engine.n_cards
     assert engine.device_route_dropped == 0
 
 
@@ -162,5 +163,6 @@ def test_sharded_pipelined_equals_serial_on_card(card):
     sub.close()
     assert got == want[0]
     assert_same_state(serial, piped)
-    assert serial.graph_captures == piped.graph_captures == 3
+    assert serial.graph_captures == piped.graph_captures == \
+        3 * serial.n_cards
     assert piped.staging_ring.occupancy() == 0

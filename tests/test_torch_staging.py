@@ -259,12 +259,12 @@ def test_port_slot_keeps_its_fixed_buffer():
     across reuse and counts as resident; the parked view is dropped."""
     ring = t_staging.StagingRing(1)
     slot = ring.acquire()
-    slot.buffer = torch.zeros((5, 8), dtype=torch.int32)
-    slot.device_blob = slot.buffer[:4]
+    slot.buffers = [torch.zeros((5, 8), dtype=torch.int32)]
+    slot.device_blob = slot.buffers[0][:4]
     assert ring.resident_bytes() == 5 * 8 * 4
     ring.release(slot)
     assert ring.acquire() is slot
-    assert slot.device_blob is None and slot.buffer is not None
+    assert slot.device_blob is None and slot.buffers
     assert ring.resident_bytes() == 5 * 8 * 4
 
 
