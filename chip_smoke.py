@@ -210,8 +210,13 @@ Phases (any failure prints its error and exits non-zero, with no result):
  13. the multi-host data plane (parallel/cluster.py, the engine on a
      multi-process mesh): two child processes (`--cluster-child`, every
      kernel built by the parent first, each child killed at its deadline)
-     join a gloo world over a TCP store on 127.0.0.1, both on the one
-     card, SHARDS shards of phase 12's world, SHARDS / 2 a process.
+     join a world over a TCP store on 127.0.0.1, SHARDS shards of phase
+     12's world, SHARDS / 2 a process, laid out by the visible cards
+     (`cluster_layout`): with four or more, each child sees two of them
+     (CUDA_VISIBLE_DEVICES) and holds its shards in two card blocks, and
+     the collectives go over NCCL; with two or three, one card each, NCCL;
+     with one, both on cuda:0 in two blocks each, over gloo (a line says
+     NCCL was not exercised). Each child prints its cards and backend.
      (a) Each feeds its ClusterStepLoop CLUSTER_EVENTS events a tick
      (CLUSTER_WARMUP + CLUSTER_TICKS + CLUSTER_PROFILED ticks) of the
      devices whose rows enter through it ((d // S) % 2: for half of them
@@ -221,21 +226,26 @@ Phases (any failure prints its error and exits non-zero, with no result):
      single-process SHARDS-shard engine (host route, full layout) fed
      every tick's whole batch, the alerts of both set-equal to its,
      `processed` the same global total on both and equal to the rows fed,
-     every forwarded row folded once, B1 S/2 launches a tick a host (counted
-     from the loop's start to its stop), one capture a host. The tick
-     walls, the all_reduce and vote seconds and `processed` come from the
-     loop's, the control's and the engine's own counters. Printed: tick wall
-     p50/p99, events/s over both, the all_reduce and the vote a tick, rows
-     forwarded and the lag from the forwarding tick to the folding one,
-     host 0's device busy and idle over the profiled ticks (a fed tick's
-     and a tick's worth of rows' busy beside the per-tick figure). (d)
-     Both call
+     every forwarded row folded once, B1 S/2 launches a tick a host and
+     S/(2K) on each of its K cards (counted from the loop's start to its
+     stop), one capture a card a host. The tick walls, the all_reduce and
+     vote times and `processed` come from the loop's, the control's and
+     the engine's own counters (`CollectiveClock`: the all_reduce by card
+     events over NCCL, by the host clock over gloo; the vote by the host
+     clock). Printed: tick wall p50/p99, events/s over both, the
+     all_reduce and the vote a tick (mean, p50, p99), rows forwarded and
+     the lag from the forwarding tick to the folding one, host 0's device
+     busy and idle per card over the profiled ticks and the host copies
+     inside its all_reduces of the sums (none over NCCL, or the phase
+     fails). (d) Both call
      sharded_windowed_stats on CLUSTER_QUERY_ROWS rows (K, W =
      CLUSTER_QUERY_K, CLUSTER_QUERY_W) under psum and ring: identical
      grids on both, equal to the single-process call on the card and to it
-     with the segment sum's plain version; the fold, the all-gather and
-     the combine beside their byte bounds. (c) Each saves its host-shards
-     checkpoint, then folds records past it from its bus; host 1 is
+     with the segment sum's plain version; the fold (per card), the
+     all-gather and the combine beside their byte bounds. (c) Each saves
+     its host-shards checkpoint, then folds records past it from its bus;
+     over NCCL host 0 then enters its next tick, which blocks in the
+     collective; host 1 is
      killed and host 0's watchdog must exit 13 within CLUSTER_FAIL_AFTER_S
      of the kill (plus its CLUSTER_WATCHDOG_CHECK_S check and the last
      heartbeat's delivery): it fires that long after the last heartbeat it
@@ -243,8 +253,10 @@ Phases (any failure prints its error and exits non-zero, with no result):
      (blocks bit-equal to the save) and replay (blocks bit-equal to
      before the kill); write_assembled of the two checkpoints restores
      onto a single-process engine bit-equal to (a)'s reference. (b) Two
-     `serve --cluster-coordinator` processes on the card, the same world
-     provisioned on each over REST, SERVE_CLUSTER_RECORDS records
+     `serve --cluster-coordinator` processes of SHARDS shards, each seeing
+     the cards of its (a) child (the one card when only one is visible;
+     each banner's cards and backend checked), the same world provisioned
+     on each over REST, SERVE_CLUSTER_RECORDS records
      published to each host's edge for its peer's devices: each folds on
      its owner, its threshold alert persists there and reads back over the
      owner's REST API; both exit 0 on SIGTERM. `python3 chip_smoke.py
@@ -6154,12 +6166,14 @@ def phase_sharded(dev, card):
 
 # -- phase 13: the multi-host data plane --------------------------------------
 
-# two processes on the one card, each holding SHARDS / 2 shards of phase
-# 12's world; each feeds 15/16 of its half of S x B a tick, so that a tick's
-# own rows and the peer's forwarded ones fit a shard's rows together
+# two processes, each holding SHARDS / 2 shards of phase 12's world over the
+# cards `cluster_layout` gives it; each feeds 15/16 of its half of S x B a
+# tick, so that a tick's own rows and the peer's forwarded ones fit a
+# shard's rows together
 CLUSTER_PROCS = 2
 CLUSTER_EVENTS = SHARD_EVENTS // CLUSTER_PROCS
-CLUSTER_WARMUP, CLUSTER_TICKS, CLUSTER_PROFILED = 3, 10, 2
+# (a)'s timed ticks: 6 (10 before) keeps phase 13 near its ~105 s on one card
+CLUSTER_WARMUP, CLUSTER_TICKS, CLUSTER_PROFILED = 3, 6, 2
 # a tick's traffic is dated CLUSTER_TICK_MS after the last's (no two ticks
 # share a timestamp, whichever step a forwarded row folds in)
 CLUSTER_TICK_MS = 1100
@@ -6177,6 +6191,42 @@ CLUSTER_GO = "go-restore"
 # (b): decoded records each host gets for its peer's devices
 SERVE_CLUSTER_RECORDS = 64
 SERVE_CLUSTER_DEVICES = 160
+
+
+def cluster_layout():
+    """Phase 13's layout by the visible cards: each child's
+    CUDA_VISIBLE_DEVICES (None: the parent's), its device argument (one
+    card, or a comma-separated list of card blocks), the cards a child
+    holds, the cards a `serve --cluster-coordinator` host of SHARDS shards
+    takes (every card it sees) and the collectives backend all must pick.
+    Four or more visible: two cards each, NCCL; two or three: one each,
+    NCCL; one: two blocks on cuda:0 each (a serve host: the one card), both
+    processes on the one card, gloo."""
+    import os
+
+    n = torch.cuda.device_count()
+    ids = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = ids.split(",")[:n] if ids else [str(k) for k in range(n)]
+    if n >= 4:
+        return {"visible": [",".join(ids[0:2]), ",".join(ids[2:4])],
+                "device": "cuda", "cards": 2, "serve_cards": 2,
+                "backend": "nccl"}
+    if n >= 2:
+        return {"visible": ids[0:2], "device": "cuda", "cards": 1,
+                "serve_cards": 1, "backend": "nccl"}
+    return {"visible": [None, None], "device": "cuda:0,cuda:0", "cards": 2,
+            "serve_cards": 1, "backend": "gloo"}
+
+
+def _child_env(visible):
+    """The environment of a child that sees the cards `visible` (None:
+    the parent's)."""
+    import os
+
+    env = dict(os.environ)
+    if visible is not None:
+        env["CUDA_VISIBLE_DEVICES"] = visible
+    return env
 
 
 def cluster_traffic(packer):
@@ -6228,25 +6278,31 @@ def stats_digest(stats):
     return h.hexdigest()
 
 
-def _cluster_pair(role, tmp, epoch, dev):
+def _cluster_pair(role, tmp, epoch, layout):
     coord, bus0, bus1 = _free_port(), _free_port(), _free_port()
     return [_HostLog([__file__, "--cluster-child", role, str(pid),
                     f"127.0.0.1:{coord}", str(bus0), str(bus1), tmp,
-                    str(epoch), str(dev)], f"cluster child {role} {pid}")
+                    str(epoch), layout["device"]],
+                     f"cluster child {role} {pid}",
+                     env=_child_env(layout["visible"][pid]))
             for pid in range(CLUSTER_PROCS)]
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _percentiles(ms):
+    """(p50, p99) of a list of ms, None for an empty list."""
+    if not ms:
+        return None
+    return [float(np.percentile(ms, 50)), float(np.percentile(ms, 99))]
 
 
 def cluster_child_main(argv):
     """One host of phase 13's data plane (`--cluster-child ROLE PID COORD
-    BUS0 BUS1 DIR EPOCH DEVICE`): ROLE `run` does (a), (d) and (c)'s save and
-    post-checkpoint records, then waits to be killed (host 1) or for its
-    watchdog (host 0); ROLE `restore` boots from the checkpoint and
-    replays. Prints RESULT {json}; writes its blocks under DIR."""
+    BUS0 BUS1 DIR EPOCH DEVICE`, DEVICE "cuda" for every visible card or
+    card blocks "cuda:0,cuda:0"): ROLE `run` does (a), (d) and (c)'s save
+    and post-checkpoint records, then waits to be killed (host 1) or for
+    its watchdog (host 0); ROLE `restore` boots from the checkpoint and
+    replays. Prints its cards and backend (CARDS), RESULT {json}; writes
+    its blocks under DIR."""
     import os
 
     import torch.distributed as dist
@@ -6258,7 +6314,7 @@ def cluster_child_main(argv):
         ProcessStateReporter, TopologyAggregator, encode_rows,
         foreign_rows_topic)
     from sitewhere_tpu_torch.parallel.distributed import (
-        initialize, make_global_mesh, sharded_windowed_stats)
+        card_identity, initialize, make_global_mesh, sharded_windowed_stats)
     from sitewhere_tpu_torch.persist.checkpoint import PipelineCheckpointer
     from sitewhere_tpu_torch.runtime.bus import EventBus, TopicNaming
     from sitewhere_tpu_torch.runtime.busnet import BusClient, BusServer
@@ -6267,9 +6323,10 @@ def cluster_child_main(argv):
     ports, tmp, epoch = [int(argv[3]), int(argv[4])], argv[5], int(argv[6])
     peer = 1 - pid
     out = {"pid": pid, "role": role}
-    dev = torch.device(argv[7])
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    spec = argv[7].split(",")
+    dev = torch.device("cuda", 0) if spec == ["cuda"] else torch.device(
+        spec[0])
+    torch.cuda.set_device(dev)
     torch.zeros(1, device=dev)
     if role == "restore":
         # booted while host 0 of the first pair waits out its watchdog;
@@ -6281,7 +6338,14 @@ def cluster_child_main(argv):
             time.sleep(0.02)
     t0 = time.perf_counter()
     initialize(coord, num_processes=CLUSTER_PROCS, process_id=pid)
-    mesh = make_global_mesh(n_shards=SHARDS, device=dev)
+    mesh = (make_global_mesh(n_shards=SHARDS, devices=spec) if len(spec) > 1
+            else make_global_mesh(n_shards=SHARDS, device=spec[0]))
+    cards = list(mesh.cards)
+    print(f"CARDS host {pid}: {', '.join(map(str, cards))} "
+          f"({', '.join(card_identity(c) for c in cards)}), shards "
+          f"{mesh.local_shards}, collectives {mesh.collectives}", flush=True)
+    out["cards"] = [str(c) for c in cards]
+    out["collectives"] = mesh.collectives
     engine = build_world(dev, "auto", epoch, shards=SHARDS, mesh=mesh,
                          alert_lane_capacity=SHARD_LANES)
     out["boot_s"] = time.perf_counter() - t0
@@ -6405,36 +6469,45 @@ def cluster_child_main(argv):
                          & np.asarray(b.valid)).sum()) for b in traffic)
     dist.barrier()
     reset_launch_counts(engine)
+    counts = CardLaunches(engine)
     consumer.start()
-    loop.start()
-    run_ticks(shares[:CLUSTER_WARMUP])
-    _sync(dev)
-    t_start = time.perf_counter()
-    run_ticks(shares[CLUSTER_WARMUP:CLUSTER_WARMUP + CLUSTER_TICKS])
-    t_end = time.perf_counter()
-    if pid == 0 and dev.type == "cuda":
-        t_prof = time.perf_counter()
-        prof_wall, _, _, busy_ms, idle = device_profile(
-            lambda: run_ticks(shares[CLUSTER_WARMUP + CLUSTER_TICKS:]))
-        t_prof_end = time.perf_counter()
-    else:
-        run_ticks(shares[CLUSTER_WARMUP + CLUSTER_TICKS:])
-    while consumer.consumed_rows < expect_in:
-        if loop.fatal is not None:
-            raise AssertionError(f"loop died: {loop.fatal!r}")
-        time.sleep(0.01)
-    folded()
-    dist.barrier()
-    loop.stop()
+    with counts.window():
+        loop.start()
+        run_ticks(shares[:CLUSTER_WARMUP])
+        _sync_cards(cards)
+        t_start = time.perf_counter()
+        run_ticks(shares[CLUSTER_WARMUP:CLUSTER_WARMUP + CLUSTER_TICKS])
+        t_end = time.perf_counter()
+        if pid == 0:
+            window = [loop.tick_count]
+
+            def profiled():
+                run_ticks(shares[CLUSTER_WARMUP + CLUSTER_TICKS:])
+                window.append(loop.tick_count)
+
+            prof = profile_cards(profiled, cards, ranges=(
+                "swt::all_reduce_sums", "swt::vote"))
+        else:
+            run_ticks(shares[CLUSTER_WARMUP + CLUSTER_TICKS:])
+        while consumer.consumed_rows < expect_in:
+            if loop.fatal is not None:
+                raise AssertionError(f"loop died: {loop.fatal!r}")
+            time.sleep(0.01)
+        folded()
+        dist.barrier()
+        loop.stop()
     if loop.fatal is not None:
         raise AssertionError(f"loop died: {loop.fatal!r}")
-    # every tick steps once: S/2 B1 launches a tick, counted from the
-    # loop's start to its stop (no tick straddles the count)
+    # every tick steps once: S/2 B1 launches a tick a host, S/(2K) on each
+    # of its K cards, counted from the loop's start to its stop (no tick
+    # straddles the count)
     b1 = launch_counts(engine)["points_in_zones"]
-    if dev.type == "cuda" and b1 != engine.n_local * loop.tick_count:
+    if b1 != engine.n_local * loop.tick_count:
         raise AssertionError(f"B1 launched {b1} times over "
                              f"{loop.tick_count} ticks of {engine.n_local} "
                              f"shards")
+    b1_by_card = counts.check("points_in_zones", engine.shards_per_card,
+                              loop.tick_count, f"[cluster] host {pid}")
     if len(loop.history) != loop.tick_count:
         raise AssertionError("the loop's tick history was cut")
     timed = [t for t in loop.history
@@ -6443,6 +6516,9 @@ def cluster_child_main(argv):
     walls = [t.wall_s * 1e3 for t in worked]
     fed = sum(int(np.asarray(s.valid).sum()) for s in shares)
     lag = [f - s for s, f in zip(fwd_ticks, fold_ticks)]
+    reduce_s = engine.sum_reduce_s      # waits for the card's last calls
+    reduce_ms = list(engine.sum_reduce_clock.recent_ms)
+    vote_ms = list(control.clock.recent_ms)
     out["a"] = {
         "ticks_timed": len(timed), "ticks_with_work": len(worked),
         "ticks_total": loop.tick_count,
@@ -6452,9 +6528,13 @@ def cluster_child_main(argv):
                             shares[CLUSTER_WARMUP:CLUSTER_WARMUP
                                    + CLUSTER_TICKS]),
         "timed_wall_s": t_end - t_start,
-        "all_reduce_ms_per_tick": 1e3 * engine.sum_reduce_s
+        "all_reduce_ms_per_tick": 1e3 * reduce_s
         / max(1, engine.sum_reduces),
+        "all_reduce_ms_p50_p99": _percentiles(reduce_ms),
+        "all_reduce_timed_on": ("card events" if mesh.collectives == "nccl"
+                                else "host clock"),
         "vote_ms_per_tick": 1e3 * control.vote_s / max(1, control.votes),
+        "vote_ms_p50_p99": _percentiles(vote_ms),
         "fed_rows": fed, "forwarded_rows": forwarder.forwarded,
         "consumed_rows": consumer.consumed_rows, "expected_in": expect_in,
         "dead_lettered": forwarder.dead_lettered,
@@ -6464,35 +6544,32 @@ def cluster_child_main(argv):
         "forward_messages": len(fwd_ticks), "folded_messages": len(lag),
         "processed_total": loop.processed,
         "processed": [t.processed for t in loop.history],
-        "b1_launches": b1, "captures": engine.graph_captures,
+        "b1_launches": b1,
+        "b1_by_card": {str(k): v["launches"] for k, v in b1_by_card.items()},
+        "b1_per_card_per_tick": [v["launches"] / loop.tick_count
+                                 for v in b1_by_card.values()],
+        "captures": engine.graph_captures,
         "graph_keys": len(engine._graphs), "alerts": len(alerts)}
-    if pid == 0 and dev.type == "cuda":
-        # the profiled ticks: the CLUSTER_PROFILED fed ones and every tick
-        # between them that folded a trickle of forwarded rows
-        prof = [t for t in loop.history
-                if t.start_s >= t_prof and t.start_s + t.wall_s <= t_prof_end]
-        rows = sum(t.rows for t in prof)
-        measured = busy_ms != "not measured"
+    if pid == 0:
+        # the ticks that ended inside the profile: the CLUSTER_PROFILED fed
+        # ones and every tick between them that folded a trickle of
+        # forwarded rows
+        ticks = list(loop.history)[window[0]:window[1]]
         out["a"]["profile"] = {
-            "ticks": len(prof),
-            "ticks_with_work": sum(1 for t in prof if t.rows),
-            "rows_folded": rows,
-            "wall_ms": prof_wall, "device_busy_ms": busy_ms,
-            "device_busy_ms_per_fed_tick": (
-                busy_ms / CLUSTER_PROFILED if measured else busy_ms),
-            "device_busy_ms_per_tick_of_rows": (
-                busy_ms * CLUSTER_EVENTS / max(1, rows) if measured
-                else busy_ms),
-            "device_idle_share": idle}
+            "ticks": len(ticks),
+            "ticks_with_work": sum(1 for t in ticks if t.rows),
+            "rows_folded": sum(t.rows for t in ticks),
+            "tick_walls_ms": [t.wall_s * 1e3 for t in ticks], **prof}
     np.savez(f"{tmp}/a{pid}.npz", **blocks())
     with open(f"{tmp}/alerts{pid}.pkl", "wb") as fh:
         pickle.dump(alerts, fh)
 
-    # (d) the multi-process mesh query (its own gloo group)
+    # (d) the multi-process mesh query (its own group)
     rows = cluster_query_rows()
     d = {"rows": CLUSTER_QUERY_ROWS, "K": CLUSTER_QUERY_K,
          "W": CLUSTER_QUERY_W}
     segment_row_sum.launches = 0
+    segment_row_sum.by_card.clear()
     for combine in ("psum", "ring"):
         splits = []
         for _ in range(1 + CLUSTER_QUERY_REPS):
@@ -6506,8 +6583,15 @@ def cluster_child_main(argv):
                       **{f"{k}_ms": 1e3 * statistics.median(
                           s[f"{k}_s"] for s in splits[1:])
                          for k in ("fold", "gather", "combine")}}
+        if len(cards) > 1:
+            d[combine]["fold_ms_by_card"] = [
+                1e3 * statistics.median(s["fold_s_by_card"][k]
+                                        for s in splits[1:])
+                for k in range(len(cards))]
         del st
     d["segsum_launches"] = segment_row_sum.launches
+    d["segsum_by_card"] = {str(k): n
+                           for k, n in segment_row_sum.by_card.items()}
     out["d"] = d
     torch.cuda.empty_cache()
 
@@ -6532,8 +6616,15 @@ def cluster_child_main(argv):
     dist.barrier()
     loop.stop()
     np.savez(f"{tmp}/before{pid}.npz", **blocks())
+    out["blocked_in_collective_at_kill"] = (pid == 0 and
+                                            mesh.collectives == "nccl")
     print("RESULT " + json.dumps(out), flush=True)
     print("READY_TO_DIE", flush=True)
+    if out["blocked_in_collective_at_kill"]:
+        # over NCCL host 0 waits out the kill inside its next tick's
+        # collective (host 1 never ticks again): NCCL's kernel waits for
+        # the dead peer, and only the watchdog may end the process
+        loop.start()
     # host 1 is killed here; host 0's watchdog exits 13 when it goes stale
     time.sleep(CLUSTER_CHILD_S)
     return 3
@@ -6561,10 +6652,12 @@ def cluster_reference(dev, epoch):
     return engine, sorted(alerts), processed
 
 
-def serve_cluster_drive(device_arg, tmp, card):
-    """(b): two `serve --cluster-coordinator` processes on the card, the
-    same world provisioned on both over REST (registry gossip off, so no
-    boot race), SERVE_CLUSTER_RECORDS decoded records published to each
+def serve_cluster_drive(device_arg, tmp, card, layout):
+    """(b): two `serve --cluster-coordinator` processes of SHARDS shards,
+    each on the cards `layout` gives it (every card it sees; its banner
+    names them and the collectives backend, which must be the layout's),
+    the same world provisioned on both over REST (registry gossip off, so
+    no boot race), SERVE_CLUSTER_RECORDS decoded records published to each
     host's edge for its peer's devices; each must fold on its owner, fire
     and persist the owner's threshold alert and read back over the owner's
     REST API; both exit 0 on SIGTERM."""
@@ -6589,6 +6682,7 @@ def serve_cluster_drive(device_arg, tmp, card):
                         "stale_after_s": CLUSTER_STALE_S,
                         "fail_after_s": CLUSTER_FAIL_AFTER_S},
             "persist": {"checkpoint_interval_s": None},
+            "mesh": {"shards": SHARDS},
             "rules": [{"type": "threshold", "token": "hot",
                        "measurement_name": "temp", "operator": ">",
                        "threshold": 50.0}]}, fh)
@@ -6602,17 +6696,25 @@ def serve_cluster_drive(device_arg, tmp, card):
                      f"0=127.0.0.1:{bus0},1=127.0.0.1:{bus1}",
                      "--bus-port", str([bus0, bus1][pid]),
                      "--data-dir", f"{tmp}/serve{pid}"],
-                    f"serve --cluster-coordinator host {pid}")
+                    f"serve --cluster-coordinator host {pid}",
+                    env=_child_env(layout["visible"][pid]))
              for pid in range(2)]
     deadline = time.monotonic() + CLUSTER_CHILD_S
     try:
-        urls, boots, n_shards = [], [], None
+        urls, boots, n_shards, banners = [], [], None, []
         for h in hosts:
             urls.append(re.search(r"REST gateway : (http://\S+)",
                                   h.wait_for("  REST gateway", deadline))
                         .group(1))
             mesh_line = h.wait_for("  mesh", deadline)
             n_shards = int(re.search(r"(\d+) shards", mesh_line).group(1))
+            cards = int(re.search(r"over (\d+) card", mesh_line).group(1))
+            backend = re.search(r"collectives (\w+)", mesh_line).group(1)
+            banners.append(mesh_line.strip())
+            if (n_shards, cards, backend) != (
+                    SHARDS, layout["serve_cards"], layout["backend"]):
+                raise AssertionError(f"serve host: {mesh_line!r} for the "
+                                     f"layout {layout}")
             boots.append(time.perf_counter() - t0)
         rests = [rest_client(u) for u in urls]
         tokens = [f"cdev-{i}" for i in range(SERVE_CLUSTER_DEVICES)]
@@ -6695,7 +6797,8 @@ def serve_cluster_drive(device_arg, tmp, card):
             h.finish(time.monotonic() + 120)
         lat = sorted(fold_s.values())
         return {"boot_s": boots, "provision_s": provision_s,
-                "shards": n_shards, "records": len(sent),
+                "shards": n_shards, "banners": banners,
+                "records": len(sent),
                 "alerts_persisted": alerts,
                 "publish_to_fold_ms_p50": 1e3 * float(np.percentile(lat, 50)),
                 "publish_to_fold_ms_p99": 1e3 * float(np.percentile(lat, 99))}
@@ -6718,11 +6821,19 @@ def phase_cluster(dev, card):
 
     t_phase = time.perf_counter()
     epoch = int(time.time() * 1000) - EPOCH_LAG_MS
-    summary = {"processes": CLUSTER_PROCS, "shards": SHARDS}
+    layout = cluster_layout()
+    summary = {"processes": CLUSTER_PROCS, "shards": SHARDS,
+               "layout": layout}
+    log(f"[cluster] {CLUSTER_PROCS} processes x {layout['cards']} card "
+        f"block(s), CUDA_VISIBLE_DEVICES {layout['visible']}, device "
+        f"{layout['device']}, collectives {layout['backend']}")
+    if layout["backend"] != "nccl":
+        log("[cluster] one visible card: both processes share cuda:0 over "
+            "gloo; NCCL was not exercised")
     walls = {}
     with tempfile.TemporaryDirectory(prefix="chip-cluster-") as tmp:
         deadline = time.monotonic() + CLUSTER_CHILD_S
-        run = _cluster_pair("run", tmp, epoch, dev)
+        run = _cluster_pair("run", tmp, epoch, layout)
         again = []
         try:
             results = [c.result(deadline) for c in run]
@@ -6730,7 +6841,7 @@ def phase_cluster(dev, card):
                 c.wait_for("READY_TO_DIE", deadline)
             walls["run_pair_s"] = time.perf_counter() - t_phase
             # the restore pair boots up to its go file meanwhile
-            again = _cluster_pair("restore", tmp, epoch, dev)
+            again = _cluster_pair("restore", tmp, epoch, layout)
             # (c) hard-kill host 1; host 0's watchdog must gang-exit 13
             t_kill, t_kill_wall = time.perf_counter(), time.time()
             run[1].kill()
@@ -6777,6 +6888,12 @@ def phase_cluster(dev, card):
                 c.kill()
         got_alerts = []
         _, ref_blocks = ref_engine.local_state_shards()
+        for pid, res in enumerate(results + restored):
+            if (res["collectives"] != layout["backend"]
+                    or len(res["cards"]) != layout["cards"]):
+                raise AssertionError(
+                    f"host {pid} ({res['role']}): {res['cards']} over "
+                    f"{res['collectives']}; the layout is {layout}")
         for pid, res in enumerate(results):
             a = res["a"]
             if a["processed_total"] != ref_processed:
@@ -6789,7 +6906,8 @@ def phase_cluster(dev, card):
                 raise AssertionError(f"host {pid}: folded "
                                      f"{a['consumed_rows']} forwarded rows "
                                      f"of {a['expected_in']}")
-            if dev.type == "cuda" and a["captures"] != 1:
+            # one key, a captured body on each of the host's cards
+            if a["captures"] != layout["cards"]:
                 raise AssertionError(f"host {pid}: {a['captures']} captures")
             blocks = np.load(f"{tmp}/a{pid}.npz")
             for name in blocks.files:
@@ -6808,6 +6926,13 @@ def phase_cluster(dev, card):
         fed = sum(r["a"]["fed_rows"] for r in results)
         if fed != ref_processed:
             raise AssertionError(f"{fed} rows fed, {ref_processed} folded")
+        # host 0's profiled ticks: over NCCL no host copy of the sums
+        sums = results[0]["a"]["profile"]["swt::all_reduce_sums"]
+        if not sums["ranges"]:
+            raise AssertionError("the profile saw no all_reduce of the sums")
+        if layout["backend"] == "nccl" and sums["host_copies"]:
+            raise AssertionError(f"{sums['host_copies']} host copies of the "
+                                 f"sums in {sums['ranges']} NCCL all_reduces")
         # (c) the assembled checkpoints onto a single-process engine
         t = time.perf_counter()
         assembled = write_assembled([r["save_path"] for r in results],
@@ -6850,7 +6975,7 @@ def phase_cluster(dev, card):
         torch.cuda.empty_cache()
         walls["query_checks_s"] = time.perf_counter() - t
         t = time.perf_counter()
-        serve = serve_cluster_drive(dev.type, tmp, card)
+        serve = serve_cluster_drive(dev.type, tmp, card, layout)
         walls["serve_s"] = time.perf_counter() - t
     a0, a1 = results[0]["a"], results[1]["a"]
     per_proc_cells = 4 * CLUSTER_QUERY_K * CLUSTER_QUERY_W
@@ -6868,6 +6993,13 @@ def phase_cluster(dev, card):
                                          a1["all_reduce_ms_per_tick"]],
               "vote_ms_per_tick": [a0["vote_ms_per_tick"],
                                    a1["vote_ms_per_tick"]],
+              "all_reduce_ms_p50_p99": [a0["all_reduce_ms_p50_p99"],
+                                        a1["all_reduce_ms_p50_p99"]],
+              "all_reduce_timed_on": a0["all_reduce_timed_on"],
+              "vote_ms_p50_p99": [a0["vote_ms_p50_p99"],
+                                  a1["vote_ms_p50_p99"]],
+              "b1_per_card_per_tick": [a0["b1_per_card_per_tick"],
+                                       a1["b1_per_card_per_tick"]],
               "forwarded_rows": [a0["forwarded_rows"], a1["forwarded_rows"]],
               "fed_rows": [a0["fed_rows"], a1["fed_rows"]],
               "lag_ticks_p50": [a0["lag_ticks_p50"], a1["lag_ticks_p50"]],
@@ -6877,10 +7009,12 @@ def phase_cluster(dev, card):
               "ticks_timed": [a0["ticks_timed"], a1["ticks_timed"]],
               "captures": [a0["captures"], a1["captures"]],
               "alerts": len(ref_alerts), "processed": ref_processed,
-              "profile_host0": a0.get("profile", "not measured"),
+              "profile_host0": a0["profile"],
               "boot_s": [r["boot_s"] for r in results]},
         "b": serve,
         "c": {"save_s": [r["save_s"] for r in results],
+              "host0_blocked_in_collective_at_kill":
+              results[0]["blocked_in_collective_at_kill"],
               "host0_watchdog_fired_after_kill_s": fired_s,
               "host0_exit_13_after_kill_s": exit_s,
               "restore_s": [r["restore_s"] for r in restored],
@@ -6890,15 +7024,18 @@ def phase_cluster(dev, card):
               "assembled_restore_s": assembled_restore_s},
         "d": {"rows": CLUSTER_QUERY_ROWS,
               "cells": CLUSTER_QUERY_K * CLUSTER_QUERY_W,
-              **{f"{c}_{k}": [r["d"][c][k] for r in results]
+              **{f"{c}_{k}": [r["d"][c].get(k) for r in results]
                  for c in ("psum", "ring")
-                 for k in ("fold_ms", "gather_ms", "combine_ms")},
+                 for k in ("fold_ms", "fold_ms_by_card", "gather_ms",
+                           "combine_ms")},
               "fold_bound_ms": fold_bytes / H100_HBM_BYTES_S * 1e3,
               "gather_bound_ms": gather_bytes / H100_HBM_BYTES_S * 1e3,
               "combine_bound_ms": combine_bytes / H100_HBM_BYTES_S * 1e3,
               "bound_by": "bytes",
               "segsum_launches": [r["d"]["segsum_launches"]
-                                  for r in results]},
+                                  for r in results],
+              "segsum_by_card": [r["d"]["segsum_by_card"]
+                                 for r in results]},
     })
     summary["b1_launches"] = sum(a["b1_launches"] for a in (a0, a1))
     summary["segsum_launches"] = sum(r["d"]["segsum_launches"]
@@ -6909,8 +7046,9 @@ def phase_cluster(dev, card):
     log(f"[cluster] phase 13 took {summary['seconds']:.1f} s: tick p50 "
         f"{a0['tick_ms_p50']:.1f} / {a1['tick_ms_p50']:.1f} ms, "
         f"{summary['a']['events_per_s']:.0f} events/s over both hosts, "
-        f"host 0's watchdog fired {fired_s:.2f} s after host 1's kill, "
-        f"on {card}")
+        f"all_reduce p50/p99 {a0['all_reduce_ms_p50_p99']} ms, vote "
+        f"{a0['vote_ms_p50_p99']} ms over {layout['backend']}, host 0's "
+        f"watchdog fired {fired_s:.2f} s after host 1's kill, on {card}")
     return summary
 
 
@@ -6966,33 +7104,59 @@ def host_ms(fn, cards, reps=MULTI_TIMING_REPS):
     return statistics.median(times)
 
 
-def profile_cards(fn, cards):
-    """The profiler around fn(): wall ms, and each card's device busy ms
-    and idle share (its device events summed once each)."""
+def profile_cards(fn, cards, ranges=()):
+    """The profiler around fn() (every thread's host ops): wall ms, each
+    card's device busy ms and idle share (its device events summed once
+    each, NCCL's kernels apart: they spin until the peers arrive, so
+    their time, `nccl_ms`, is mostly waiting; `top_ms` the four device
+    events that took the most), and for each name in
+    `ranges` the `record_function` ranges of that name and the host
+    copies inside them (`aten::copy_` or a `cudaMemcpy*` call on the
+    range's thread)."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _sync_cards(cards)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
         t0 = time.perf_counter()
         fn()
         _sync_cards(cards)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    events = prof.events()
+    busy, nccl, by_name = {}, {}, {}
+    for e in events:
+        # a `record_function` range shows on the card as well, spanning
+        # its kernels and the waits between them: not device work
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             key = f"cuda:{e.device_index}"
-            busy[key] = busy.get(key, 0.0) + e.self_device_time_total / 1e3
+            ms = e.self_device_time_total / 1e3
+            into = nccl if e.name.startswith("nccl") else busy
+            into[key] = into.get(key, 0.0) + ms
+            names = by_name.setdefault(key, {})
+            names[e.name[:60]] = names.get(e.name[:60], 0.0) + ms
     out = {"wall_ms": wall_ms}
     for index in sorted({c.index for c in cards}):
         key = f"cuda:{index}"
         if key in busy:
             out[key] = {"busy_ms": busy[key],
-                        "idle_share": 1 - busy[key] / wall_ms}
+                        "idle_share": 1 - busy[key] / wall_ms,
+                        "nccl_ms": nccl.get(key, 0.0),
+                        "top_ms": sorted(by_name[key].items(),
+                                         key=lambda kv: -kv[1])[:4]}
         else:
             out[key] = {"busy_ms": "not measured",
                         "idle_share": "not measured"}
+    copies = [e for e in events if e.device_type == DeviceType.CPU and (
+        e.name == "aten::copy_" or e.name.startswith("cudaMemcpy"))]
+    for name in ranges:
+        spans = [e for e in events if e.name == name]
+        out[name] = {"ranges": len(spans), "host_copies": sum(
+            1 for r in spans for c in copies if c.thread == r.thread
+            and r.time_range.start <= c.time_range.start
+            and c.time_range.end <= r.time_range.end)}
     return out
 
 

@@ -29,10 +29,13 @@ one shard a device; `--device cuda:i` holds them all on card i).
 `--cluster-coordinator host:port` with
 `--cluster-num-processes`, `--cluster-process-id` and `--cluster-peers`
 boots one host of the multi-host data plane (parallel/cluster.py
-ClusterService): the processes join a gloo world at the coordinator,
+ClusterService): the processes join a world at the coordinator,
 `--shards` counts the global shards (one a process when left at 1), and
-each process holds its block of them on its own `--device` (two processes
-on one card both use cuda:0).
+each process holds its block of them over every card it sees (`--device
+cuda:i` pins one; the launcher gives each host its cards with
+CUDA_VISIBLE_DEVICES). The collectives go over NCCL when no card is held
+by two hosts, else over gloo (two hosts that see the same cards both use
+cuda:0).
 
 Configuration layers (runtime/config.py — the CLI uses the canonical
 ``DEFAULTS`` schema there): built-in defaults <- --config JSON file <-
@@ -378,9 +381,11 @@ def _serve_control_plane(cfg) -> int:
 
 
 def _serve_cluster(cfg) -> int:
-    """Boot one host of an N-process instance: join the gloo world at the
+    """Boot one host of an N-process instance: join the world at the
     coordinator, build the instance over the GLOBAL mesh (this process's
-    block of `mesh.shards` shards on its device), and compose the cluster
+    block of `mesh.shards` shards over every card it sees, or the one card
+    `pipeline.device` pins; the collectives over NCCL when no card is held
+    by two hosts, else gloo), and compose the cluster
     services (lockstep step loop, busnet edge, foreign-row forwarding,
     heartbeats/topology, peer watchdog) around it (parallel/cluster.py;
     reference boot: Microservice.java:182-236). SIGTERM stops every host's
@@ -439,8 +444,11 @@ def _serve_cluster(cfg) -> int:
     print(f"  bus edge     : tcp://{cfg.get('api.host')}:"
           f"{cluster.bus_port}", flush=True)
     print(f"  mesh         : {mesh.n_shards} shards over {num_processes} "
-          f"hosts, shards {mesh.local_shards} on {mesh.device}",
-          flush=True)
+          f"hosts, shards {mesh.local_shards} over {mesh.n_cards} card(s), "
+          f"collectives {mesh.collectives}", flush=True)
+    for k, card in enumerate(mesh.cards):
+        print(f"  card {k:<7} : {card} shards {mesh.shards_on(k)}",
+              flush=True)
     if cfg.get("feeders.enabled"):
         # the lockstep loop is the only feeder of a cluster host's engine,
         # as in the reference's cluster serve
@@ -609,6 +617,7 @@ def cmd_check(_args) -> int:
     import platform
 
     import torch
+    import torch.distributed as dist
 
     import sitewhere_tpu_torch
     from sitewhere_tpu_torch import native
@@ -625,8 +634,13 @@ def cmd_check(_args) -> int:
         for k in range(n):
             print(f"  card cuda:{k}: {torch.cuda.get_device_name(k)}")
         # serve --shards S spreads over min(S, n) of them (S/K shards a
-        # card, K dividing S)
+        # card, K dividing S); a cluster host over min(S/P, n)
         print(f"  serve --shards S: shards in blocks over min(S, {n}) cards")
+        print(f"  serve --cluster-coordinator: a host's S/P shards over "
+              f"min(S/P, {n}) cards; collectives over NCCL when no card is "
+              f"held by two hosts (NCCL "
+              f"{'built' if dist.is_nccl_available() else 'NOT built'}), "
+              f"else gloo")
     else:
         ok = False
         print("cuda device: MISSING (torch.cuda.is_available() is false; "

@@ -17,11 +17,12 @@ over every visible card (`device` "cuda"; a card index pins one card),
 with shard-congruent device interning, as the reference builds it. A
 multi-process mesh (parallel/distributed.py `make_global_mesh`) makes this
 instance one host of the multi-host data plane: its engine holds this
-process's shards, and `ClusterService` (parallel/cluster.py) installs
-itself as `cluster_hooks` before start(), so tenant engines route inbound
-records to their owner host and feed the lockstep step loop. The
-control-plane cluster (`ControlPlaneCluster`) installs itself the same
-way: tenant engines then register their registries with its gossip.
+process's shards over this process's cards, and `ClusterService`
+(parallel/cluster.py) installs itself as `cluster_hooks` before start(),
+so tenant engines route inbound records to their owner host and feed the
+lockstep step loop. The control-plane cluster (`ControlPlaneCluster`)
+installs itself the same way: tenant engines then register their
+registries with its gossip.
 
 The query planner's mesh provider answers the sharded engine's mesh on one
 controller, so a sharded instance's large window queries take the mesh

@@ -38,9 +38,10 @@ host restarts alone (its supervisor) and rebuilds from durable state while
 the survivors keep serving.
 
 **The multi-host data plane** (`ClusterService`): the N processes are the
-hosts of one sharded engine, joined into a `torch.distributed` world over
-gloo (parallel/distributed.py); each holds its own block of shards on its
-own device (parallel/engine.py) and every process runs the same step in
+hosts of one sharded engine, joined into a `torch.distributed` world
+(parallel/distributed.py; the collectives over NCCL when no card is held by
+two processes, else gloo); each holds its own block of shards over its own
+cards (parallel/engine.py) and every process runs the same step in
 lockstep. What that contract demands:
 
 - **ClusterStepLoop** — every process must make the same collectives in
@@ -79,7 +80,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import msgpack
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from sitewhere_tpu_torch.device import on_card
 from sitewhere_tpu_torch.model.common import now_ms
 # the LWW stamp + host-independent content digest are the shared
 # replication core — ONE implementation (multitenant/replication.py)
@@ -88,6 +91,7 @@ from sitewhere_tpu_torch.multitenant.replication import (
     ProvisioningReplicator, content_digest as _content_digest,
     lww_stamp as _gossip_stamp)
 from sitewhere_tpu_torch.ops.pack import EventBatch, empty_batch
+from sitewhere_tpu_torch.parallel.distributed import CollectiveClock
 from sitewhere_tpu_torch.parallel.engine import ShardedPipelineEngine
 from sitewhere_tpu_torch.runtime.bus import ConsumerHost, Record, TopicNaming
 from sitewhere_tpu_torch.runtime.busnet import BusClient, BusNetError
@@ -118,9 +122,11 @@ class ClusterControl:
     times its local shard count, so every host reads the identical total
     and all hosts exit their step loop after the SAME tick — the
     lockstep-safe replacement for "just stop calling submit" (which would
-    hang the peers' collectives). One gloo all_reduce on the mesh's step
-    group (a host tensor); on one controller the count is local.
-    `votes` and `vote_s` count the collective votes and their seconds.
+    hang the peers' collectives). One all_reduce on the mesh's step group:
+    over NCCL of a one-element tensor on the mesh's first card, read back
+    with one `.item()`; over gloo of a host tensor. On one controller the
+    count is local. `clock` (`votes`, `vote_s`) times the collective votes
+    on the host clock (the vote blocks in either form).
     """
 
     def __init__(self, mesh):
@@ -128,8 +134,15 @@ class ClusterControl:
         self.n_shards = mesh.size
         self._local = list(mesh.local_shards)
         self._multiprocess = len(self._local) < self.n_shards
-        self.votes = 0
-        self.vote_s = 0.0
+        self.clock = CollectiveClock()
+
+    @property
+    def votes(self) -> int:
+        return self.clock.calls
+
+    @property
+    def vote_s(self) -> float:
+        return self.clock.seconds
 
     def vote(self, flag: bool) -> int:
         """Collective; every host must call once per tick. Returns the
@@ -138,13 +151,14 @@ class ClusterControl:
             return self.n_shards if flag else 0
         import torch.distributed as dist
 
-        t = torch.tensor([len(self._local) if flag else 0],
-                         dtype=torch.int32)
-        t0 = time.perf_counter()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.mesh.step_group)
-        self.vote_s += time.perf_counter() - t0
-        self.votes += 1
-        return int(t[0])
+        mine = len(self._local) if flag else 0
+        card = (self.mesh.device if self.mesh.collectives == "nccl"
+                else torch.device("cpu"))
+        with record_function("swt::vote"), on_card(card), self.clock.timed():
+            t = torch.full((1,), mine, dtype=torch.int32, device=card)
+            dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                            group=self.mesh.step_group)
+            return int(t.item())
 
 
 # ---------------------------------------------------------------------------

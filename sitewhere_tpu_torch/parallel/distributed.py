@@ -5,14 +5,18 @@ Counterpart of `sitewhere_tpu/parallel/distributed.py`. Its two concerns:
 1. **Cluster bootstrap** (`initialize`, `make_global_mesh`, `live_mesh`,
    `process_shard_indices`). `initialize` joins N processes into one
    `torch.distributed` world over gloo (a TCP store at the coordinator's
-   address, process 0 hosting it) and opens two gloo groups: the step
-   loop's (its stop vote and the step's int32 sums) and the analytics'
-   (the partial grids' all-gather), so that a query and a tick never pair
-   their collectives across processes. Gloo, not NCCL: NCCL refuses two
-   ranks on one GPU, and the collectives are small host tensors; every
-   kernel of the step stays on the card. `make_global_mesh` then builds
-   the mesh that spans every process's shards (parallel/mesh.py): process
-   p holds the contiguous block `[p*S/P, (p+1)*S/P)` on its own device.
+   address, process 0 hosting it). `make_global_mesh` then builds the mesh
+   that spans every process's shards (parallel/mesh.py): process p holds
+   the contiguous block `[p*S/P, (p+1)*S/P)` in card blocks over its own
+   cards. It also picks the collectives' backend from every process's
+   cards, gathered over the world as physical identities (a card's UUID,
+   or "cpu"; `choose_collectives`): NCCL on the device tensors when every
+   process holds CUDA cards and no card is held by two processes, else
+   gloo on host tensors (NCCL refuses two ranks on one GPU). The mesh
+   carries two groups of that backend: the step loop's (its stop vote and
+   the step's int32 sums) and the analytics' (the partial grids'
+   all-gather), so that a query and a tick never pair their collectives
+   across processes.
 
 2. **Window-sharded replay analytics** (`sharded_windowed_stats`). The
    replay's rows split into S contiguous blocks, one a shard; each block
@@ -45,14 +49,15 @@ Counterpart of `sitewhere_tpu/parallel/distributed.py`. Its two concerns:
    device, which need not be one of the mesh's cards.
 
    On a multi-process mesh every process passes the full rows, folds only
-   its own blocks (one `block_partials` pass, one segment-sum launch on
-   its device), all-gathers the `[S_local, K*W]` partials in shard order
-   over the analytics group (host tensors), and runs the same combine, so
-   every process returns the same grids, the single-process S-shard
-   result's bits. The reference's two-process program follows other
-   orders there (probed; ROADMAP C): its psum adds each cell in gloo's
-   chunked ring order, which differs from cell to cell, and its ring
-   answers each process its own first shard's chain.
+   its own blocks (one `block_partials` pass, one segment-sum launch a
+   card), all-gathers the `[S_local, K*W]` partials in shard order over
+   the analytics group (on the first card over NCCL, host tensors over
+   gloo), and runs the same combine, so every process returns the same
+   grids, the single-process S-shard result's bits. The reference's
+   two-process program follows other orders there (probed; ROADMAP C):
+   its psum adds each cell in gloo's chunked ring order, which differs
+   from cell to cell, and its ring answers each process its own first
+   shard's chain.
 
 Empty cells (count 0 on every shard) finalize to the canonical NaN in
 mean, min and max, as one device's grid does. The combine is torch ops in
@@ -66,6 +71,7 @@ import contextlib
 import os
 import threading
 import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -78,12 +84,15 @@ from sitewhere_tpu_torch.device import (
     DeviceLike, on_card, own_stream, resolve_device)
 from sitewhere_tpu_torch.ops.numerics import flush_denormals
 from sitewhere_tpu_torch.parallel.mesh import (
-    ShardMesh, make_mesh, shard_axis_size)
+    ShardMesh, _indexed, make_mesh, shard_axis_size)
 
 _X86_DEFAULT_NAN = -0x00400000   # 0xFFC00000: inf + -inf
 
-# the joined world: its two gloo groups and the global mesh last built
+# the joined world: its two gloo groups, the two NCCL groups (opened the
+# first time a mesh takes NCCL) and the card they are bound to, and the
+# global mesh last built
 _WORLD: Dict[str, object] = {"step_group": None, "query_group": None,
+                             "nccl_groups": None, "nccl_card": None,
                              "mesh": None}
 
 
@@ -105,7 +114,9 @@ def initialize(coordinator_address: Optional[str] = None,
     single-process run (no coordinator configured), so callers need no
     special-casing; with one, joins the gloo world (process 0 hosts the
     TCP store at the coordinator's address; every process blocks until
-    all have joined) and returns True."""
+    all have joined), opens the two gloo groups and returns True. The NCCL
+    groups open with the first mesh that takes NCCL (`make_global_mesh`),
+    once every process's cards are known."""
     coordinator_address = coordinator_address or os.environ.get(
         "SWTPU_COORDINATOR")
     if num_processes is None and "SWTPU_NUM_PROCESSES" in os.environ:
@@ -128,9 +139,9 @@ def initialize(coordinator_address: Optional[str] = None,
         "gloo", init_method=f"tcp://{coordinator_address}",
         world_size=int(num_processes), rank=int(process_id))
     # every process creates the groups in this order (a collective)
-    _WORLD["step_group"] = dist.new_group(backend="gloo")
-    _WORLD["query_group"] = dist.new_group(backend="gloo")
-    _WORLD["mesh"] = None
+    _WORLD.update(step_group=dist.new_group(backend="gloo"),
+                  query_group=dist.new_group(backend="gloo"),
+                  nccl_groups=None, nccl_card=None, mesh=None)
     return True
 
 
@@ -140,7 +151,69 @@ def shutdown() -> None:
 
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
-    _WORLD.update(step_group=None, query_group=None, mesh=None)
+    _WORLD.update(step_group=None, query_group=None, nccl_groups=None,
+                  nccl_card=None, mesh=None)
+
+
+def card_identity(card: torch.device) -> str:
+    """A card's physical identity: its UUID, the same under any
+    CUDA_VISIBLE_DEVICES numbering; "cpu" off the card."""
+    if card.type != "cuda":
+        return "cpu"
+    return str(torch.cuda.get_device_properties(card).uuid)
+
+
+def choose_collectives(identities: Sequence[Sequence[str]]) -> str:
+    """The collectives' backend from every process's card identities (one
+    list a process, in rank order, `card_identity` of each of its cards):
+    "nccl" when every process holds CUDA cards only and no card appears
+    under two processes, else "gloo" (a CPU process, or two processes on
+    one card, which NCCL refuses). Every process passes the same gathered
+    list, so every process reaches the same answer."""
+    owner: Dict[str, int] = {}
+    for p, ids in enumerate(identities):
+        if not ids or "cpu" in ids:
+            return "gloo"
+        for uuid in set(ids):
+            if owner.setdefault(uuid, p) != p:
+                return "gloo"
+    return "nccl"
+
+
+def _groups(backend: str, card: torch.device):
+    """The (step, query) groups of `backend`: gloo's from `initialize`;
+    NCCL's opened the first time a mesh takes NCCL (a collective: every
+    process reaches this with the same backend, in the same order), bound
+    to `card`, this process's first card. Raises where NCCL is chosen but
+    not built."""
+    import torch.distributed as dist
+
+    if backend == "gloo":
+        return _WORLD["step_group"], _WORLD["query_group"]
+    if not dist.is_nccl_available():
+        raise RuntimeError(
+            "every process holds its own CUDA cards, so the cluster's "
+            "collectives go over NCCL, but this torch build has no NCCL "
+            "(torch.distributed.is_nccl_available() is False)")
+    if _WORLD["nccl_groups"] is None:
+        _WORLD.update(nccl_card=card, nccl_groups=tuple(
+            dist.new_group(backend="nccl", device_id=card)
+            for _ in range(2)))
+    elif _WORLD["nccl_card"] != card:
+        raise ValueError(f"this process's NCCL groups are bound to "
+                         f"{_WORLD['nccl_card']}, not {card}")
+    return _WORLD["nccl_groups"]
+
+
+def _local_cards(device: DeviceLike, per_process: int):
+    """This process's cards for `device`: "cuda" without an index takes
+    every visible card, one a shard at most (K = min(S/P, visible)); any
+    other device is one card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        K = min(per_process, torch.cuda.device_count())
+        return tuple(torch.device("cuda", k) for k in range(K))
+    return (_indexed(dev),)
 
 
 def make_global_mesh(devices: Optional[Sequence] = None, *,
@@ -148,24 +221,30 @@ def make_global_mesh(devices: Optional[Sequence] = None, *,
                      device: DeviceLike = "cuda") -> ShardMesh:
     """The mesh over every process's shards.
 
-    In a joined world of P processes: `n_shards` global shards split evenly
-    over the processes (ValueError when P does not divide it) on this
-    process's `device`; or, from a library caller, `devices`, this
-    process's device once for each of its shards (S = P * len(devices));
-    with neither, one shard a process. Without a joined world: one shard
-    per device given, each on its own card (a device given twice holds
-    two blocks), `n_shards` shards on `device`, or one shard per visible
-    card, shard s on card s (raises without one)."""
-    if devices is not None:
-        devs = list(devices)
-        if not devs:
-            raise ValueError("a mesh needs at least one device")
-        local, dev = len(devs), torch.device(devs[0])
-    else:
-        local, dev = None, None
+    In a joined world of P processes (a collective: every process calls it
+    together): `n_shards` global shards (default one a process) split
+    evenly over the processes, this process's S/P in card blocks over its
+    cards: `devices` names them (entries may repeat; without `n_shards`,
+    one shard a card), `device` "cuda" (the default) takes every visible
+    card, K = min(S/P, visible) (the launcher picks a process's cards, e.g.
+    with CUDA_VISIBLE_DEVICES), and any other `device` ("cpu", "cuda:1")
+    is one card. Every process gathers every process's card identities,
+    so all pick the same collectives backend (`choose_collectives`) and
+    open its groups together. What one process refuses (P not dividing
+    S, K not dividing S/P, a card it cannot reach) raises on every
+    process, each refusal named by its process: ValueError where every
+    refusal is one, else RuntimeError.
+
+    Without a joined world: one shard per device given, each on its own
+    card (a device given twice holds two blocks), `n_shards` shards on
+    `device`, or one shard per visible card, shard s on card s (raises
+    without one)."""
+    devs = None if devices is None else list(devices)
+    if devs is not None and not devs:
+        raise ValueError("a mesh needs at least one device")
     if not _joined():
-        if local is not None:
-            return make_mesh(local, devices=devs)
+        if devs is not None:
+            return make_mesh(len(devs), devices=devs)
         if n_shards is not None:
             return ShardMesh(int(n_shards), resolve_device(device))
         count = torch.cuda.device_count()
@@ -178,17 +257,30 @@ def make_global_mesh(devices: Optional[Sequence] = None, *,
     import torch.distributed as dist
 
     P, p = dist.get_world_size(), dist.get_rank()
-    if local is not None:
-        S = local * P
-    else:
-        S = P if n_shards is None else int(n_shards)
-        if S % P:
-            raise ValueError(f"{S} shards do not split evenly over {P} "
-                             f"processes")
-        dev = resolve_device(device)
-    mesh = ShardMesh(S, dev, n_processes=P, process_index=p,
-                     step_group=_WORLD["step_group"],
-                     query_group=_WORLD["query_group"])
+    try:
+        if devs is not None:
+            cards = tuple(_indexed(resolve_device(d)) for d in devs)
+            S = len(cards) * P if n_shards is None else int(n_shards)
+        else:
+            S = P if n_shards is None else int(n_shards)
+            cards = _local_cards(device, S // P)
+        ShardMesh(S, n_processes=P, process_index=p, cards=cards)
+        mine, refusal, error = [card_identity(c) for c in cards], None, None
+    except Exception as exc:
+        # every process must reach the gather, or its peers wait there
+        mine, refusal, error = None, (
+            f"process {p}: {exc}", isinstance(exc, ValueError)), exc
+    gathered: List = [None] * P
+    dist.all_gather_object(gathered, (mine, refusal))
+    refusals = [r for _, r in gathered if r is not None]
+    if refusals:
+        kind = ValueError if all(v for _, v in refusals) else RuntimeError
+        raise kind("; ".join(m for m, _ in refusals)) from error
+    backend = choose_collectives([ids for ids, _ in gathered])
+    step_group, query_group = _groups(backend, cards[0])
+    mesh = ShardMesh(S, n_processes=P, process_index=p, cards=cards,
+                     step_group=step_group, query_group=query_group,
+                     collectives=backend)
     _WORLD["mesh"] = mesh
     return mesh
 
@@ -196,17 +288,70 @@ def make_global_mesh(devices: Optional[Sequence] = None, *,
 def live_mesh() -> Optional[ShardMesh]:
     """The default replay mesh. When two or more processes joined: the
     global mesh (the one last built by `make_global_mesh`, else one shard
-    a process on this process's card). In one process: one shard on each
-    visible card when there are two or more, as the reference's mesh over
-    `jax.devices()`; None with one card or none (a mesh of S shards on one
-    card does the host route's work and a combine on top). A sharded
-    instance's planner takes its engine's mesh instead, and a cluster
-    host's planner none (instance.py `_serving_mesh`)."""
+    a process on this process's card, built collectively). In one
+    process: one shard on each visible card when there are two or more, as
+    the reference's mesh over `jax.devices()`; None with one card or none
+    (a mesh of S shards on one card does the host route's work and a
+    combine on top). A sharded instance's planner takes its engine's mesh
+    instead, and a cluster host's planner none (instance.py
+    `_serving_mesh`)."""
     if _joined():
         return _WORLD["mesh"] or make_global_mesh()
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         return None
     return make_global_mesh()
+
+
+CLOCK_HISTORY = 4096   # a CollectiveClock keeps its last calls' ms
+
+
+class CollectiveClock:
+    """Calls and seconds of one collective site. A gloo call blocks, so it
+    is timed on the host clock; an NCCL call returns once queued, so it is
+    timed by two CUDA events around it on the card's current stream (the
+    wait for the peers included), read once the card has passed them.
+    `recent_ms` keeps the last CLOCK_HISTORY calls' ms."""
+
+    def __init__(self):
+        self.calls = 0
+        self._seconds = 0.0
+        self._pending: deque = deque()
+        self.recent_ms: deque = deque(maxlen=CLOCK_HISTORY)
+
+    @contextlib.contextmanager
+    def timed(self, card: Optional[torch.device] = None):
+        """Time the enclosed collective: on `card`'s stream when it is a
+        CUDA card, else on the host clock."""
+        if card is None or card.type != "cuda":
+            t0 = time.perf_counter()
+            yield
+            self._add(time.perf_counter() - t0)
+        else:
+            stream = torch.cuda.current_stream(card)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            yield
+            end.record(stream)
+            self._pending.append((start, end))
+            self._fold(wait=False)
+        self.calls += 1
+
+    def _add(self, seconds: float) -> None:
+        self._seconds += seconds
+        self.recent_ms.append(seconds * 1e3)
+
+    def _fold(self, wait: bool) -> None:
+        while self._pending and (wait or self._pending[0][1].query()):
+            start, end = self._pending.popleft()
+            end.synchronize()
+            self._add(start.elapsed_time(end) / 1e3)
+
+    @property
+    def seconds(self) -> float:
+        """Every timed call's seconds (waits for the card's last ones)."""
+        self._fold(wait=True)
+        return self._seconds
 
 
 def process_shard_indices(mesh: ShardMesh) -> np.ndarray:
@@ -467,11 +612,22 @@ def _clock(devices, timings) -> float:
 
 def _all_gather_blocks(parts, mesh: ShardMesh):
     """Every process's [S_local, C] partials, concatenated in shard order
-    ([S, C] each) on this process's device. The gloo group carries host
-    tensors: one all-gather of the four partials stacked."""
+    ([S, C] each) on this process's first card: one all-gather of the four
+    partials stacked over the analytics group, of the device tensor over
+    NCCL, of a host copy over gloo."""
     import torch.distributed as dist
 
-    stacked = torch.stack(parts).cpu()             # [4, S_local, C] int32
+    stacked = torch.stack(parts)                   # [4, S_local, C] int32
+    n, C = stacked.shape[1], stacked.shape[2]
+    if mesh.collectives == "nccl":
+        with on_card(mesh.device):
+            got = stacked.new_empty((mesh.n_processes,) + stacked.shape)
+            dist.all_gather_into_tensor(got, stacked,
+                                        group=mesh.query_group)
+        # [P, 4, S_local, C] -> [4, S, C], process p's shards at p*S_local
+        return list(got.transpose(0, 1).reshape(4, mesh.n_processes * n,
+                                                C).unbind(0))
+    stacked = stacked.cpu()
     got = [torch.empty_like(stacked) for _ in range(mesh.n_processes)]
     dist.all_gather(got, stacked, group=mesh.query_group)
     merged = torch.cat(got, dim=1).to(mesh.device)  # [4, S, C]

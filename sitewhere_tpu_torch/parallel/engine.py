@@ -46,9 +46,10 @@ that checkpoints carry across topologies.
 
 On a multi-process mesh (parallel/distributed.py `make_global_mesh`) the
 engine is one host of the reference's multi-host data plane. It holds its
-own contiguous block of shards, stacked `[S_local, D/S, ...]` on its own
-device, and every process runs the same step in lockstep
-(parallel/cluster.py `ClusterStepLoop`):
+own contiguous block of shards in card blocks over its own cards (the
+layout above over `[S_local, D/S, ...]`: one captured body a card a key),
+and every process runs the same step in lockstep (parallel/cluster.py
+`ClusterStepLoop`):
 
   - Per-host feeding. The host route places a batch's rows on all S
     shards; only the local shards' rows are staged, and the rows of
@@ -56,12 +57,14 @@ device, and every process runs the same step in lockstep
     batch with global device indices, for the caller to forward to their
     owner. Device routing is refused, and the wire layout is pinned to the
     full one, so every process captures the same program.
-  - The step loops over the local shards inside the captured graph, and
-    sums the three int32 shard sums locally; after each replay they go
-    through one gloo `all_reduce(SUM)` on the mesh's step group (an
-    integer sum, so the order cannot change a bit). No collective is
-    inside the graph, and `submit` runs no drain steps: a host-local
-    number of steps would pair one host's sums with a peer's next step.
+  - Each card's captured body loops over its shards; the cards' three
+    int32 partials meet on the first card in card order, then go through
+    one `all_reduce(SUM)` over the processes on the mesh's step group (an
+    integer sum, so the order cannot change a bit): over NCCL the device
+    tensor on the first card's current stream, queued after the replays;
+    over gloo a host copy. No collective is inside the graph, and `submit`
+    runs no drain steps: a host-local number of steps would pair one
+    host's sums with a peer's next step.
   - Reads are local: alerts, command fires and the presence sweep cover
     this host's devices, `get_device_state` answers None for another
     host's device, and `stats` are this host's (`scope: local`). The
@@ -81,6 +84,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from sitewhere_tpu_torch.errors import ErrorCode, SiteWhereError
 from sitewhere_tpu_torch.model.event import DeviceAlert
@@ -98,6 +102,7 @@ from sitewhere_tpu_torch.ops.route import (
     host_fits_device_route, route_bucket, route_compact, route_exchange,
     route_lane_capacity)
 from sitewhere_tpu_torch.ops.stateful import init_rule_state
+from sitewhere_tpu_torch.parallel.distributed import CollectiveClock
 from sitewhere_tpu_torch.parallel.mesh import (
     ShardMesh, make_mesh, shard_axis_size)
 from sitewhere_tpu_torch.parallel.router import (
@@ -411,7 +416,7 @@ class ShardedPipelineEngine(PipelineEngine):
         self._local_ids = np.asarray(self.local_shards, np.int32)
         self._local = slice(self.local_shards[0], self.local_shards[-1] + 1)
         self._foreign: Optional[EventBatch] = None
-        self.sum_reduces, self.sum_reduce_s = 0, 0.0
+        self.sum_reduce_clock = CollectiveClock()
         if registry_tensors.devices.capacity % self.n_shards:
             raise ValueError(
                 f"max_devices {registry_tensors.devices.capacity} must be "
@@ -484,6 +489,17 @@ class ShardedPipelineEngine(PipelineEngine):
     @property
     def n_local(self) -> int:
         return len(self.local_shards)
+
+    @property
+    def sum_reduces(self) -> int:
+        """Calls of the sums' all_reduce (`_all_reduce_sums`)."""
+        return self.sum_reduce_clock.calls
+
+    @property
+    def sum_reduce_s(self) -> float:
+        """Their seconds (`CollectiveClock`: host clock over gloo, the
+        card's events over NCCL)."""
+        return self.sum_reduce_clock.seconds
 
     def take_foreign(self) -> Optional[EventBatch]:
         """Rows this host ingested whose owner shard lives on ANOTHER
@@ -1137,22 +1153,24 @@ class ShardedPipelineEngine(PipelineEngine):
         return view, outputs
 
     def _all_reduce_sums(self, outputs: ProcessOutputs) -> ProcessOutputs:
-        """The step's three int32 shard sums over every process: one gloo
-        all_reduce(SUM) of the local sums (a host tensor), after the
-        replay. Every process makes this call once a step, in the same
-        order as the step loop's vote (the mesh's step group).
-        `sum_reduces` and `sum_reduce_s` count these calls and the seconds
-        of their all_reduce."""
+        """The step's three int32 shard sums over every process: one
+        all_reduce(SUM) of the local sums, after the replays. Over NCCL the
+        device tensor on the first card, on its current stream, with no
+        host copy; over gloo a host copy. Every process makes this call
+        once a step, in the same order as the step loop's vote (the mesh's
+        step group). `sum_reduce_clock` times them."""
         import torch.distributed as dist
 
         parts = [getattr(outputs, name) for name in _SUMMED_OUTPUTS]
-        flat = torch.cat([p.reshape(-1) for p in parts]).cpu()
-        t0 = time.perf_counter()
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM,
-                        group=self.mesh.step_group)
-        self.sum_reduce_s += time.perf_counter() - t0
-        self.sum_reduces += 1
-        flat = flat.to(self.device)
+        nccl = self.mesh.collectives == "nccl"
+        with record_function("swt::all_reduce_sums"), on_card(self.device):
+            flat = torch.cat([p.reshape(-1) for p in parts])
+            if not nccl:
+                flat = flat.cpu()
+            with self.sum_reduce_clock.timed(self.device if nccl else None):
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                                group=self.mesh.step_group)
+            flat = flat.to(self.device)
         out, pos = {}, 0
         for name, part in zip(_SUMMED_OUTPUTS, parts):
             out[name] = flat[pos:pos + part.numel()].view(part.shape)

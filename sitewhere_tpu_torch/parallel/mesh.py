@@ -34,14 +34,18 @@ multi-card step on one device).
 A mesh may span P processes (parallel/distributed.py `make_global_mesh`
 under an initialized `torch.distributed` group). The reference lists process
 0's devices first, so process p owns the contiguous block of shards
-`[p*S/P, (p+1)*S/P)` (`local_shards`), stacked `[S_local, D/S, ...]` on its
-one card; global device d still lives on shard `d % S` at local row
-`d // S`. `process_of_shard` is the counterpart of `d.process_index` over the
-reference's `mesh.devices.flat`. The collectives between processes go over
-the gloo groups the mesh carries: `step_group` for the step loop (its stop
-vote and the step's int32 sums), `query_group` for window-sharded analytics,
-so that a query and a tick never pair their collectives across processes.
-A single-process mesh has one process, every shard local and no groups.
+`[p*S/P, (p+1)*S/P)` (`local_shards`), laid out in card blocks over the K
+cards that process holds (K divides S/P): the layout above, over the
+process's own shards. Global device d still lives on shard `d % S` at
+local row `d // S`. `process_of_shard` is the counterpart of
+`d.process_index` over the reference's `mesh.devices.flat`. The
+collectives between processes go over the groups the mesh carries, of the
+backend it names (`collectives`): "nccl" on device tensors when no card is
+held by two processes, else "gloo" on host tensors. `step_group` serves
+the step loop (its stop vote and the step's int32 sums), `query_group`
+window-sharded analytics, so that a query and a tick never pair their
+collectives across processes. A single-process mesh has one process, every
+shard local, no groups and `collectives` None.
 """
 
 from __future__ import annotations
@@ -71,12 +75,13 @@ class ShardMesh:
     does."""
 
     __slots__ = ("n_shards", "cards", "n_processes", "process_index",
-                 "step_group", "query_group")
+                 "step_group", "query_group", "collectives")
 
     def __init__(self, n_shards: int, device=None,
                  n_processes: int = 1, process_index: int = 0,
                  step_group=None, query_group=None,
-                 cards: Optional[Sequence[torch.device]] = None):
+                 cards: Optional[Sequence[torch.device]] = None,
+                 collectives: Optional[str] = None):
         if int(n_shards) < 1:
             raise ValueError(f"a mesh needs at least one shard, got "
                              f"{n_shards}")
@@ -96,15 +101,13 @@ class ShardMesh:
                 f"{len(cards)} cards do not divide the {n_local} shards "
                 f"{'of this process ' if int(n_processes) > 1 else ''}"
                 f"(each card holds S/K shards)")
-        if int(n_processes) > 1 and len(cards) > 1:
-            raise ValueError("a process of a multi-process mesh holds one "
-                             "card")
         self.n_shards = int(n_shards)
         self.cards: Tuple[torch.device, ...] = cards
         self.n_processes = int(n_processes)
         self.process_index = int(process_index)
         self.step_group = step_group
         self.query_group = query_group
+        self.collectives = collectives
 
     @property
     def device(self) -> torch.device:
@@ -163,18 +166,18 @@ class ShardMesh:
     @property
     def devices(self) -> np.ndarray:
         """The card of each shard, as a JAX mesh's `devices` array (on a
-        multi-process mesh this process's card stands for every shard:
-        torch names no device of another process)."""
+        multi-process mesh this process's first card stands for another
+        process's shards: torch names no device of another process)."""
         out = np.empty(self.n_shards, dtype=object)
-        if self.is_multiprocess:
-            out[:] = [self.device] * self.n_shards
-        else:
-            per = self.shards_per_card
-            out[:] = [self.cards[s // per] for s in range(self.n_shards)]
+        out[:] = [self.device] * self.n_shards
+        first, per = self.local_shards[0], self.shards_per_card
+        for s in self.local_shards:
+            out[s] = self.cards[(s - first) // per]
         return out
 
     def __repr__(self) -> str:
         procs = (f", process {self.process_index} of {self.n_processes}"
+                 f" over {self.collectives}"
                  if self.is_multiprocess else "")
         where = (f"device={self.device}" if self.n_cards == 1 else
                  f"cards=({', '.join(map(str, self.cards))})")

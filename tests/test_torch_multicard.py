@@ -87,13 +87,18 @@ def test_mesh_blocks_put_shard_s_on_card_s_over_s_per_card(K):
 def test_mesh_refusals():
     """K must divide S; "cuda" without a card raises (no CPU stand-in);
     `live_mesh` answers None without a card; a process of a multi-process
-    mesh holds one card."""
+    mesh holds K cards, K dividing its S/P shards."""
     with pytest.raises(ValueError, match="3 cards do not divide 8"):
         make_mesh(S, devices=blocks(3))
     with pytest.raises(ValueError, match="at least one card"):
         make_mesh(S, devices=())
-    with pytest.raises(ValueError, match="one card"):
-        ShardMesh(4, n_processes=2, cards=blocks(2))
+    with pytest.raises(ValueError, match="3 cards do not divide the 4 "
+                                         "shards of this process"):
+        ShardMesh(8, n_processes=2, cards=blocks(3))
+    host = ShardMesh(8, n_processes=2, process_index=1, cards=blocks(2))
+    assert host.local_shards == [4, 5, 6, 7] and host.shards_per_card == 2
+    assert [host.shards_on(k) for k in range(2)] == [[4, 5], [6, 7]]
+    assert [host.card_of_shard(s) for s in host.local_shards] == [0, 0, 1, 1]
     with pytest.raises(ValueError, match="do not divide"):
         ShardMesh(4, cards=blocks(3))
     if not torch.cuda.is_available():
